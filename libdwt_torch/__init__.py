@@ -1,0 +1,37 @@
+"""libdwt_torch — the PyTorch / CUDA port of libdwt_tpu for NVIDIA Hopper.
+
+Ported so far: the wavelet registry, subband geometry, the lifting engine,
+the separable oracle (1/2/3-D, f32/f64/int32), the 2-D API, and the fused
+2-D pyramid on four hand-written CUDA kernels (two-level forward and
+inverse, deep forward and inverse tails).  Entry points run on the card
+unless given a CPU tensor or ``device='cpu'``.
+
+Top-level names follow ``libdwt_tpu``: ``wavedec2`` & co. are the
+separable oracle, ``wavedec2_fast`` & co. the dispatching API
+(:mod:`libdwt_torch.api`).
+"""
+from libdwt_torch.models.wavelets import (CDF53, CDF97, INTERP53, REGISTRY,
+                                          Wavelet, get_wavelet)
+from libdwt_torch.ops.separable import (dwt1, dwt2_level, dwt3_level, fdwt1,
+                                        fdwt2, fdwt3, idwt1, idwt1_packed,
+                                        idwt2, idwt2_level, idwt3, idwt3_level,
+                                        wavedec1, wavedec2, wavedec3, waverec1,
+                                        waverec2, waverec3)
+from libdwt_torch.utils.subband import (band_rect, band_view, ceil_div_pow2,
+                                        count_subbands, j_limit, level_sizes,
+                                        resolve_j, zero_padding_f,
+                                        zero_padding_i)
+from libdwt_torch.api import get_impl, set_impl
+from libdwt_torch.api import dwt2 as dwt2_level_fast, idwt2 as idwt2_level_fast
+from libdwt_torch.api import wavedec2 as wavedec2_fast, waverec2 as waverec2_fast
+from libdwt_torch.api import wavedec3 as wavedec3_fast, waverec3 as waverec3_fast
+from libdwt_torch.interop import pyramid_from_numpy, pyramid_to_numpy
+from libdwt_torch.ops import UnsupportedGeometry
+from libdwt_torch.ops.fused import (KERNELS, fused_deep_wavedec2,
+                                    fused_deep_waverec2, fused_dwt2_2level,
+                                    fused_dwt2_level, fused_idwt2_2level,
+                                    fused_idwt2_level, fused_supported,
+                                    fused_wavedec2, fused_waverec2,
+                                    reset_counters)
+
+__version__ = "0.1.0"
