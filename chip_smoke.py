@@ -4,20 +4,29 @@
     python3 chip_smoke.py [--seed N] [--reps N]
 
 1. Builds every CUDA kernel of the port from ``libdwt_torch/csrc``.
-2. Drives the main path once through the public API:
-   ``libdwt_torch.api.wavedec2`` / ``waverec2`` with CDF 9/7, float32,
-   J=5, ``impl='fused'`` on a 2144x4096 frame made from a numpy seed,
-   and checks from the launch counts that the two-level kernels (B2, B5)
-   and the deep tails (B3, B6) ran.
-3. Checks the pyramid against the port's separable oracle on the card
-   (max |diff| <= 5e-4) and the round trip (max |err| <= 1e-3).
+2. Drives three paths through the public API, each with the launch
+   counts set to 0 just before it and read just after, on data made from
+   a numpy seed (CDF 9/7, float32):
+   - the 2-D pyramid: ``api.wavedec2`` / ``waverec2``, J=5,
+     ``impl='fused'`` on a 2144x4096 frame (two-level kernels B2/B5,
+     deep tails B3/B6);
+   - the single fused levels: ``api.dwt2`` / ``idwt2`` with
+     ``impl='fused'`` on the same frame (B1/B4), and ``api.wavedec2`` of
+     a 2161x4097 frame, J=5, whose plan is B1, B1, then B3;
+   - the 3-D volume: ``api.wavedec3`` / ``waverec3``, J=2,
+     ``impl='fused'`` on 64x512x512 (B14/B15, twice each).
+3. Checks each path against the port's separable oracle on the card
+   (pyramids <= 5e-4, single levels <= 3e-5, round trips <= 1e-3), the
+   reference's bench gates of B1 (int32 CDF 5/3 at 512x512 exact, f32 at
+   513x511 <= 3e-5), the extended-rows contract, int32 CDF 5/3 through
+   every kernel (exactly equal to the plain versions and the oracle), and
+   that 'auto' on the CUDA volume takes the 3-D kernels.
 4. Holds each kernel against its plain PyTorch version on the card at
-   its main-path shapes (float32: <= 3e-5), and runs int32 CDF 5/3
-   through each kernel at 512x512 (exactly equal to the plain versions
-   and to the separable oracle).
+   its path's shapes (float32: <= 3e-5).
 5. Times each kernel and its plain version with CUDA events, beside the
-   card's bound for the same work, and prints the card's name and power
-   limit, a JSON line of kernels, and last the contract line.
+   card's bound for the same work, times and profiles the paths, and
+   prints the card's name and power limit, a JSON line of kernels, and
+   last the contract line.
 
 Exits non-zero, printing no result line, when there is no CUDA device
 or any check fails.  Needs one card.
@@ -41,6 +50,8 @@ CARD_PEAKS = (
 #: float ops per pixel per level of a 4-step lifting pass on both axes:
 #: per axis 4 steps x 3 ops on half the samples, plus one scale multiply.
 OPS_PER_PIXEL_LEVEL = 13
+#: the same per voxel of a 3-D level: three axes, three scale multiplies.
+OPS_PER_VOXEL_LEVEL = 21
 
 
 def card_peaks(name: str):
@@ -70,6 +81,9 @@ def max_abs(a, b) -> float:
 
 
 def leaves(tree):
+    """Leaves of a pyramid, band tuple or band dict (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in leaves(t)]
     return [tree]
@@ -91,9 +105,9 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_main_path(run, smi: str) -> None:
-    """Device time by kernel name and the device's busy share over one
-    forward + inverse run of the main path (torch.profiler, CUPTI)."""
+def profile_path(label: str, run, smi: str) -> None:
+    """Device time by kernel name and the device's busy share over one run
+    of a path (torch.profiler, CUPTI)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,9 +129,9 @@ def profile_main_path(run, smi: str) -> None:
             by_name[e.key] = (us, e.count)
     busy = sum(us for us, _ in by_name.values())
     if not by_name:
-        print("profile main path: no device time recorded (not measured)")
+        print(f"profile {label}: no device time recorded (not measured)")
         return
-    print(f"profile main path (wavedec2 + waverec2, {smi}): wall {wall_us:.1f} us, "
+    print(f"profile {label} ({smi}): wall {wall_us:.1f} us, "
           f"device busy {busy:.1f} us ({100 * busy / wall_us:.1f}%)")
     for key, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
         print(f"profile   {us:10.1f} us  x{n:<3d} {key[:90]}")
@@ -146,6 +160,7 @@ def main() -> int:
     from libdwt_torch import api
     from libdwt_torch.ops import _cuda
     from libdwt_torch.ops import fused as F
+    from libdwt_torch.ops import fused3d as F3
     from libdwt_torch.ops import separable as sep
     from libdwt_torch.utils.testimg import test_image
 
@@ -171,6 +186,8 @@ def main() -> int:
 
     # ---- 2. the main path: 2144x4096 f32 CDF 9/7 J=5, impl='fused'
     H, W, J, WV = 2144, 4096, 5, "cdf97"
+    HO, WO = 2161, 4097  # odd frame: its plan holds single fused levels
+    VOL, J3 = (64, 512, 512), 2  # bench.py's 3-D config
     rng = np.random.default_rng(args.seed)
     x = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
     torch.cuda.synchronize()
@@ -178,7 +195,7 @@ def main() -> int:
     coeffs = api.wavedec2(x, WV, J, impl="fused")
     rec = api.waverec2(coeffs, WV, impl="fused")
     torch.cuda.synchronize()
-    launches = {k: s.launches for k, s in F.KERNELS.items()}
+    launches = {k: F.KERNELS[k].launches for k in ("B2", "B3", "B5", "B6")}
     print("main-path launches: " + json.dumps(launches), flush=True)
     for k, n in launches.items():
         require(n > 0, f"{k} {F.KERNELS[k].name} launched on the main path ({n})")
@@ -203,17 +220,17 @@ def main() -> int:
     cases = {
         "B2": (lambda: F.fused_dwt2_2level(x, WV),
                lambda: F.fused_dwt2_2level_plain(x, WV),
-               x.numel() * 4 * 2, x.numel() * 1.25),
+               x.numel() * 4 * 2, x.numel() * 1.25 * OPS_PER_PIXEL_LEVEL),
         "B3": (lambda: F.fused_deep_wavedec2(ll2, WV, 3),
                lambda: F.fused_deep_wavedec2_plain(ll2, WV, 3),
-               ll2.numel() * 4 * 2, ll2.numel() * (1 + 1 / 4 + 1 / 16)),
+               ll2.numel() * 4 * 2, ll2.numel() * (1 + 1 / 4 + 1 / 16) * OPS_PER_PIXEL_LEVEL),
         "B6": (lambda: F.fused_deep_waverec2(deep_in, WV),
                lambda: F.fused_deep_waverec2_plain(deep_in, WV),
-               ll2.numel() * 4 * 2, ll2.numel() * (1 + 1 / 4 + 1 / 16)),
+               ll2.numel() * 4 * 2, ll2.numel() * (1 + 1 / 4 + 1 / 16) * OPS_PER_PIXEL_LEVEL),
         "B5": (lambda: F.fused_idwt2_2level(*b5_in, WV),
                lambda: F.fused_idwt2_2level_plain(*b5_in, WV),
-               x.numel() * 4 * 2, x.numel() * 1.25),
-    }
+               x.numel() * 4 * 2, x.numel() * 1.25 * OPS_PER_PIXEL_LEVEL),
+    }  # kernel, plain, bytes moved, float operations
     errs = {}
     for k, (kern, plain, _, _) in cases.items():
         errs[k] = max_abs(leaves(kern()), leaves(plain()))
@@ -243,35 +260,193 @@ def main() -> int:
         require(max_abs(back, inv_plain(oracle)) == 0 and max_abs(back, xi) == 0,
                 f"int32 cdf53 512x512 {tag} inverse == plain == input")
 
-    # ---- 5. times at the main-path shapes
-    rows = []
-    for k, (kern, plain, nbytes, pix) in cases.items():
+    # ---- the single-level path: dwt2/idwt2 'fused' at 2144x4096 (B1/B4),
+    # then the 2161x4097 J=5 pyramid (B1, B1, then B3 for 3 levels)
+    F.reset_counters()
+    bands = api.dwt2(x, WV, impl="fused")
+    rec1 = api.idwt2(*bands, WV, impl="fused")
+    torch.cuda.synchronize()
+    level_launches = {k: F.KERNELS[k].launches for k in ("B1", "B4")}
+    print("single-level launches: " + json.dumps(level_launches), flush=True)
+    require(level_launches == {"B1": 1, "B4": 1},
+            "api.dwt2/idwt2 impl='fused' launched B1 and B4 once each")
+    err = max_abs(list(bands), list(sep.dwt2_level(x, WV)))
+    require(err <= 3e-5, f"dwt2 {H}x{W} vs separable oracle max|diff| {err:.3e} <= 3e-5")
+    err = max_abs(rec1, x)
+    require(err <= 1e-3, f"dwt2/idwt2 round trip max|err| {err:.3e} <= 1e-3")
+    xo = torch.from_numpy(rng.random((HO, WO), dtype=np.float32)).to(dev)
+    torch.cuda.synchronize()
+    F.reset_counters()
+    odd = api.wavedec2(xo, WV, J, impl="fused")
+    torch.cuda.synchronize()
+    odd_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print(f"{HO}x{WO} pyramid launches: " + json.dumps(odd_launches), flush=True)
+    require(odd_launches == {"B1": 2, "B3": 3},
+            f"{HO}x{WO} J={J} pyramid ran B1, B1, then B3 for 3 levels")
+    err = max_abs(leaves(odd), leaves(sep.wavedec2(xo, WV, J)))
+    require(err <= 5e-4, f"{HO}x{WO} pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    launches["B1"] = level_launches["B1"] + odd_launches["B1"]
+    launches["B4"] = level_launches["B4"]
+    # the odd pyramid's kernels vs their plain versions at its shapes:
+    # B1 at 2161x4097 and 1081x2049 (ceil/floor bands), B3 at 541x1025
+    odd_l1 = F.fused_dwt2_level(xo, WV)[0]
+    odd_l2 = F.fused_dwt2_level(odd_l1, WV)[0]
+    for k, arg, kern, plain in (
+            ("B1", xo, lambda a: F.fused_dwt2_level(a, WV),
+             lambda a: F.dwt2_level_plain(a, WV)),
+            ("B1", odd_l1, lambda a: F.fused_dwt2_level(a, WV),
+             lambda a: F.dwt2_level_plain(a, WV)),
+            ("B3", odd_l2, lambda a: F.fused_deep_wavedec2(a, WV, 3),
+             lambda a: F.fused_deep_wavedec2_plain(a, WV, 3))):
+        err = max_abs(leaves(kern(arg)), leaves(plain(arg)))
+        torch.cuda.synchronize()
+        require(err <= 3e-5, f"{k} kernel vs plain at {'x'.join(map(str, arg.shape))} "
+                f"({HO}x{WO} pyramid) max|diff| {err:.3e} <= 3e-5")
+
+    # ---- the bench gates of B1, and the extended-rows contract
+    xs = torch.from_numpy(rng.standard_normal((513, 511)).astype(np.float32)).to(dev)
+    got = api.dwt2(xs, WV, impl="fused")
+    err = max_abs(list(got), list(sep.dwt2_level(xs, WV)))
+    require(err <= 3e-5, f"f32 513x511 B1 vs separable oracle max|diff| {err:.3e} <= 3e-5")
+    err = max_abs(list(got), list(F.dwt2_level_plain(xs, WV)))
+    require(err <= 3e-5, f"f32 513x511 B1 vs plain max|diff| {err:.3e} <= 3e-5")
+    got = F.fused_dwt2_level(xi, "cdf53")
+    require(max_abs(list(got), list(F.dwt2_level_plain(xi, "cdf53"))) == 0
+            and max_abs(list(got), list(sep.dwt2_level(xi, "cdf53"))) == 0,
+            "int32 cdf53 512x512 B1 forward == plain == oracle")
+    back = F.fused_idwt2_level(*got, "cdf53")
+    require(max_abs(back, F.idwt2_level_plain(*got, "cdf53")) == 0 and max_abs(back, xi) == 0,
+            "int32 cdf53 512x512 B4 inverse == plain == input")
+    xe = torch.from_numpy(rng.standard_normal((512 + 2 * F.HALO, 512)).astype(np.float32)).to(dev)
+    got = F.fused_dwt2_level(xe, WV, boundary_rows="extended")
+    err = max_abs(list(got), list(F.dwt2_level_plain(xe, WV, ext=True)))
+    require(err <= 3e-5, f"extended rows 512x512 (+4 rows each side) B1 vs plain "
+            f"max|diff| {err:.3e} <= 3e-5")
+    be = [torch.from_numpy(rng.standard_normal((256 + 2 * F.CH, 256)).astype(np.float32)).to(dev)
+          for _ in range(4)]
+    back = F.fused_idwt2_level(*be, WV, boundary_rows="extended")
+    err = max_abs(back, F.idwt2_level_plain(*be, WV, ext=True))
+    require(tuple(back.shape) == (512, 512) and err <= 3e-5,
+            f"extended rows 512x512 (+4 channel rows each side) B4 vs plain "
+            f"max|diff| {err:.3e} <= 3e-5")
+
+    # ---- the 3-D path: wavedec3/waverec3 'fused', 64x512x512 J=2 (B14, B15)
+    v = torch.from_numpy(rng.random(VOL, dtype=np.float32)).to(dev)
+    torch.cuda.synchronize()
+    F.reset_counters()
+    c3 = api.wavedec3(v, WV, J3, impl="fused")
+    r3 = api.waverec3(c3, WV, impl="fused")
+    torch.cuda.synchronize()
+    vol_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print("3-D path launches: " + json.dumps(vol_launches), flush=True)
+    require(vol_launches == {"B14": J3, "B15": J3},
+            f"wavedec3/waverec3 J={J3} launched B14 and B15 {J3} times each")
+    launches.update(vol_launches)
+    want3 = sep.wavedec3(v, WV, J3)
+    require(all(bool(torch.isfinite(a).all()) for a in leaves(c3) + [r3]),
+            "volume pyramid and reconstruction are finite")
+    err = max_abs(leaves(c3), leaves(want3))
+    require(err <= 5e-4, f"volume pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    err = max_abs(r3, v)
+    require(err <= 1e-3, f"volume round trip max|err| {err:.3e} <= 1e-3")
+    F.reset_counters()
+    api.waverec3(api.wavedec3(v, WV, J3), WV)
+    torch.cuda.synchronize()
+    require((F.KERNELS["B14"].launches, F.KERNELS["B15"].launches) == (J3, J3),
+            "'auto' on the CUDA volume takes B14 and B15")
+    vi = torch.from_numpy(rng.integers(-255, 256, (32, 64, 64)).astype(np.int32)).to(dev)
+    got = F3.fused_dwt3_level(vi, "cdf53")
+    require(max_abs(leaves(got), leaves(F3.dwt3_level_plain(vi, "cdf53"))) == 0
+            and max_abs(leaves(got), leaves(sep.dwt3_level(vi, "cdf53"))) == 0,
+            "int32 cdf53 32x64x64 B14 forward == plain == oracle")
+    back = F3.fused_idwt3_level(got, "cdf53")
+    require(max_abs(back, F3.idwt3_level_plain(got, "cdf53")) == 0 and max_abs(back, vi) == 0,
+            "int32 cdf53 32x64x64 B15 inverse == plain == input")
+
+    # ---- the new kernels vs their plain versions at their paths' shapes
+    b14_l1 = F3.fused_dwt3_level(v, WV)
+    ll3 = b14_l1["LLL"]  # 32x256x256, level 2's input
+    b14_l2 = F3.fused_dwt3_level(ll3, WV)
+    new_cases = {
+        "B1": (lambda: F.fused_dwt2_level(x, WV), lambda: F.dwt2_level_plain(x, WV),
+               x.numel() * 4 * 2, x.numel() * OPS_PER_PIXEL_LEVEL),
+        "B4": (lambda: F.fused_idwt2_level(*bands, WV),
+               lambda: F.idwt2_level_plain(*bands, WV),
+               x.numel() * 4 * 2, x.numel() * OPS_PER_PIXEL_LEVEL),
+        "B14": (lambda: F3.fused_dwt3_level(v, WV), lambda: F3.dwt3_level_plain(v, WV),
+                v.numel() * 4 * 2, v.numel() * OPS_PER_VOXEL_LEVEL),
+        "B15": (lambda: F3.fused_idwt3_level(b14_l1, WV),
+                lambda: F3.idwt3_level_plain(b14_l1, WV),
+                v.numel() * 4 * 2, v.numel() * OPS_PER_VOXEL_LEVEL),
+    }
+    level2 = {
+        "B14": (lambda: F3.fused_dwt3_level(ll3, WV), lambda: F3.dwt3_level_plain(ll3, WV),
+                ll3.numel() * 4 * 2, ll3.numel() * OPS_PER_VOXEL_LEVEL),
+        "B15": (lambda: F3.fused_idwt3_level(b14_l2, WV),
+                lambda: F3.idwt3_level_plain(b14_l2, WV),
+                ll3.numel() * 4 * 2, ll3.numel() * OPS_PER_VOXEL_LEVEL),
+    }
+    for k, (kern, plain, _, _) in new_cases.items():
+        errs[k] = max_abs(leaves(kern()), leaves(plain()))
+        torch.cuda.synchronize()
+        require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
+                f"max|diff| {errs[k]:.3e} <= 3e-5")
+    for k, (kern, plain, _, _) in level2.items():
+        err = max_abs(leaves(kern()), leaves(plain()))
+        torch.cuda.synchronize()
+        require(err <= 3e-5, f"{k} kernel vs plain at level 2 ({'x'.join(map(str, ll3.shape))}) "
+                f"max|diff| {err:.3e} <= 3e-5")
+
+    # ---- times at the paths' shapes
+    def timed(k, kern, plain, nbytes, ops, tag=""):
         ms = time_ms(kern, args.reps)
         plain_ms = time_ms(plain, max(3, args.reps // 4), warm=1)
         bytes_ms = nbytes / bw * 1e3
-        ops_ms = pix * OPS_PER_PIXEL_LEVEL / flops * 1e3
+        ops_ms = ops / flops * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"time {k}{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {max(bytes_ms, ops_ms):.4f} ms ({bound_by}; "
+              f"{nbytes / 1e6:.1f} MB moved) [{smi}]", flush=True)
+        return ms, plain_ms, max(bytes_ms, ops_ms), bound_by
+
+    rows = []
+    all_cases = {**cases, **new_cases}
+    for k in sorted(all_cases, key=lambda kid: int(kid[1:])):
+        ms, plain_ms, bound_ms, bound_by = timed(k, *all_cases[k])
         st = F.KERNELS[k]
         rows.append({
             "name": f"{k} {st.name}", "route": "cuda", "source": st.source,
             "replaces": st.replaces, "launches": launches[k],
             "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-        print(f"time {k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(bytes_ms, ops_ms):.4f} ms "
-              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-              f"{nbytes / 1e6:.1f} MB moved) [{smi}]", flush=True)
+    for k, case in level2.items():
+        timed(k, *case, tag=f" level 2 ({'x'.join(map(str, ll3.shape))})")
     fwd_ms = time_ms(lambda: api.wavedec2(x, WV, J, impl="fused"), args.reps)
     inv_ms = time_ms(lambda: api.waverec2(coeffs, WV, impl="fused"), args.reps)
     sep_ms = time_ms(lambda: sep.wavedec2(x, WV, J), max(3, args.reps // 4), warm=1)
     print(f"time main path: wavedec2 {fwd_ms:.4f} ms, waverec2 {inv_ms:.4f} ms, "
           f"separable wavedec2 {sep_ms:.4f} ms "
           f"({H}x{W} f32 J={J}) [{smi}]", flush=True)
+    fwd_ms = time_ms(lambda: api.dwt2(x, WV, impl="fused"), args.reps)
+    inv_ms = time_ms(lambda: api.idwt2(*bands, WV, impl="fused"), args.reps)
+    odd_ms = time_ms(lambda: api.wavedec2(xo, WV, J, impl="fused"), args.reps)
+    print(f"time single-level path: dwt2 {fwd_ms:.4f} ms, idwt2 {inv_ms:.4f} ms "
+          f"({H}x{W} f32), wavedec2 {odd_ms:.4f} ms ({HO}x{WO} f32 J={J}) [{smi}]",
+          flush=True)
+    fwd_ms = time_ms(lambda: api.wavedec3(v, WV, J3, impl="fused"), args.reps)
+    inv_ms = time_ms(lambda: api.waverec3(c3, WV, impl="fused"), args.reps)
+    sep_ms = time_ms(lambda: sep.wavedec3(v, WV, J3), max(3, args.reps // 4), warm=1)
+    print(f"time 3-D path: wavedec3 {fwd_ms:.4f} ms, waverec3 {inv_ms:.4f} ms, "
+          f"separable wavedec3 {sep_ms:.4f} ms "
+          f"({'x'.join(map(str, VOL))} f32 J={J3}) [{smi}]", flush=True)
 
-    profile_main_path(lambda: api.waverec2(api.wavedec2(x, WV, J, impl="fused"),
-                                           WV, impl="fused"), smi)
+    profile_path("main path (wavedec2 + waverec2)",
+                 lambda: api.waverec2(api.wavedec2(x, WV, J, impl="fused"), WV, impl="fused"),
+                 smi)
+    profile_path("3-D path (wavedec3 + waverec3)",
+                 lambda: api.waverec3(api.wavedec3(v, WV, J3, impl="fused"), WV, impl="fused"),
+                 smi)
 
     print(smi)
     print(json.dumps({"kernels": rows}))

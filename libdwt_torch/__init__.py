@@ -1,10 +1,11 @@
 """libdwt_torch — the PyTorch / CUDA port of libdwt_tpu for NVIDIA Hopper.
 
 Ported so far: the wavelet registry, subband geometry, the lifting engine,
-the separable oracle (1/2/3-D, f32/f64/int32), the 2-D API, and the fused
-2-D pyramid on four hand-written CUDA kernels (two-level forward and
-inverse, deep forward and inverse tails).  Entry points run on the card
-unless given a CPU tensor or ``device='cpu'``.
+the separable oracle (1/2/3-D, f32/f64/int32), the 2-D and 3-D API, the
+fused 2-D levels and pyramid on hand-written CUDA kernels (single level,
+two-level and deep forward and inverse) and the fused 3-D level, forward
+and inverse.  Entry points run on the card unless given a CPU tensor or
+``device='cpu'``.
 
 Top-level names follow ``libdwt_tpu``: ``wavedec2`` & co. are the
 separable oracle, ``wavedec2_fast`` & co. the dispatching API
@@ -33,5 +34,6 @@ from libdwt_torch.ops.fused import (KERNELS, fused_deep_wavedec2,
                                     fused_idwt2_level, fused_supported,
                                     fused_wavedec2, fused_waverec2,
                                     reset_counters)
+from libdwt_torch.ops.fused3d import fused_dwt3_level, fused_idwt3_level
 
 __version__ = "0.1.0"

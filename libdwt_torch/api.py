@@ -1,18 +1,20 @@
-"""High-level dispatching API (port of ``libdwt_tpu.api``, the 2-D half
-plus separable 3-D).
+"""High-level dispatching API (port of ``libdwt_tpu.api``).
 
 Strategies:
   * ``separable``    — batched torch lifting (the oracle; always valid)
-  * ``fused``        — the hand-written CUDA tile kernels of ops/fused
-                       (their plain versions for CPU tensors)
-  * ``streamed``, ``streamed-mxu`` — not ported yet (ROADMAP rows B7-B13)
+  * ``fused``        — the hand-written CUDA tile kernels of ops/fused and
+                       ops/fused3d (their plain versions for CPU tensors)
+  * ``streamed``, ``streamed-mxu`` — not ported yet (ROADMAP rows B7-B13,
+                       and B16-B17 in 3-D)
   * ``auto``         — built-in thresholds (no tuned table for the GPU yet)
 
-An explicit ``impl`` is honoured or raises.  'auto' picks 'fused' only on
-a CUDA tensor with 1024 <= min(h, w) < 2048, as the reference does for an
-untuned device, and only where the fused schedule runs ported kernels
-alone: until the single fused levels (B1/B4) are ported, a geometry that
-needs one goes to 'separable' under 'auto'.
+An explicit ``impl`` is honoured or raises.  In 2-D 'auto' picks 'fused'
+on a CUDA tensor with 1024 <= min(h, w) < 2048, as the reference does
+for an untuned device.  In 3-D 'auto' picks 'fused' on a CUDA tensor
+wherever the level's geometry allows it (even dims > 4), as the
+reference does on its accelerator with no table.  'auto' picks 'fused'
+only for a dtype that has a kernel (float32, int32): float64 stays on
+the separable path.
 
 Devices: a torch tensor stays on its own device; anything else goes to
 ``device`` (default: the card; without CUDA that raises — pass
@@ -24,9 +26,12 @@ from typing import Optional
 
 import torch
 
+from libdwt_torch.ops import UnsupportedGeometry
 from libdwt_torch.ops import fused as _fused
+from libdwt_torch.ops import fused3d as _fused3d
 from libdwt_torch.ops import separable as _sep
 from libdwt_torch.utils.device import as_tensor
+from libdwt_torch.utils.log import get_logger
 from libdwt_torch.utils.subband import resolve_j
 
 __all__ = ["set_impl", "get_impl", "dwt2", "idwt2", "wavedec2", "waverec2",
@@ -64,11 +69,15 @@ def _not_ported(impl: str):
     )
 
 
+def _auto_fused_ok(on_cuda: bool, dtype) -> bool:
+    """'auto' may take a kernel: a CUDA tensor of a kernel's dtype."""
+    return on_cuda and dtype in _fused.KERNEL_DTYPES
+
+
 def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
-               fused_ok: bool = True) -> str:
+               dtype) -> str:
     """'separable' | 'fused'.  Explicit requests are honoured or raise;
-    'auto' uses the built-in thresholds.  ``fused_ok``: the fused
-    schedule of this call runs ported kernels only."""
+    'auto' uses the built-in thresholds."""
     impl = impl or _default_impl
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}")
@@ -84,7 +93,7 @@ def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
                 "symmetric-step wavelet"
             )
         return impl
-    if not (feasible and on_cuda and fused_ok):
+    if not (feasible and _auto_fused_ok(on_cuda, dtype)):
         return "separable"
     return "fused" if _AUTO_MIN_SIZE <= min(h, w) < _AUTO_FUSED_MAX else "separable"
 
@@ -93,8 +102,15 @@ def _frames(x):
     return x.reshape((-1,) + tuple(x.shape[-2:]))
 
 
+def _unframe(per, batch):
+    """Stack per-frame results and restore the batch dimensions."""
+    s = torch.stack(per)
+    return s.reshape(tuple(batch) + tuple(s.shape[-2:]))
+
+
 def dwt2(x, wavelet="cdf97", impl: Optional[str] = None, device=None):
-    """Single-level 2-D forward transform -> (LL, HL, LH, HH)."""
+    """Single-level 2-D forward transform -> (LL, HL, LH, HH).  With
+    'fused' each frame of a batch (..., H, W) runs B1 in turn."""
     x = as_tensor(x, device)
     if impl == "streamed-mxu":
         raise ValueError(
@@ -102,9 +118,11 @@ def dwt2(x, wavelet="cdf97", impl: Optional[str] = None, device=None):
             "(wavedec2/waverec2); use impl='streamed' for single levels"
         )
     h, w = x.shape[-2], x.shape[-1]
-    # the single fused level is B1, not ported yet: 'auto' never picks it
-    if _pick_impl(h, w, wavelet, impl, x.is_cuda, fused_ok=False) == "fused":
-        _fused.fused_dwt2_level(x, wavelet)
+    if _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype) == "fused":
+        if x.ndim == 2:
+            return _fused.fused_dwt2_level(x, wavelet)
+        per = [_fused.fused_dwt2_level(f, wavelet) for f in _frames(x)]
+        return tuple(_unframe([p[k] for p in per], x.shape[:-2]) for k in range(4))
     return _sep.dwt2_level(x, wavelet)
 
 
@@ -121,8 +139,13 @@ def idwt2(ll, hl, lh, hh, wavelet="cdf97", impl: Optional[str] = None,
             "(wavedec2/waverec2); use impl='streamed' for single levels"
         )
     h, w = ll.shape[-2] + hh.shape[-2], ll.shape[-1] + hh.shape[-1]
-    if _pick_impl(h, w, wavelet, impl, ll.is_cuda, fused_ok=False) == "fused":
-        _fused.fused_idwt2_level(ll, hl, lh, hh, wavelet)
+    if _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype) == "fused":
+        if ll.ndim == 2:
+            return _fused.fused_idwt2_level(ll, hl, lh, hh, wavelet)
+        fl = [_frames(b) for b in (ll, hl, lh, hh)]
+        per = [_fused.fused_idwt2_level(*(b[i] for b in fl), wavelet)
+               for i in range(fl[0].shape[0])]
+        return _unframe(per, ll.shape[:-2])
     return _sep.idwt2_level(ll, hl, lh, hh, wavelet)
 
 
@@ -135,22 +158,15 @@ def wavedec2(x, wavelet="cdf97", level: Optional[int] = None,
     x = as_tensor(x, device)
     h, w = x.shape[-2], x.shape[-1]
     j = resolve_j(h, w, level)
-    plan = _fused.fused_wavedec2_plan(h, w, j, x.element_size(), wavelet)
-    fused_ok = all(step != "level" for step, _ in plan)
-    choice = _pick_impl(h, w, wavelet, impl, x.is_cuda, fused_ok)
-    if choice == "fused":
+    if _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype) == "fused":
         if x.ndim == 2:
             return _fused.fused_wavedec2(x, wavelet, j)
         per = [_fused.fused_wavedec2(f, wavelet, j) for f in _frames(x)]
-        batch = tuple(x.shape[:-2])
-
-        def stack(*leaves):
-            s = torch.stack(leaves)
-            return s.reshape(batch + tuple(s.shape[-2:]))
-
-        out = [stack(*[p[0] for p in per])]
+        batch = x.shape[:-2]
+        out = [_unframe([p[0] for p in per], batch)]
         for lvl in range(1, len(per[0])):
-            out.append(tuple(stack(*[p[lvl][k] for p in per]) for k in range(3)))
+            out.append(tuple(_unframe([p[lvl][k] for p in per], batch)
+                             for k in range(3)))
         return out
     # 'separable': lock it for every level (no per-level re-dispatch)
     coeffs = []
@@ -171,7 +187,7 @@ def waverec2(coeffs, wavelet="cdf97", impl: Optional[str] = None,
     if len(coeffs) > 1 and border == "mirror":
         h = coeffs[-1][0].shape[-2] + coeffs[-1][1].shape[-2]
         w = coeffs[-1][0].shape[-1] + coeffs[-1][1].shape[-1]
-        if _pick_impl(h, w, wavelet, impl, ll.is_cuda) == "fused":
+        if _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype) == "fused":
             if ll.ndim == 2:
                 return _fused.fused_waverec2(coeffs, wavelet)
             batch = tuple(ll.shape[:-2])
@@ -180,34 +196,131 @@ def waverec2(coeffs, wavelet="cdf97", impl: Optional[str] = None,
             per = [_fused.fused_waverec2(
                 [flat[0][i]] + [tuple(b[i] for b in lvl) for lvl in flat[1:]],
                 wavelet) for i in range(flat[0].shape[0])]
-            out = torch.stack(per)
-            return out.reshape(batch + tuple(out.shape[-2:]))
+            return _unframe(per, batch)
     for hl, lh, hh in coeffs[1:]:
         ll = _sep.idwt2_level(ll, hl, lh, hh, wavelet, border=border)
     return ll
 
 
-def _check_impl3(impl: Optional[str]):
+def _log_fallback(fn: str, choice: str, err: Exception) -> None:
+    get_logger().warning(
+        "%s: %s kernel declined the geometry (%s); "
+        "falling back to separable", fn, choice, err)
+
+
+def _resolve_impl3(impl: Optional[str]):
+    """The call's impl (the global default if None), checked, and whether
+    it names a 3-D kernel explicitly."""
     impl = impl or _default_impl
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}")
-    if impl in ("fused", "streamed", "streamed-mxu"):
+    return impl, impl in ("fused", "streamed")
+
+
+def _pick_impl3(shape3, wavelet, impl: Optional[str], on_cuda: bool,
+                dtype) -> str:
+    """3-D strategy: 'separable' | 'fused'.  'fused' needs even dims > 4
+    and a symmetric-step wavelet, else ValueError; 'auto' takes it on a
+    CUDA tensor of a kernel's dtype wherever the geometry allows;
+    'streamed' (B16-B17) is not ported."""
+    impl, _ = _resolve_impl3(impl)
+    if impl == "separable":
+        return impl
+    if impl == "streamed":
         raise NotImplementedError(
-            f"3-D impl={impl!r} is not ported to the GPU yet (ROADMAP.md "
-            "section B, rows B14-B17); use impl='separable'"
+            "3-D impl='streamed' is not ported to the GPU yet (ROADMAP.md "
+            "section B, rows B16-B17); use impl='fused' or 'separable'"
         )
+    z, yy, xx = shape3
+    ok = (_fused.fused_supported(wavelet) and z % 2 == 0 and yy % 2 == 0
+          and xx % 2 == 0 and min(z, yy, xx) > 4)
+    if impl == "fused":
+        if not ok:
+            raise ValueError(
+                "fused 3-D impl needs even dims > 4 and a symmetric-step "
+                "wavelet"
+            )
+        return impl
+    return "fused" if ok and _auto_fused_ok(on_cuda, dtype) else "separable"
 
 
 def wavedec3(x, wavelet="cdf97", level: Optional[int] = None,
              impl: Optional[str] = None, device=None):
-    """Multi-level 3-D MRA (separable until B14-B17 are ported)."""
-    _check_impl3(impl)
-    return _sep.wavedec3(as_tensor(x, device), wavelet, level)
+    """Multi-level 3-D MRA -> [LLL_J, bands_J, ..., bands_1] (the pytree of
+    ``ops.separable.wavedec3``).
+
+    Each level re-dispatches: the fused volume kernel (B14) where its
+    geometry allows, the separable oracle otherwise.  An explicit impl
+    needs an unbatched (Z, Y, X) volume and is honoured or raises at the
+    top level; a kernel's ``UnsupportedGeometry`` falls back to the
+    oracle with a logged warning, and every other error propagates."""
+    x = as_tensor(x, device)
+    impl, explicit = _resolve_impl3(impl)
+    if explicit and x.ndim != 3:
+        raise ValueError(f"{impl} 3-D impl needs an unbatched (Z, Y, X) volume")
+    dims = tuple(x.shape[-3:])
+    if explicit:
+        _pick_impl3(dims, wavelet, impl, x.is_cuda, x.dtype)
+    j = resolve_j(min(dims), min(dims), level)
+    coeffs = []
+    low = x
+    for _ in range(j):
+        choice = "separable"
+        if low.ndim == 3:
+            try:
+                choice = _pick_impl3(tuple(low.shape), wavelet, impl, low.is_cuda,
+                                     low.dtype)
+            except ValueError:
+                choice = "separable"
+        bands = None
+        if choice == "fused":
+            # _pick_impl3 already refuses the geometries this kernel
+            # declines; the fallback is the reference's guard for its
+            # streamed volume kernel (B16, not ported yet)
+            try:
+                bands = _fused3d.fused_dwt3_level(low, wavelet)
+            except UnsupportedGeometry as e:
+                _log_fallback("wavedec3", choice, e)
+        if bands is None:
+            bands = _sep.dwt3_level(low, wavelet)
+        low = bands.pop("LLL")
+        coeffs.append(bands)
+    return [low] + coeffs[::-1]
 
 
 def waverec3(coeffs, wavelet="cdf97", impl: Optional[str] = None, device=None):
-    """Inverse of :func:`wavedec3`."""
-    _check_impl3(impl)
+    """Inverse of :func:`wavedec3`: each level runs the fused inverse
+    volume kernel (B15) where its geometry allows, the oracle otherwise,
+    with the same honour-or-raise (at the finest level) and fallback
+    rules."""
     low = as_tensor(coeffs[0], device)
     rest = [{k: as_tensor(v, device) for k, v in b.items()} for b in coeffs[1:]]
-    return _sep.waverec3([low] + rest, wavelet)
+    impl, explicit = _resolve_impl3(impl)
+    if explicit and low.ndim != 3:
+        raise ValueError(f"{impl} 3-D impl needs an unbatched (Z, Y, X) pyramid")
+    if explicit and rest:
+        sample = next(iter(rest[-1].values()))
+        _pick_impl3(tuple(2 * s for s in sample.shape[-3:]), wavelet, impl,
+                    sample.is_cuda, sample.dtype)
+    for bands in rest:
+        full = dict(bands)
+        full["LLL"] = low
+        choice = "separable"
+        if low.ndim == 3 and all(b.shape == low.shape for b in full.values()):
+            try:
+                choice = _pick_impl3(tuple(2 * s for s in low.shape), wavelet,
+                                     impl, low.is_cuda, low.dtype)
+            except ValueError:
+                choice = "separable"
+        rec = None
+        if choice == "fused":
+            # reachable only through B17 (streamed, not ported yet); see
+            # wavedec3
+            try:
+                rec = _fused3d.fused_idwt3_level(full, wavelet)
+            except UnsupportedGeometry as e:
+                _log_fallback("waverec3", choice, e)
+        if rec is None:
+            rec = _sep.idwt3_level(full, wavelet)
+        low = rec
+    return low

@@ -6,15 +6,25 @@
 //               (:1381, body _deep_kernel :1353; TPU kernel id B3);
 //   dwt_inv1_*  per level of fused_deep_waverec2 (:1486, body
 //               _deep_inv_kernel :1466; TPU kernel id B6).
-// The same pair is the tile kernel a single fused level (fused_dwt2_level,
-// fused_idwt2_level) needs.
+// The same pair is the single fused level, under its own launch counts:
+//   dwt_fwd1_*  fused_dwt2_level (:548, bodies _fwd_kernel_pf :510 and
+//               _fwd_kernel :492; TPU kernel id B1);
+//   dwt_inv1_*  fused_idwt2_level (:984, body _inv_kernel :948; B4).
+// ``ext_rows`` is B1/B4's boundary_rows='extended': the caller supplies
+// HALO = 4 rows above and below the image (forward: x has h + 8 rows) or
+// CH = 4 channel rows above and below every band (inverse), and rows are
+// read straight from that extension with no row mirror; columns still
+// mirror.  Rows past the extension read as 0; they reach only outputs
+// past the image, which are not stored.
 //
 // Bound on an H100: bytes, but the deep levels are small (536x1024 f32 in,
 // ~2.1 MB each way, ~1.3 us at 3.35 TB/s) and stay in the 50 MB L2, so
 // launch latency dominates: one launch per level instead of the TPU's one
 // VMEM-resident launch for all levels (a ~2.2 MB image does not fit one
 // SM's 227 KB).  A single-launch cooperative or cluster design is later
-// work.
+// work.  As B1/B4 on a 2144x4096 f32 frame the level moves 70.3 MB (21 us
+// at 3.35 TB/s); the (2T+8)^2 halo re-read (1.56x the core at T=32) hits
+// L2, and instruction issue in the lifting passes is what holds it.
 //
 // Forward: a (2T+8)^2 tile of the image read with whole-point mirror
 // indices (_mirror_ext2's extension by 4, which also gives odd sizes their
@@ -30,7 +40,7 @@ namespace {
 constexpr int HALO = 4;
 constexpr int THREADS = 256;
 
-template <typename T>
+template <typename T, bool EXT>
 __global__ void fwd1_kernel(const T* __restrict__ x, T* ll, T* hl, T* lh, T* hh,
                             int h, int w, int tile, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
@@ -40,8 +50,15 @@ __global__ void fwd1_kernel(const T* __restrict__ x, T* ll, T* hl, T* lh, T* hh,
     const int y0 = blockIdx.y * S, x0 = blockIdx.x * S;
     for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
         const int r = i / E, c = i % E;
-        s[i] = x[(size_t)mirror_idx(y0 - HALO + r, h) * w
-                 + mirror_idx(x0 - HALO + c, w)];
+        if constexpr (EXT) {
+            // signal row y0 - HALO + r is row y0 + r of the h + 2*HALO rows
+            const int q = y0 + r;
+            s[i] = q < h + 2 * HALO ? x[(size_t)q * w + mirror_idx(x0 - HALO + c, w)]
+                                    : T(0);
+        } else {
+            s[i] = x[(size_t)mirror_idx(y0 - HALO + r, h) * w
+                     + mirror_idx(x0 - HALO + c, w)];
+        }
     }
     __syncthreads();
     lift_tile(s, E, E, E, P, true);
@@ -54,7 +71,7 @@ __global__ void fwd1_kernel(const T* __restrict__ x, T* ll, T* hl, T* lh, T* hh,
     }
 }
 
-template <typename T>
+template <typename T, bool EXT>
 __global__ void inv1_kernel(const T* __restrict__ ll, const T* __restrict__ hl,
                             const T* __restrict__ lh, const T* __restrict__ hh,
                             T* out, int h, int w, int tile, LiftParams P) {
@@ -65,8 +82,18 @@ __global__ void inv1_kernel(const T* __restrict__ ll, const T* __restrict__ hl,
     const int y0 = blockIdx.y * S, x0 = blockIdx.x * S;
     for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
         const int r = i / E, c = i % E;
-        s[i] = band_at(ll, hl, lh, hh, mirror_idx(y0 - HALO + r, h),
-                       mirror_idx(x0 - HALO + c, w), w);
+        if constexpr (EXT) {
+            // signal row p = y0 - HALO + r is channel row (p >> 1) + HALO of
+            // its band: row p + 2*HALO of the extended interleaved image,
+            // which has h + 4*HALO rows
+            const int q = y0 + HALO + r;
+            s[i] = q < h + 4 * HALO
+                       ? band_at(ll, hl, lh, hh, q, mirror_idx(x0 - HALO + c, w), w)
+                       : T(0);
+        } else {
+            s[i] = band_at(ll, hl, lh, hh, mirror_idx(y0 - HALO + r, h),
+                           mirror_idx(x0 - HALO + c, w), w);
+        }
     }
     __syncthreads();
     scale_tile(s, E, E, E, P);
@@ -89,26 +116,43 @@ size_t tile_smem(K kernel, int tile, size_t item) {
     return smem;
 }
 
+template <typename T, bool EXT>
+int launch_fwd1(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w, int tile,
+                const LiftParams* P, void* stream) {
+    const size_t smem = tile_smem(fwd1_kernel<T, EXT>, tile, sizeof(T));
+    dim3 grid((w + 2 * tile - 1) / (2 * tile), (h + 2 * tile - 1) / (2 * tile));
+    fwd1_kernel<T, EXT><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        x, ll, hl, lh, hh, h, w, tile, *P);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, bool EXT>
+int launch_inv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int h,
+                int w, int tile, const LiftParams* P, void* stream) {
+    const size_t smem = tile_smem(inv1_kernel<T, EXT>, tile, sizeof(T));
+    dim3 grid((w + 2 * tile - 1) / (2 * tile), (h + 2 * tile - 1) / (2 * tile));
+    inv1_kernel<T, EXT><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        ll, hl, lh, hh, out, h, w, tile, *P);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// h, w: the image's size (without the extension when ext_rows is set).
 #define LIBDWT_LEVEL(SUF, T)                                                      \
     extern "C" int dwt_fwd1_##SUF(const T* x, T* ll, T* hl, T* lh, T* hh, int h,   \
-                                  int w, int tile, const LiftParams* P,           \
-                                  void* stream) {                                 \
-        const size_t smem = tile_smem(fwd1_kernel<T>, tile, sizeof(T));           \
-        dim3 grid((w + 2 * tile - 1) / (2 * tile), (h + 2 * tile - 1) / (2 * tile)); \
-        fwd1_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(            \
-            x, ll, hl, lh, hh, h, w, tile, *P);                                   \
-        return (int)cudaGetLastError();                                           \
+                                  int w, int tile, int ext_rows,                  \
+                                  const LiftParams* P, void* stream) {            \
+        return ext_rows ? launch_fwd1<T, true>(x, ll, hl, lh, hh, h, w, tile, P, stream)   \
+                        : launch_fwd1<T, false>(x, ll, hl, lh, hh, h, w, tile, P, stream); \
     }                                                                             \
     extern "C" int dwt_inv1_##SUF(const T* ll, const T* hl, const T* lh,           \
                                   const T* hh, T* out, int h, int w, int tile,    \
-                                  const LiftParams* P, void* stream) {            \
-        const size_t smem = tile_smem(inv1_kernel<T>, tile, sizeof(T));           \
-        dim3 grid((w + 2 * tile - 1) / (2 * tile), (h + 2 * tile - 1) / (2 * tile)); \
-        inv1_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(            \
-            ll, hl, lh, hh, out, h, w, tile, *P);                                 \
-        return (int)cudaGetLastError();                                           \
+                                  int ext_rows, const LiftParams* P,              \
+                                  void* stream) {                                 \
+        return ext_rows                                                           \
+            ? launch_inv1<T, true>(ll, hl, lh, hh, out, h, w, tile, P, stream)    \
+            : launch_inv1<T, false>(ll, hl, lh, hh, out, h, w, tile, P, stream);  \
     }
 
 LIBDWT_LEVEL(f32, float)

@@ -28,8 +28,10 @@
 
 // Lifting steps of one direction (already reversed and negated for the
 // inverse by the caller), plus the four parity-product scale factors
-// (even/even, even/odd, odd/even, odd/odd) = (LL, HL, LH, HH).  The same
-// layout is declared on the Python side as a ctypes.Structure.
+// (even/even, even/odd, odd/even, odd/odd) = (LL, HL, LH, HH), then the
+// per-axis low/high factors of the 3-D kernels (appended last, so the 2-D
+// layout does not move).  The same layout is declared on the Python side
+// as a ctypes.Structure.
 struct LiftParams {
     int n;
     int is_d[LIBDWT_MAX_STEPS];
@@ -42,6 +44,8 @@ struct LiftParams {
     int shift[LIBDWT_MAX_STEPS];
     int has_scale;
     float scale[4];
+    float scale_lo;
+    float scale_hi;
 };
 
 // Whole-point symmetric reflection of any integer position into [0, n).
@@ -145,4 +149,38 @@ __device__ __forceinline__ void band_put(T* ll, T* hl, T* lh, T* hh,
     } else {
         if (x & 1) hl[r * fw + c] = v; else if (ll) ll[r * cw + c] = v;
     }
+}
+
+// All steps of P along ``lines`` lines of ``len`` samples at ``stride``;
+// line l starts at (l / inner) * outer + l % inner.  The one helper
+// serves the x (stride 1), y and z axes of a 3-D tile.  For stride 1
+// neighbouring threads take neighbouring positions of one line, else the
+// same position of neighbouring lines, so a warp reads consecutive words.
+template <typename T>
+__device__ void lift_lines(T* t, int len, int lines, int stride, int inner,
+                           int outer, const LiftParams& P) {
+    for (int s = 0; s < P.n; ++s) {
+        const int start = P.is_d[s] ? 1 : 2;
+        const int count = (len - start) / 2;  // positions start, start+2, .. <= len-2
+        const int total = count * lines;
+        for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+            const int line = stride == 1 ? idx / count : idx % lines;
+            const int k = stride == 1 ? idx % count : idx / lines;
+            T* base = t + (line / inner) * outer + line % inner;
+            const int pos = (start + 2 * k) * stride;
+            base[pos] = lift_one(base[pos], base[pos - stride], base[pos + stride], P, s);
+        }
+        __syncthreads();
+    }
+}
+
+// A 3-D sample at parities (z, y, x) times its per-axis factors, applied
+// z, then y, then x (floats only; the plain version multiplies in the
+// same order).
+template <typename T>
+__device__ __forceinline__ T scale3(T v, int z, int y, int x, const LiftParams& P) {
+    if (!P.has_scale) return v;
+    v = scale_one(v, (z & 1) ? P.scale_hi : P.scale_lo);
+    v = scale_one(v, (y & 1) ? P.scale_hi : P.scale_lo);
+    return scale_one(v, (x & 1) ? P.scale_hi : P.scale_lo);
 }

@@ -4,6 +4,7 @@
 - separable  — N-dim separable MRA (the port's correctness oracle)
 - fused      — the 2-D tile kernels (CUDA on the card, plain torch on
                the CPU) and the fused pyramid functions
+- fused3d    — the 3-D tile kernels (one fused level, forward and inverse)
 """
 
 

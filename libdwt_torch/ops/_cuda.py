@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused2l.cu", "level.cu")
+SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu")
 HEADERS = ("lifting.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +42,8 @@ class LiftParams(ctypes.Structure):
         ("shift", ctypes.c_int * _MAX_STEPS),
         ("has_scale", ctypes.c_int),
         ("scale", ctypes.c_float * 4),
+        ("scale_lo", ctypes.c_float),
+        ("scale_hi", ctypes.c_float),
     ]
 
 
@@ -117,11 +119,16 @@ _PP = ctypes.POINTER(LiftParams)
 _SIGS = {
     "dwt_fwd2": [_P] * 8 + [_I, _I, _I, _PP, _P],
     "dwt_inv2": [_P] * 8 + [_I, _I, _I, _PP, _P],
-    "dwt_fwd1": [_P] * 5 + [_I, _I, _I, _PP, _P],
-    "dwt_inv1": [_P] * 5 + [_I, _I, _I, _PP, _P],
+    "dwt_fwd1": [_P] * 5 + [_I] * 4 + [_PP, _P],
+    "dwt_inv1": [_P] * 5 + [_I] * 4 + [_PP, _P],
+    # input, host array of the 8 band pointers, Z, Y, X, tz, ty, tx
+    "dwt3_fwd": [_P, _P] + [_I] * 6 + [_PP, _P],
+    # host array of the 8 band pointers, output, Z, Y, X, tz, ty, tx
+    "dwt3_inv": [_P, _P] + [_I] * 6 + [_PP, _P],
 }
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
-              "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu"}
+              "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
+              "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu"}
 _fns: dict = {}
 
 

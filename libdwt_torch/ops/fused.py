@@ -25,12 +25,15 @@ for floats and ints alike (the integer transforms stay bit-exact only in
 the oracle's order).
 
 Ported kernels (TPU kernel ids of ROADMAP section B):
+  B1 fused_dwt2_level      -> csrc/level.cu dwt_fwd1_*
+  B4 fused_idwt2_level     -> csrc/level.cu dwt_inv1_*
   B2 fused_dwt2_2level     -> csrc/fused2l.cu dwt_fwd2_*
   B5 fused_idwt2_2level    -> csrc/fused2l.cu dwt_inv2_*
   B3 fused_deep_wavedec2   -> csrc/level.cu dwt_fwd1_*, one launch per level
   B6 fused_deep_waverec2   -> csrc/level.cu dwt_inv1_*, one launch per level
-B1/B4 (the single fused levels) raise NotImplementedError until they are
-wired to the same per-level kernels.
+B1/B3 and B4/B6 share one CUDA kernel each and count their launches
+apart.  The 3-D kernels B14/B15 are in :mod:`libdwt_torch.ops.fused3d`
+and count in the same ``KERNELS`` table.
 """
 from __future__ import annotations
 
@@ -92,10 +95,14 @@ class KernelStat:
 
 
 KERNELS = {
+    "B1": KernelStat("B1", "fused_dwt2_level", "libdwt_torch/csrc/level.cu",
+                     "libdwt_tpu/ops/fused.py:548"),
     "B2": KernelStat("B2", "fused_dwt2_2level", "libdwt_torch/csrc/fused2l.cu",
                      "libdwt_tpu/ops/fused.py:784"),
     "B3": KernelStat("B3", "fused_deep_wavedec2", "libdwt_torch/csrc/level.cu",
                      "libdwt_tpu/ops/fused.py:1381"),
+    "B4": KernelStat("B4", "fused_idwt2_level", "libdwt_torch/csrc/level.cu",
+                     "libdwt_tpu/ops/fused.py:984"),
     "B5": KernelStat("B5", "fused_idwt2_2level", "libdwt_torch/csrc/fused2l.cu",
                      "libdwt_tpu/ops/fused.py:1173"),
     "B6": KernelStat("B6", "fused_deep_waverec2", "libdwt_torch/csrc/level.cu",
@@ -135,13 +142,6 @@ def _check_fused_supported(wavelet):
         )
 
 
-def _not_ported(name: str, kid: str):
-    raise NotImplementedError(
-        f"{name} (TPU kernel {kid}) is not ported to the GPU yet: see "
-        f"ROADMAP.md section B, row {kid}; use impl='separable'"
-    )
-
-
 # ------------------------------------------------------------ step tables
 
 
@@ -152,6 +152,14 @@ class _Step(NamedTuple):
     sign: int = 1
     k: int = 0
     shift: int = 0
+
+
+def _axis_scales(wavelet: Wavelet, is_int: bool, inverse: bool):
+    """The per-axis (low, high) scale factors of one direction, or None
+    (integers and unscaled wavelets)."""
+    if is_int or wavelet.scale_s is None:
+        return None
+    return _inv_scales(wavelet) if inverse else (wavelet.scale_s, wavelet.scale_d)
 
 
 def _step_table(wavelet: Wavelet, is_int: bool, inverse: bool):
@@ -173,9 +181,10 @@ def _step_table(wavelet: Wavelet, is_int: bool, inverse: bool):
     for st in steps:
         wl, wr = (st.coeff, st.coeff) if st.is_symmetric else (st.left, st.right)
         table.append(_Step(st.target == "d", sgn * wl, sgn * wr))
-    if wavelet.scale_s is None:
+    axis = _axis_scales(wavelet, False, inverse)
+    if axis is None:
         return table, None
-    lo, hi = _inv_scales(wavelet) if inverse else (wavelet.scale_s, wavelet.scale_d)
+    lo, hi = axis
     return table, (lo * lo, lo * hi, hi * lo, hi * hi)
 
 
@@ -198,6 +207,7 @@ def _lift_params(wavelet: Wavelet, is_int: bool, inverse: bool):
         p.has_scale = int(scales is not None)
         for i, f in enumerate(scales or ()):
             p.scale[i] = f
+        p.scale_lo, p.scale_hi = _axis_scales(wavelet, is_int, inverse) or (1.0, 1.0)
         _params_cache[key] = p
     return _params_cache[key]
 
@@ -221,6 +231,14 @@ def _tile_index(n_tiles: int, step: int, ext: int, halo: int, n: int, device):
     return _mirror_index(p, n)
 
 
+def _zero_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``a`` with zero rows appended up to ``rows`` rows (the kernels read
+    0 past a caller's row extension)."""
+    if a.shape[0] >= rows:
+        return a
+    return torch.cat([a, a.new_zeros((rows - a.shape[0],) + tuple(a.shape[1:]))])
+
+
 def _gather(img: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
     """(ny, nx, E, E) tiles of a 2-D tensor at the given index rows."""
     return img[ry[:, None, :, None], rx[None, :, None, :]]
@@ -239,10 +257,10 @@ def _update(l, r, st: _Step, is_int: bool):
 
 
 def _lift_axis(t: torch.Tensor, table, axis: int) -> None:
-    """All steps along the last (-1, rows) or second-last (-2, columns)
-    axis of the interleaved tiles ``t``, in place; the outermost
-    positions are not updated (see the module docstring)."""
-    v = t if axis == -1 else t.transpose(-1, -2)
+    """All steps along one axis of the interleaved tiles ``t`` (-1 rows,
+    -2 columns, -3 slabs), in place; the outermost positions are not
+    updated (see the module docstring)."""
+    v = t.movedim(axis, -1)
     n = v.shape[-1]
     is_int = _is_int(t.dtype)
     for st in table:
@@ -297,6 +315,13 @@ def _remirror(s: torch.Tensor, n: int, bases: torch.Tensor, off: int, axis: int)
     return torch.gather(s, axis, idx)
 
 
+def _ext_rows(n_tiles: int, step: int, ext: int, off: int, device) -> torch.Tensor:
+    """(n_tiles, ext) unmirrored row indices i*step + off + [0, ext) into
+    a caller-extended image."""
+    return (torch.arange(n_tiles, device=device)[:, None] * step + off
+            + torch.arange(ext, device=device)[None, :])
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -304,17 +329,26 @@ def _cdiv(a: int, b: int) -> int:
 # ------------------------------------------------------ plain kernel versions
 
 
-def dwt2_level_plain(x, wavelet="cdf97", tile: int = TILE1):
+def dwt2_level_plain(x, wavelet="cdf97", tile: int = TILE1, ext: bool = False):
     """Plain version of the per-level forward tile kernel (csrc/level.cu
-    dwt_fwd1): one 2-D level -> (LL, HL, LH, HH), any size."""
+    dwt_fwd1): one 2-D level -> (LL, HL, LH, HH), any size.  ``ext``: x
+    carries HALO caller rows above and below (boundary_rows='extended'),
+    read with no row mirror."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(x.dtype), False)
     h, w = x.shape
+    if ext:
+        h -= 2 * HALO
     s_ = 2 * tile
     e = s_ + 2 * HALO
     ny, nx = _cdiv(h, s_), _cdiv(w, s_)
-    t = _gather(x, _tile_index(ny, s_, e, HALO, h, x.device),
-                _tile_index(nx, s_, e, HALO, w, x.device))
+    rx = _tile_index(nx, s_, e, HALO, w, x.device)
+    if ext:
+        # signal row y0 - HALO + r is row y0 + r of the extended image
+        t = _gather(_zero_rows(x, ny * s_ + 2 * HALO),
+                    _ext_rows(ny, s_, e, 0, x.device), rx)
+    else:
+        t = _gather(x, _tile_index(ny, s_, e, HALO, h, x.device), rx)
     _lift_axis(t, table, -1)
     _lift_axis(t, table, -2)
     _scale_parity(t, scales)
@@ -324,18 +358,28 @@ def dwt2_level_plain(x, wavelet="cdf97", tile: int = TILE1):
             _band(core, 1, 0, fy, cx), _band(core, 1, 1, fy, fx))
 
 
-def idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", tile: int = TILE1):
+def idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", tile: int = TILE1,
+                      ext: bool = False):
     """Plain version of the per-level inverse tile kernel (csrc/level.cu
-    dwt_inv1)."""
+    dwt_inv1).  ``ext``: every band carries CH caller channel rows above
+    and below (boundary_rows='extended'), read with no row mirror."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(ll.dtype), True)
     h, w = ll.shape[0] + lh.shape[0], ll.shape[1] + hl.shape[1]
     s_ = 2 * tile
     e = s_ + 2 * HALO
-    ny, nx = _cdiv(h, s_), _cdiv(w, s_)
+    # the extended bands interleave to h + 4*CH rows: signal row p is
+    # channel row (p >> 1) + CH of its band, i.e. row p + 2*CH
     y = _interleave(ll, hl, lh, hh, h, w)
-    t = _gather(y, _tile_index(ny, s_, e, HALO, h, y.device),
-                _tile_index(nx, s_, e, HALO, w, y.device))
+    if ext:
+        h -= 4 * CH
+    ny, nx = _cdiv(h, s_), _cdiv(w, s_)
+    rx = _tile_index(nx, s_, e, HALO, w, y.device)
+    if ext:
+        t = _gather(_zero_rows(y, ny * s_ + 4 * CH),
+                    _ext_rows(ny, s_, e, 2 * CH - HALO, y.device), rx)
+    else:
+        t = _gather(y, _tile_index(ny, s_, e, HALO, h, y.device), rx)
     _scale_parity(t, scales)
     _lift_axis(t, table, -2)
     _lift_axis(t, table, -1)
@@ -426,6 +470,10 @@ def fused_deep_waverec2_plain(coeffs, wavelet="cdf97", tile: int = TILE1):
 # ------------------------------------------------------------ CUDA launches
 
 
+#: the dtypes that have a CUDA kernel (float64 is queued in ROADMAP.md)
+KERNEL_DTYPES = (torch.float32, torch.int32)
+
+
 def _suffix(dtype) -> str:
     if dtype == torch.float32:
         return "f32"
@@ -465,36 +513,104 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def _level_fwd_cuda(kid, x, wavelet, tile):
+def _level_fwd_cuda(kid, x, wavelet, tile, ext=False):
     x = x.contiguous()
     h, w = x.shape
+    if ext:
+        h -= 2 * HALO
     cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
     out = (_empty((cy, cx), x), _empty((cy, fx), x), _empty((fy, cx), x), _empty((fy, fx), x))
     _launch(kid, "dwt_fwd1", x.dtype, wavelet, False,
-            _ptrs(x, *out) + [h, w, tile], x.device)
+            _ptrs(x, *out) + [h, w, tile, int(ext)], x.device)
     return out
 
 
-def _level_inv_cuda(kid, ll, hl, lh, hh, wavelet, tile):
+def _level_inv_cuda(kid, ll, hl, lh, hh, wavelet, tile, ext=False):
     ll, hl, lh, hh = (b.contiguous() for b in (ll, hl, lh, hh))
     h, w = ll.shape[0] + lh.shape[0], ll.shape[1] + hl.shape[1]
+    if ext:
+        h -= 4 * CH
     out = _empty((h, w), ll)
     _launch(kid, "dwt_inv1", ll.dtype, wavelet, True,
-            _ptrs(ll, hl, lh, hh, out) + [h, w, tile], ll.device)
+            _ptrs(ll, hl, lh, hh, out) + [h, w, tile, int(ext)], ll.device)
     return out
 
 
 # ------------------------------------------------------------ kernel wrappers
 
 
-def fused_dwt2_level(x, wavelet="cdf97", **_):
-    """B1, the single fused forward level: not ported yet."""
-    _not_ported("fused_dwt2_level", "B1")
+def _check_boundary_rows(boundary_rows: str) -> bool:
+    if boundary_rows not in ("mirror", "extended"):
+        raise ValueError("boundary_rows must be 'mirror' or 'extended'")
+    return boundary_rows == "extended"
 
 
-def fused_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", **_):
-    """B4, the single fused inverse level: not ported yet."""
-    _not_ported("fused_idwt2_level", "B4")
+def _check_strip_rows(strip_rows: int) -> None:
+    # the reference's contract: reject rather than silently round
+    if strip_rows and strip_rows % 16:
+        raise ValueError("strip_rows must be a multiple of 16")
+
+
+def fused_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
+                     boundary_rows: str = "mirror", tile: int = TILE1):
+    """Single-level fused 2-D forward DWT (B1) -> (LL, HL, LH, HH), the
+    values of the separable ``dwt2_level`` (floats to rounding, integers
+    bit-exactly); any h, w > HALO, odd sizes giving ceil/floor bands.
+
+    ``boundary_rows='extended'``: the caller supplies HALO = 4 valid rows
+    above and below the image (x has h + 8 rows, h even), read with no
+    row mirror; columns still mirror.  ``strip_rows`` keeps the
+    reference's contract (a multiple of 16, else ValueError); the CUDA
+    tile is 2-D, ``tile`` x ``tile`` samples of each band."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    if x.ndim != 2:
+        raise ValueError("fused_dwt2_level takes one 2-D image; loop batches")
+    ext = _check_boundary_rows(boundary_rows)
+    h, w = x.shape
+    if ext:
+        h -= 2 * HALO
+        if h % 2:
+            raise ValueError("extended mode needs an even row count")
+    if min(h, w) <= HALO:
+        raise ValueError("image too small for the fused kernel; use the oracle")
+    _check_strip_rows(strip_rows)
+    _check_inputs("fused_dwt2_level", tile, x)
+    KERNELS["B1"].calls += 1
+    if not x.is_cuda:
+        return dwt2_level_plain(x, wavelet, tile, ext)
+    return _level_fwd_cuda("B1", x, wavelet, tile, ext)
+
+
+def fused_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
+                      boundary_rows: str = "mirror", tile: int = TILE1):
+    """Single-level fused 2-D inverse DWT (B4), the inverse of
+    :func:`fused_dwt2_level`.
+
+    ``boundary_rows='extended'``: the caller supplies CH = 4 valid
+    channel rows above and below every band, read with no row mirror;
+    columns still mirror."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    ext = _check_boundary_rows(boundary_rows)
+    if any(b.ndim != 2 for b in (ll, hl, lh, hh)):
+        raise ValueError("fused_idwt2_level takes the four 2-D bands of one "
+                         "level; loop batches")
+    e = 2 * CH if ext else 0
+    cy, cx = ll.shape[0] - e, ll.shape[1]
+    fy, fx = hh.shape[0] - e, hh.shape[1]
+    h, w = cy + fy, cx + fx
+    if min(h, w) < 2 * (CH + 1):  # channel mirror needs CH+1 samples
+        raise ValueError("image too small for the fused kernel; use the oracle")
+    _check_strip_rows(strip_rows)
+    if (tuple(hl.shape) != (cy + e, fx) or tuple(lh.shape) != (fy + e, cx)
+            or cy - fy not in (0, 1) or cx - fx not in (0, 1)):
+        raise ValueError("band shapes do not form one level")
+    _check_inputs("fused_idwt2_level", tile, ll, hl, lh, hh)
+    KERNELS["B4"].calls += 1
+    if not ll.is_cuda:
+        return idwt2_level_plain(ll, hl, lh, hh, wavelet, tile, ext)
+    return _level_inv_cuda("B4", ll, hl, lh, hh, wavelet, tile, ext)
 
 
 def fused_dwt2_2level(x, wavelet="cdf97", tile: int = TILE2):
@@ -657,7 +773,8 @@ def fused_wavedec2(x, wavelet="cdf97", level: int = 1):
             ll, b2, b1 = fused_dwt2_2level(ll, wavelet)
             coeffs += [b1, b2]
         elif step == "level":
-            fused_dwt2_level(ll, wavelet)
+            ll, hl, lh, hh = fused_dwt2_level(ll, wavelet)
+            coeffs.append((hl, lh, hh))
         elif step == "deep":
             deep = fused_deep_wavedec2(ll, wavelet, n)
             ll = deep[0]

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, each held against its plain version.
+"""The port's CUDA kernels on the card, each held against its plain version
+(B1-B6 2-D, B14/B15 3-D).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports torch, numpy and the port only (no JAX), so it also runs on a
@@ -9,8 +10,9 @@ GPU machine that has no JAX installed:
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
 int32 bit-exactly.  The shapes cover several tiles with short last tiles,
-odd deep-tail sizes, every wavelet ``fused_supported`` accepts and a tile
-whose shared memory exceeds the 48 KB default.
+odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
+extended-rows contract of the single levels, and 2-D and 3-D tiles whose
+shared memory exceeds the 48 KB default.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 
 from libdwt_torch import api
 from libdwt_torch.ops import fused as tf
+from libdwt_torch.ops import fused3d as t3
 from libdwt_torch.ops import separable as sep
 
 
@@ -119,7 +122,7 @@ def test_fused_pyramid_on_card_matches_oracle(cuda_device):
     coeffs = api.wavedec2(x, "cdf97", 5, impl="fused")
     rec = api.waverec2(coeffs, "cdf97", impl="fused")
     torch.cuda.synchronize()
-    assert {k: s.launches for k, s in tf.KERNELS.items()} == {
+    assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
         "B2": 1, "B3": 3, "B5": 1, "B6": 3}
     for a, b in zip(_leaves(coeffs), _leaves(sep.wavedec2(x, "cdf97", 5))):
         assert a.shape == b.shape and float((a - b).abs().max()) <= 5e-4
@@ -133,3 +136,157 @@ def test_float64_on_card_raises(cuda_device):
         tf.fused_dwt2_2level(x)
     with pytest.raises(TypeError, match="float64"):
         tf.fused_deep_wavedec2(x, "cdf97", 2)
+    with pytest.raises(TypeError, match="float64"):
+        tf.fused_dwt2_level(x)
+    with pytest.raises(TypeError, match="float64"):
+        t3.fused_dwt3_level(x[:16, :16].reshape(16, 16, 1).expand(16, 16, 16).contiguous())
+
+
+LEVEL = [
+    (2144, 4096, torch.float32, "cdf97", 32),
+    (513, 511, torch.float32, "cdf97", 32),
+    (101, 97, torch.float32, "cdf53", 8),
+    (33, 517, torch.float32, "interp53", 16),
+    (10, 11, torch.float32, "cdf97", 8),
+    (131, 67, torch.float32, "haar", 64),  # 74 KB of shared memory
+    (512, 512, torch.int32, "cdf53", 32),
+    (101, 97, torch.int32, "cdf97", 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dtype,wavelet,tile", LEVEL)
+def test_b1_b4_kernels_match_plain(cuda_device, h, w, dtype, wavelet, tile):
+    x = _img(h, w, dtype, cuda_device, seed=3)
+    exact = dtype == torch.int32
+    tf.reset_counters()
+    b = tf.fused_dwt2_level(x, wavelet, tile=tile)
+    _close(list(b), list(tf.dwt2_level_plain(x, wavelet, tile)), exact)
+    rec = tf.fused_idwt2_level(*b, wavelet, tile=tile)
+    _close(rec, tf.idwt2_level_plain(*b, wavelet, tile), exact)
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B1"].launches, tf.KERNELS["B4"].launches) == (1, 1)
+    if exact:
+        _close(list(b), list(sep.dwt2_level(x, wavelet)), True)
+        assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dtype,wavelet", [
+    (512, 512, torch.float32, "cdf97"), (130, 97, torch.float32, "cdf53"),
+    (130, 97, torch.int32, "cdf53"), (131, 97, torch.float32, "cdf97"),
+    (65, 48, torch.int32, "cdf53")])
+def test_extended_rows_kernels_match_plain(cuda_device, h, w, dtype, wavelet):
+    """The forward contract needs an even height; the inverse takes any."""
+    exact = dtype == torch.int32
+    if h % 2 == 0:
+        xe = _img(h + 2 * tf.HALO, w, dtype, cuda_device, seed=4)
+        b = tf.fused_dwt2_level(xe, wavelet, boundary_rows="extended", tile=16)
+        _close(list(b), list(tf.dwt2_level_plain(xe, wavelet, 16, ext=True)), exact)
+    cy, fy, cx, fx = -(-h // 2), h // 2, -(-w // 2), w // 2
+    bands = [_img(r + 2 * tf.CH, c, dtype, cuda_device, seed=5 + i)
+             for i, (r, c) in enumerate([(cy, cx), (cy, fx), (fy, cx), (fy, fx)])]
+    rec = tf.fused_idwt2_level(*bands, wavelet, boundary_rows="extended", tile=16)
+    assert tuple(rec.shape) == (h, w)
+    _close(rec, tf.idwt2_level_plain(*bands, wavelet, 16, ext=True), exact)
+
+
+def _vol(shape, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        a = rng.integers(-255, 256, shape).astype(np.int32)
+    else:
+        a = rng.standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+VOLUME = [
+    ((64, 128, 128), torch.float32, "cdf97", t3.TILE3),  # 92 KB of shared memory
+    ((32, 64, 64), torch.float32, "cdf97", (16, 16, 64)),  # 166 KB
+    ((10, 34, 32), torch.float32, "cdf97", (4, 8, 8)),
+    ((6, 6, 6), torch.float32, "cdf53", (2, 2, 2)),
+    ((16, 16, 16), torch.float32, "interp53", (16, 16, 16)),
+    ((16, 24, 16), torch.float32, "haar", (4, 8, 8)),
+    ((8, 24, 48), torch.int32, "cdf53", (4, 8, 16)),
+    ((32, 64, 64), torch.int32, "cdf97", t3.TILE3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,wavelet,tile", VOLUME)
+def test_b14_b15_kernels_match_plain(cuda_device, shape, dtype, wavelet, tile):
+    x = _vol(shape, dtype, cuda_device, seed=6)
+    exact = dtype == torch.int32
+    tf.reset_counters()
+    b = t3.fused_dwt3_level(x, wavelet, tile=tile)
+    want = t3.dwt3_level_plain(x, wavelet, tile)
+    _close([b[k] for k in t3.BANDS], [want[k] for k in t3.BANDS], exact)
+    rec = t3.fused_idwt3_level(b, wavelet, tile=tile)
+    _close(rec, t3.idwt3_level_plain(b, wavelet, tile), exact)
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B14"].launches, tf.KERNELS["B15"].launches) == (1, 1)
+    if exact:
+        oracle = sep.dwt3_level(x, wavelet)
+        _close([b[k] for k in t3.BANDS], [oracle[k] for k in t3.BANDS], True)
+        assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+def test_fused_volume_on_card_matches_oracle(cuda_device):
+    v = _vol((64, 128, 128), torch.float32, cuda_device, seed=7)
+    tf.reset_counters()
+    coeffs = api.wavedec3(v, "cdf97", 2, impl="fused")
+    rec = api.waverec3(coeffs, "cdf97", impl="fused")
+    torch.cuda.synchronize()
+    assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
+        "B14": 2, "B15": 2}
+    want = sep.wavedec3(v, "cdf97", 2)
+    assert float((coeffs[0] - want[0]).abs().max()) <= 5e-4
+    for got_l, want_l in zip(coeffs[1:], want[1:]):
+        assert max(float((got_l[k] - want_l[k]).abs().max()) for k in want_l) <= 5e-4
+    assert float((rec - v).abs().max()) <= 1e-3
+    # 'auto' on a CUDA volume takes the same kernels
+    tf.reset_counters()
+    api.waverec3(api.wavedec3(v, "cdf97", 2), "cdf97")
+    assert (tf.KERNELS["B14"].launches, tf.KERNELS["B15"].launches) == (2, 2)
+
+
+@pytest.mark.cuda
+def test_single_levels_reach_the_kernels_through_the_api(cuda_device):
+    x = _img(1025, 1031, torch.float32, cuda_device, seed=8)
+    tf.reset_counters()
+    got = api.wavedec2(x, "cdf97", 3, impl="fused")
+    b = api.dwt2(x, "cdf97")  # 'auto' on the card: 1024 <= min < 2048
+    rec = api.idwt2(*b, "cdf97")
+    torch.cuda.synchronize()
+    assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
+        "B1": 2, "B3": 2, "B4": 1}
+    for a, c in zip(_leaves(got), _leaves(sep.wavedec2(x, "cdf97", 3))):
+        assert float((a - c).abs().max()) <= 5e-4
+    assert float((rec - x).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_auto_keeps_float64_on_the_oracle(cuda_device):
+    # float64 has no kernel: 'auto' on the card gives the separable result
+    x = _img(1024, 1030, torch.float32, cuda_device, seed=9).double()
+    v = _vol((16, 32, 32), torch.float32, cuda_device, seed=10).double()
+    tf.reset_counters()
+    got2 = [api.dwt2(x, "cdf97"), api.wavedec2(x, "cdf97", 3)]
+    rec2 = api.idwt2(*got2[0], "cdf97")
+    got3 = api.wavedec3(v, "cdf97", 2)
+    rec3 = api.waverec3(got3, "cdf97")
+    torch.cuda.synchronize()
+    assert all(s.launches == 0 for s in tf.KERNELS.values())
+    assert all(torch.equal(a, b) for a, b in zip(
+        _leaves(got2), _leaves([sep.dwt2_level(x, "cdf97"), sep.wavedec2(x, "cdf97", 3)])))
+    assert torch.equal(rec2, sep.idwt2_level(*got2[0], "cdf97"))
+    want3 = sep.wavedec3(v, "cdf97", 2)
+    assert torch.equal(got3[0], want3[0])
+    for g, w in zip(got3[1:], want3[1:]):
+        assert all(torch.equal(g[k], w[k]) for k in w)
+    assert float((rec3 - v).abs().max()) <= 1e-9
+    with pytest.raises(TypeError, match="float64"):
+        api.wavedec3(v, "cdf97", 2, impl="fused")
+    with pytest.raises(TypeError, match="float64"):
+        api.dwt2(x, "cdf97", impl="fused")

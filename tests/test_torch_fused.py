@@ -1,4 +1,5 @@
-"""Port vs reference: the fused 2-D kernels B2, B3, B5, B6 and the fused pyramid functions.
+"""Port vs reference: the fused 2-D kernels B2, B3, B5, B6 and the fused pyramid functions
+(B1/B4 in detail: tests/test_torch_fused_level.py).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version (same tile
 and halo decomposition, same LL re-mirror arithmetic as the CUDA kernel);
@@ -20,7 +21,7 @@ import torch
 import libdwt_tpu.ops.fused as jf
 import libdwt_tpu.ops.separable as js
 from libdwt_tpu.utils.testimg import test_image as make_image
-from libdwt_torch.ops import _cuda
+from libdwt_torch.ops import _cuda, fused3d
 from libdwt_torch.ops import fused as tf
 
 
@@ -156,8 +157,11 @@ def test_wrappers_count_calls_not_launches_on_cpu():
     tf.fused_idwt2_2level(*c2)
     d = tf.fused_deep_wavedec2(x, "cdf97", 2)
     tf.fused_deep_waverec2(d)
+    tf.fused_idwt2_level(*tf.fused_dwt2_level(x))
+    v = torch.from_numpy(np.random.default_rng(0).random((8, 8, 8), dtype=np.float32))
+    fused3d.fused_idwt3_level(fused3d.fused_dwt3_level(v))
     assert {k: (s.calls, s.launches) for k, s in tf.KERNELS.items()} == {
-        "B2": (1, 0), "B3": (1, 0), "B5": (1, 0), "B6": (1, 0)}
+        k: (1, 0) for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B14", "B15")}
     tf.reset_counters()
     assert all(s.calls == 0 for s in tf.KERNELS.values())
 
@@ -198,10 +202,13 @@ def test_wrappers_reject_bad_input(call, match):
 
 
 def test_single_fused_levels_raise_not_ported():
-    with pytest.raises(NotImplementedError, match="B1"):
-        tf.fused_dwt2_level(torch.zeros(64, 64))
-    with pytest.raises(NotImplementedError, match="B4"):
-        tf.fused_idwt2_level(*(torch.zeros(32, 32),) * 4)
+    """The single fused levels B1/B4 are ported: they run and match the
+    Pallas kernels."""
+    x = _img(64, 64)
+    want = jf.fused_dwt2_level(jnp.asarray(x), "cdf97", interpret=True)
+    got = tf.fused_dwt2_level(torch.from_numpy(x))
+    _close(list(got), list(want))
+    _close(tf.fused_idwt2_level(*got), jf.fused_idwt2_level(*want, interpret=True))
 
 
 def test_cuda_dtypes():
@@ -235,6 +242,9 @@ def test_lift_params_struct(wavelet, is_int, inverse):
     assert p.has_scale == int(scales is not None)
     if scales:
         assert list(p.scale) == pytest.approx(list(scales))
+        lo, hi = tf._axis_scales(w, is_int, inverse)
+        assert (p.scale_lo, p.scale_hi) == pytest.approx((lo, hi))
+        assert list(p.scale) == pytest.approx([lo * lo, lo * hi, hi * lo, hi * hi])
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -245,7 +255,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.build_all()
     assert _cuda.build_dir() == tmp_path / "b"
-    assert set(_cuda.SOURCES) == {"fused2l.cu", "level.cu"}
+    assert set(_cuda.SOURCES) == {"fused2l.cu", "level.cu", "fused3d.cu"}
     assert all((_cuda.CSRC / s).exists() for s in _cuda.SOURCES + _cuda.HEADERS)
 
 
@@ -257,6 +267,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     (1024, 2560, 5, [("2level", 2), ("deep", 3)]),
     (1024, 1024, 1, [("level", 1)]),
     (1030, 1024, 3, [("level", 1), ("deep", 2)]),
+    (2161, 4097, 5, [("level", 1), ("level", 1), ("deep", 3)]),
     (256, 160, 5, [("deep", 5)]),
     (256, 160, 6, [("separable", 1)] * 6),
     (16, 16, 2, [("separable", 1), ("separable", 1)]),
