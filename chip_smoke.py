@@ -14,13 +14,17 @@
      ``impl='fused'`` on the same frame (B1/B4), and ``api.wavedec2`` of
      a 2161x4097 frame, J=5, whose plan is B1, B1, then B3;
    - the 3-D volume: ``api.wavedec3`` / ``waverec3``, J=2,
-     ``impl='fused'`` on 64x512x512 (B14/B15, twice each).
+     ``impl='fused'`` on 64x512x512 (B14/B15, twice each);
+   - the streamed pyramid: ``api.wavedec2`` / ``waverec2`` with
+     ``impl='streamed'`` on the 2144x4096 frame, J=5 (one cooperative
+     launch each: B11, B12) and J=2 (B8, B10).
 3. Checks each path against the port's separable oracle on the card
    (pyramids <= 5e-4, single levels <= 3e-5, round trips <= 1e-3), the
    reference's bench gates of B1 (int32 CDF 5/3 at 512x512 exact, f32 at
    513x511 <= 3e-5), the extended-rows contract, int32 CDF 5/3 through
-   every kernel (exactly equal to the plain versions and the oracle), and
-   that 'auto' on the CUDA volume takes the 3-D kernels.
+   every kernel (exactly equal to the plain versions and the oracle), that
+   'auto' on the CUDA volume takes the 3-D kernels, and that the
+   cooperative grids of B11/B12 fit the card at once.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes (float32: <= 3e-5).
 5. Times each kernel and its plain version with CUDA events, beside the
@@ -162,6 +166,7 @@ def main() -> int:
     from libdwt_torch.ops import fused as F
     from libdwt_torch.ops import fused3d as F3
     from libdwt_torch.ops import separable as sep
+    from libdwt_torch.ops import streamed as S
     from libdwt_torch.utils.testimg import test_image
 
     dev = torch.device("cuda")
@@ -363,7 +368,82 @@ def main() -> int:
     require(max_abs(back, F3.idwt3_level_plain(got, "cdf53")) == 0 and max_abs(back, vi) == 0,
             "int32 cdf53 32x64x64 B15 inverse == plain == input")
 
-    # ---- the new kernels vs their plain versions at their paths' shapes
+    # ---- the streamed path: wavedec2/waverec2 impl='streamed' at 2144x4096,
+    # J=5 (one launch each: B11, B12) and J=2 (B8, B10)
+    F.reset_counters()
+    sc = api.wavedec2(x, WV, J, impl="streamed")
+    srec = api.waverec2(sc, WV, impl="streamed")
+    torch.cuda.synchronize()
+    deep_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print(f"streamed J={J} launches: " + json.dumps(deep_launches)
+          + f", cooperative (grid, resident blocks): {json.dumps(S.LAST_GRID)}", flush=True)
+    require(deep_launches == {"B11": 1, "B12": 1},
+            f"api.wavedec2/waverec2 impl='streamed' J={J} launched B11 and B12 once each")
+    require(all(1 <= g <= r for g, r in S.LAST_GRID.values()),
+            "B11/B12 cooperative grids fit the card's co-resident blocks")
+    require(all(bool(torch.isfinite(a).all()) for a in leaves(sc) + [srec]),
+            "streamed pyramid and reconstruction are finite")
+    err = max_abs(leaves(sc), leaves(want))
+    require(err <= 5e-4, f"streamed pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    err = max_abs(srec, x)
+    require(err <= 1e-3, f"streamed round trip max|err| {err:.3e} <= 1e-3")
+    F.reset_counters()
+    s2c = api.wavedec2(x, WV, 2, impl="streamed")
+    s2rec = api.waverec2(s2c, WV, impl="streamed")
+    torch.cuda.synchronize()
+    pair_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print("streamed J=2 launches: " + json.dumps(pair_launches), flush=True)
+    require(pair_launches == {"B8": 1, "B10": 1},
+            "api.wavedec2/waverec2 impl='streamed' J=2 launched B8 and B10 once each")
+    err = max_abs(leaves(s2c), leaves(sep.wavedec2(x, WV, 2)))
+    require(err <= 5e-4, f"streamed J=2 pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    err = max_abs(s2rec, x)
+    require(err <= 1e-3, f"streamed J=2 round trip max|err| {err:.3e} <= 1e-3")
+    launches.update(deep_launches)
+    launches.update(pair_launches)
+    for levels, fwd, fwd_plain, inv, inv_plain, tag in (
+            (2, lambda a: list(S.streamed_dwt2_2level(a, "cdf53")),
+             lambda a: list(S.streamed_dwt2_2level_plain(a, "cdf53")),
+             lambda c: S.streamed_idwt2_2level(c[0], c[1], c[2], "cdf53"),
+             lambda c: S.streamed_idwt2_2level_plain(c[0], c[1], c[2], "cdf53"),
+             "B8/B10"),
+            (4, lambda a: S.streamed_wavedec2_deep(a, "cdf53", 4),
+             lambda a: S.streamed_wavedec2_deep_plain(a, "cdf53", 4),
+             lambda c: S.streamed_waverec2_deep(c, "cdf53"),
+             lambda c: S.streamed_waverec2_deep_plain(c, "cdf53"),
+             "B11/B12")):
+        oracle = sep.wavedec2(xi, "cdf53", levels)
+        got = fwd(xi)
+        require(max_abs(leaves(got), leaves(fwd_plain(xi))) == 0
+                and max_abs(leaves(got), leaves(oracle)) == 0,
+                f"int32 cdf53 512x512 {tag} forward == plain == oracle")
+        back = inv(oracle)
+        require(max_abs(back, inv_plain(oracle)) == 0 and max_abs(back, xi) == 0,
+                f"int32 cdf53 512x512 {tag} inverse == plain == input")
+
+    # ---- the streamed kernels vs their plain versions at their path's shapes
+    pyr_ops = x.numel() * sum(4.0 ** -k for k in range(J)) * OPS_PER_PIXEL_LEVEL
+    streamed_cases = {
+        "B8": (lambda: S.streamed_dwt2_2level(x, WV),
+               lambda: S.streamed_dwt2_2level_plain(x, WV),
+               x.numel() * 4 * 2, x.numel() * 1.25 * OPS_PER_PIXEL_LEVEL),
+        "B10": (lambda: S.streamed_idwt2_2level(*s2c, WV),
+                lambda: S.streamed_idwt2_2level_plain(*s2c, WV),
+                x.numel() * 4 * 2, x.numel() * 1.25 * OPS_PER_PIXEL_LEVEL),
+        "B11": (lambda: S.streamed_wavedec2_deep(x, WV, J),
+                lambda: S.streamed_wavedec2_deep_plain(x, WV, J),
+                x.numel() * 4 * 2, pyr_ops),
+        "B12": (lambda: S.streamed_waverec2_deep(sc, WV),
+                lambda: S.streamed_waverec2_deep_plain(sc, WV),
+                x.numel() * 4 * 2, pyr_ops),
+    }
+    for k, (kern, plain, _, _) in streamed_cases.items():
+        errs[k] = max_abs(leaves(kern()), leaves(plain()))
+        torch.cuda.synchronize()
+        require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
+                f"max|diff| {errs[k]:.3e} <= 3e-5")
+
+    # ---- the slice 2 kernels vs their plain versions at their paths' shapes
     b14_l1 = F3.fused_dwt3_level(v, WV)
     ll3 = b14_l1["LLL"]  # 32x256x256, level 2's input
     b14_l2 = F3.fused_dwt3_level(ll3, WV)
@@ -410,7 +490,7 @@ def main() -> int:
         return ms, plain_ms, max(bytes_ms, ops_ms), bound_by
 
     rows = []
-    all_cases = {**cases, **new_cases}
+    all_cases = {**cases, **new_cases, **streamed_cases}
     for k in sorted(all_cases, key=lambda kid: int(kid[1:])):
         ms, plain_ms, bound_ms, bound_by = timed(k, *all_cases[k])
         st = F.KERNELS[k]
@@ -434,6 +514,13 @@ def main() -> int:
     print(f"time single-level path: dwt2 {fwd_ms:.4f} ms, idwt2 {inv_ms:.4f} ms "
           f"({H}x{W} f32), wavedec2 {odd_ms:.4f} ms ({HO}x{WO} f32 J={J}) [{smi}]",
           flush=True)
+    fwd_ms = time_ms(lambda: api.wavedec2(x, WV, J, impl="streamed"), args.reps)
+    inv_ms = time_ms(lambda: api.waverec2(sc, WV, impl="streamed"), args.reps)
+    fwd2_ms = time_ms(lambda: api.wavedec2(x, WV, 2, impl="streamed"), args.reps)
+    inv2_ms = time_ms(lambda: api.waverec2(s2c, WV, impl="streamed"), args.reps)
+    print(f"time streamed path: wavedec2 {fwd_ms:.4f} ms, waverec2 {inv_ms:.4f} ms "
+          f"(J={J}); wavedec2 {fwd2_ms:.4f} ms, waverec2 {inv2_ms:.4f} ms (J=2) "
+          f"({H}x{W} f32) [{smi}]", flush=True)
     fwd_ms = time_ms(lambda: api.wavedec3(v, WV, J3, impl="fused"), args.reps)
     inv_ms = time_ms(lambda: api.waverec3(c3, WV, impl="fused"), args.reps)
     sep_ms = time_ms(lambda: sep.wavedec3(v, WV, J3), max(3, args.reps // 4), warm=1)
@@ -443,6 +530,14 @@ def main() -> int:
 
     profile_path("main path (wavedec2 + waverec2)",
                  lambda: api.waverec2(api.wavedec2(x, WV, J, impl="fused"), WV, impl="fused"),
+                 smi)
+    profile_path(f"streamed path J={J} (wavedec2 + waverec2)",
+                 lambda: api.waverec2(api.wavedec2(x, WV, J, impl="streamed"), WV,
+                                      impl="streamed"),
+                 smi)
+    profile_path("streamed path J=2 (wavedec2 + waverec2)",
+                 lambda: api.waverec2(api.wavedec2(x, WV, 2, impl="streamed"), WV,
+                                      impl="streamed"),
                  smi)
     profile_path("3-D path (wavedec3 + waverec3)",
                  lambda: api.waverec3(api.wavedec3(v, WV, J3, impl="fused"), WV, impl="fused"),

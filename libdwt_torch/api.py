@@ -4,9 +4,16 @@ Strategies:
   * ``separable``    — batched torch lifting (the oracle; always valid)
   * ``fused``        — the hand-written CUDA tile kernels of ops/fused and
                        ops/fused3d (their plain versions for CPU tensors)
-  * ``streamed``, ``streamed-mxu`` — not ported yet (ROADMAP rows B7-B13,
-                       and B16-B17 in 3-D)
-  * ``auto``         — built-in thresholds (no tuned table for the GPU yet)
+  * ``streamed``     — the streamed strip kernels of ops/streamed for
+                       ``wavedec2``/``waverec2``; single streamed levels
+                       (ROADMAP rows B7/B9) and 3-D (B16-B17) are not
+                       ported yet and raise ``NotImplementedError``
+  * ``streamed-mxu`` — the banded-matmul body (B13), not ported yet: raises
+                       ``NotImplementedError`` after the streamed geometry
+                       check
+  * ``auto``         — built-in thresholds (no tuned table for the GPU yet);
+                       never picks a streamed kernel, as the reference
+                       without a tuned table
 
 An explicit ``impl`` is honoured or raises.  In 2-D 'auto' picks 'fused'
 on a CUDA tensor with 1024 <= min(h, w) < 2048, as the reference does
@@ -30,6 +37,7 @@ from libdwt_torch.ops import UnsupportedGeometry
 from libdwt_torch.ops import fused as _fused
 from libdwt_torch.ops import fused3d as _fused3d
 from libdwt_torch.ops import separable as _sep
+from libdwt_torch.ops import streamed as _streamed
 from libdwt_torch.utils.device import as_tensor
 from libdwt_torch.utils.log import get_logger
 from libdwt_torch.utils.subband import resolve_j
@@ -62,11 +70,24 @@ def get_impl() -> str:
     return _default_impl
 
 
-def _not_ported(impl: str):
-    raise NotImplementedError(
-        f"impl={impl!r} is not ported to the GPU yet (ROADMAP.md section B, "
-        "rows B7-B13); use impl='fused' or 'separable'"
-    )
+def _single_level(impl: Optional[str]) -> None:
+    """Single levels: 'streamed-mxu' names a pyramid body; the single
+    streamed levels (B7/B9) are not ported."""
+    if impl == "streamed-mxu":
+        raise ValueError(
+            "impl='streamed-mxu' applies to multi-level transforms only "
+            "(wavedec2/waverec2); use impl='streamed' for single levels"
+        )
+    if (impl or _default_impl) in ("streamed", "streamed-mxu"):
+        raise NotImplementedError(
+            "single-level impl='streamed' is not ported to the GPU yet "
+            "(ROADMAP.md section B, rows B7/B9); use impl='fused' or 'separable'"
+        )
+
+
+def _streamed_ok(h: int, w: int, wavelet, levels: int) -> bool:
+    return _streamed.streamed_supported((h, w), wavelet, 256,
+                                        levels=2 if levels >= 2 else 1)
 
 
 def _auto_fused_ok(on_cuda: bool, dtype) -> bool:
@@ -75,16 +96,23 @@ def _auto_fused_ok(on_cuda: bool, dtype) -> bool:
 
 
 def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
-               dtype) -> str:
-    """'separable' | 'fused'.  Explicit requests are honoured or raise;
-    'auto' uses the built-in thresholds."""
+               dtype, levels: int = 1) -> str:
+    """'separable' | 'fused' | 'streamed'.  Explicit requests are honoured
+    or raise; 'auto' uses the built-in thresholds."""
     impl = impl or _default_impl
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}")
     if impl == "separable":
         return impl
     if impl in ("streamed", "streamed-mxu"):
-        _not_ported(impl)
+        if not _streamed_ok(h, w, wavelet, levels):
+            raise ValueError(
+                "streamed impl needs even dims (div. by 4 for 2+ levels), "
+                "2..32 strips of rows and a symmetric-step wavelet"
+            )
+        if impl == "streamed-mxu":
+            _streamed.mxu_not_ported()
+        return impl
     feasible = min(h, w) >= _FUSED_MIN_SIZE and _fused.fused_supported(wavelet)
     if impl == "fused":
         if not feasible:
@@ -112,11 +140,7 @@ def dwt2(x, wavelet="cdf97", impl: Optional[str] = None, device=None):
     """Single-level 2-D forward transform -> (LL, HL, LH, HH).  With
     'fused' each frame of a batch (..., H, W) runs B1 in turn."""
     x = as_tensor(x, device)
-    if impl == "streamed-mxu":
-        raise ValueError(
-            "impl='streamed-mxu' applies to multi-level transforms only "
-            "(wavedec2/waverec2); use impl='streamed' for single levels"
-        )
+    _single_level(impl)
     h, w = x.shape[-2], x.shape[-1]
     if _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype) == "fused":
         if x.ndim == 2:
@@ -133,11 +157,7 @@ def idwt2(ll, hl, lh, hh, wavelet="cdf97", impl: Optional[str] = None,
     ll, hl, lh, hh = (as_tensor(b, device) for b in (ll, hl, lh, hh))
     if border != "mirror":
         return _sep.idwt2_level(ll, hl, lh, hh, wavelet, border=border)
-    if impl == "streamed-mxu":
-        raise ValueError(
-            "impl='streamed-mxu' applies to multi-level transforms only "
-            "(wavedec2/waverec2); use impl='streamed' for single levels"
-        )
+    _single_level(impl)
     h, w = ll.shape[-2] + hh.shape[-2], ll.shape[-1] + hh.shape[-1]
     if _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype) == "fused":
         if ll.ndim == 2:
@@ -153,15 +173,18 @@ def wavedec2(x, wavelet="cdf97", level: Optional[int] = None,
              impl: Optional[str] = None, device=None):
     """Multi-level 2-D MRA -> [LL_J, (HL_J, LH_J, HH_J), ..., (HL_1, LH_1, HH_1)].
 
-    With 'fused' each frame runs :func:`ops.fused.fused_wavedec2`; a
-    batch (..., H, W) is looped frame by frame."""
+    With 'fused' each frame runs :func:`ops.fused.fused_wavedec2`, with
+    'streamed' :func:`ops.streamed.streamed_wavedec2`; a batch (..., H, W)
+    is looped frame by frame."""
     x = as_tensor(x, device)
     h, w = x.shape[-2], x.shape[-1]
     j = resolve_j(h, w, level)
-    if _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype) == "fused":
+    choice = _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype, levels=j)
+    if choice != "separable":
+        dec = _fused.fused_wavedec2 if choice == "fused" else _streamed.streamed_wavedec2
         if x.ndim == 2:
-            return _fused.fused_wavedec2(x, wavelet, j)
-        per = [_fused.fused_wavedec2(f, wavelet, j) for f in _frames(x)]
+            return dec(x, wavelet, j)
+        per = [dec(f, wavelet, j) for f in _frames(x)]
         batch = x.shape[:-2]
         out = [_unframe([p[0] for p in per], batch)]
         for lvl in range(1, len(per[0])):
@@ -187,13 +210,17 @@ def waverec2(coeffs, wavelet="cdf97", impl: Optional[str] = None,
     if len(coeffs) > 1 and border == "mirror":
         h = coeffs[-1][0].shape[-2] + coeffs[-1][1].shape[-2]
         w = coeffs[-1][0].shape[-1] + coeffs[-1][1].shape[-1]
-        if _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype) == "fused":
+        choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype,
+                            levels=len(coeffs) - 1)
+        if choice != "separable":
+            rec = (_fused.fused_waverec2 if choice == "fused"
+                   else _streamed.streamed_waverec2)
             if ll.ndim == 2:
-                return _fused.fused_waverec2(coeffs, wavelet)
+                return rec(coeffs, wavelet)
             batch = tuple(ll.shape[:-2])
             flat = [_frames(coeffs[0])] + [tuple(_frames(b) for b in lvl)
                                            for lvl in coeffs[1:]]
-            per = [_fused.fused_waverec2(
+            per = [rec(
                 [flat[0][i]] + [tuple(b[i] for b in lvl) for lvl in flat[1:]],
                 wavelet) for i in range(flat[0].shape[0])]
             return _unframe(per, batch)

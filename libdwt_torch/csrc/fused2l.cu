@@ -30,13 +30,13 @@
 //   level-1 bands (halo 4) -> scale, inverse columns, rows -> write.
 // Axis order: forward rows then columns, inverse columns then rows, for
 // floats and ints alike (the integer order the oracle needs bit-exactly).
-#include "lifting.cuh"
+// The tile bodies are in tiles.cuh (fwd2_*, inv2_*), shared with the strip
+// kernels of streamed.cu.
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int HALO2 = 12;  // forward level-1 halo (signal samples)
-constexpr int IH2 = 8;     // inverse level-2 halo (LL1 samples)
-constexpr int IH1 = 4;     // inverse level-1 halo (signal samples)
+constexpr int HALO2 = tiles::HALO2;
 
 template <typename T>
 __global__ void fwd2_kernel(const T* __restrict__ x, T* ll2, T* hl2, T* lh2, T* hh2,
@@ -44,66 +44,12 @@ __global__ void fwd2_kernel(const T* __restrict__ x, T* ll2, T* hl2, T* lh2, T* 
                             LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
     T* s1 = reinterpret_cast<T*>(smem_raw);
-    const int E = tile + 2 * HALO2;
-    const int TQ = tile / 2;
-    const int E1 = TQ + 8;
-    T* s2 = s1 + E * E;
+    T* s2 = s1 + tiles::fwd2_elems(tile, tile, HALO2);
     const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
-
-    for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        const int gy = mirror_idx(y0 - HALO2 + r, h);
-        const int gx = mirror_idx(x0 - HALO2 + c, w);
-        s1[i] = x[(size_t)gy * w + gx];
-    }
+    tiles::fwd2_load<false>(x, s1, h, w, y0, x0, tile, tile, HALO2);
     __syncthreads();
-    lift_tile(s1, E, E, E, P, true);
-    lift_tile(s1, E, E, E, P, false);
-    scale_tile(s1, E, E, E, P);
-
-    // level-1 detail bands of the tile's own T x T samples
-    for (int i = threadIdx.x; i < tile * tile; i += blockDim.x) {
-        const int gy = y0 + i / tile, gx = x0 + i % tile;
-        if (gy < h && gx < w && ((gy | gx) & 1))
-            band_put<T>(nullptr, hl1, lh1, hh1, gy, gx, w,
-                        s1[(HALO2 + i / tile) * E + HALO2 + i % tile]);
-    }
-    // LL1 with a halo of 4: LL1 positions [q0 - 4, q0 + TQ + 4)
-    for (int i = threadIdx.x; i < E1 * E1; i += blockDim.x) {
-        const int r = i / E1, c = i % E1;
-        s2[i] = s1[(4 + 2 * r) * E + 4 + 2 * c];
-    }
-    __syncthreads();
-
-    // whole-point re-mirror of the LL1 halo past the bottom/right edge
-    const int N = h / 2, M = w / 2;
-    const int by = y0 / 2 - 4, bx = x0 / 2 - 4;
-    for (int i = threadIdx.x; i < E1 * E1; i += blockDim.x) {
-        const int r = i / E1, c = i % E1;
-        if (by + r >= N) {
-            const int src = max(2 * N - 2 - (by + r) - by, 0);
-            s2[i] = s2[src * E1 + c];
-        }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < E1 * E1; i += blockDim.x) {
-        const int r = i / E1, c = i % E1;
-        if (bx + c >= M) {
-            const int src = max(2 * M - 2 - (bx + c) - bx, 0);
-            s2[i] = s2[r * E1 + src];
-        }
-    }
-    __syncthreads();
-
-    lift_tile(s2, E1, E1, E1, P, true);
-    lift_tile(s2, E1, E1, E1, P, false);
-    scale_tile(s2, E1, E1, E1, P);
-    for (int i = threadIdx.x; i < TQ * TQ; i += blockDim.x) {
-        const int gy = y0 / 2 + i / TQ, gx = x0 / 2 + i % TQ;
-        if (gy < N && gx < M)
-            band_put<T>(ll2, hl2, lh2, hh2, gy, gx, M,
-                        s2[(4 + i / TQ) * E1 + 4 + i % TQ]);
-    }
+    tiles::fwd2_compute(s1, s2, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, y0, x0,
+                        tile, tile, HALO2, P);
 }
 
 template <typename T>
@@ -114,66 +60,12 @@ __global__ void inv2_kernel(const T* __restrict__ ll2, const T* __restrict__ hl2
                             int tile, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
     T* s2 = reinterpret_cast<T*>(smem_raw);
-    const int TQ = tile / 2;
-    const int E2 = TQ + 2 * IH2;
-    const int E = tile + 2 * IH1;
-    T* s1 = s2 + E2 * E2;
-    const int N = h / 2, M = w / 2;
+    T* s1 = s2 + tiles::inv2_l2_elems(tile, tile);
     const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
-    const int by = y0 / 2 - IH2, bx = x0 / 2 - IH2;
-
-    // level 2: interleaved coefficients of the LL1 domain, mirrored
-    for (int i = threadIdx.x; i < E2 * E2; i += blockDim.x) {
-        const int r = i / E2, c = i % E2;
-        s2[i] = band_at(ll2, hl2, lh2, hh2, mirror_idx(by + r, N),
-                        mirror_idx(bx + c, M), M);
-    }
+    tiles::inv2_load<false>(ll2, hl2, lh2, hh2, hl1, lh1, hh1, s2, s1, h, w, y0, x0,
+                            tile, tile);
     __syncthreads();
-    scale_tile(s2, E2, E2, E2, P);
-    lift_tile(s2, E2, E2, E2, P, false);
-    lift_tile(s2, E2, E2, E2, P, true);
-
-    // LL1 past the bottom/right edge follows the level-1 channel rule
-    // s[N+m] = s[N-1-m]; the synthesis left it whole-point (s[N-1+m])
-    for (int i = threadIdx.x; i < E2 * E2; i += blockDim.x) {
-        const int r = i / E2, c = i % E2;
-        if (by + r >= N) {
-            const int src = max(2 * N - 1 - (by + r) - by, 0);
-            s2[i] = s2[src * E2 + c];
-        }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < E2 * E2; i += blockDim.x) {
-        const int r = i / E2, c = i % E2;
-        if (bx + c >= M) {
-            const int src = max(2 * M - 1 - (bx + c) - bx, 0);
-            s2[i] = s2[r * E2 + src];
-        }
-    }
-    __syncthreads();
-
-    // level 1: LL1 from the tile above, details from the mirrored bands
-    for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        const int py = y0 - IH1 + r, px = x0 - IH1 + c;
-        T v;
-        if (((py | px) & 1) == 0) {
-            v = s2[((py >> 1) - by) * E2 + (px >> 1) - bx];
-        } else {
-            v = band_at<T>(nullptr, hl1, lh1, hh1, mirror_idx(py, h),
-                           mirror_idx(px, w), w);
-        }
-        s1[i] = v;
-    }
-    __syncthreads();
-    scale_tile(s1, E, E, E, P);
-    lift_tile(s1, E, E, E, P, false);
-    lift_tile(s1, E, E, E, P, true);
-    for (int i = threadIdx.x; i < tile * tile; i += blockDim.x) {
-        const int gy = y0 + i / tile, gx = x0 + i % tile;
-        if (gy < h && gx < w)
-            out[(size_t)gy * w + gx] = s1[(IH1 + i / tile) * E + IH1 + i % tile];
-    }
+    tiles::inv2_compute(s2, s1, out, h, w, y0, x0, tile, tile, P);
 }
 
 constexpr int THREADS = 256;
@@ -182,8 +74,8 @@ template <typename T>
 int launch_fwd2(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
                 T* hh1, int h, int w, int tile, const LiftParams* P,
                 cudaStream_t stream) {
-    const int E = tile + 2 * HALO2, E1 = tile / 2 + 8;
-    const size_t smem = sizeof(T) * (size_t)(E * E + E1 * E1);
+    const size_t smem = sizeof(T) * (size_t)(tiles::fwd2_elems(tile, tile, HALO2)
+                                             + tiles::fwd2_ll1_elems(tile, tile));
     if (smem > 48 * 1024)
         cudaFuncSetAttribute(fwd2_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -197,8 +89,8 @@ template <typename T>
 int launch_inv2(const T* ll2, const T* hl2, const T* lh2, const T* hh2,
                 const T* hl1, const T* lh1, const T* hh1, T* out, int h, int w,
                 int tile, const LiftParams* P, cudaStream_t stream) {
-    const int E2 = tile / 2 + 2 * IH2, E = tile + 2 * IH1;
-    const size_t smem = sizeof(T) * (size_t)(E * E + E2 * E2);
+    const size_t smem = sizeof(T) * (size_t)(tiles::inv2_l2_elems(tile, tile)
+                                             + tiles::inv2_l1_elems(tile, tile));
     if (smem > 48 * 1024)
         cudaFuncSetAttribute(inv2_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

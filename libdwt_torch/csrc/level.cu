@@ -26,49 +26,28 @@
 // at 3.35 TB/s); the (2T+8)^2 halo re-read (1.56x the core at T=32) hits
 // L2, and instruction issue in the lifting passes is what holds it.
 //
-// Forward: a (2T+8)^2 tile of the image read with whole-point mirror
-// indices (_mirror_ext2's extension by 4, which also gives odd sizes their
-// ceil/floor bands) -> lift rows, columns, scale -> the tile's T x T
-// samples of each band.  Inverse: the interleaved coefficient image read
+// The tile bodies are in tiles.cuh (fwd1_tile, inv1_tile), shared with the
+// deep phases of streamed.cu.  Forward: a (2T+8)^2 tile of the image read
+// with whole-point mirror indices (_mirror_ext2's extension by 4, which
+// also gives odd sizes their ceil/floor bands) -> lift rows, columns,
+// scale -> the tile's T x T samples of each band.  Inverse: the interleaved coefficient image read
 // through the mirror (exactly the channel rules of _pad_ch_static: the
 // high channel of an odd length gets its missing ceil-grid sample) ->
 // scale, inverse columns, rows -> the tile's 2T x 2T outputs.
-#include "lifting.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int HALO = 4;
+constexpr int HALO = tiles::HALO;
 constexpr int THREADS = 256;
 
 template <typename T, bool EXT>
 __global__ void fwd1_kernel(const T* __restrict__ x, T* ll, T* hl, T* lh, T* hh,
                             int h, int w, int tile, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
-    T* s = reinterpret_cast<T*>(smem_raw);
     const int S = 2 * tile;
-    const int E = S + 2 * HALO;
-    const int y0 = blockIdx.y * S, x0 = blockIdx.x * S;
-    for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        if constexpr (EXT) {
-            // signal row y0 - HALO + r is row y0 + r of the h + 2*HALO rows
-            const int q = y0 + r;
-            s[i] = q < h + 2 * HALO ? x[(size_t)q * w + mirror_idx(x0 - HALO + c, w)]
-                                    : T(0);
-        } else {
-            s[i] = x[(size_t)mirror_idx(y0 - HALO + r, h) * w
-                     + mirror_idx(x0 - HALO + c, w)];
-        }
-    }
-    __syncthreads();
-    lift_tile(s, E, E, E, P, true);
-    lift_tile(s, E, E, E, P, false);
-    scale_tile(s, E, E, E, P);
-    for (int i = threadIdx.x; i < S * S; i += blockDim.x) {
-        const int gy = y0 + i / S, gx = x0 + i % S;
-        if (gy < h && gx < w)
-            band_put(ll, hl, lh, hh, gy, gx, w, s[(HALO + i / S) * E + HALO + i % S]);
-    }
+    tiles::fwd1_tile<T, EXT>(x, ll, hl, lh, hh, h, w, tile, blockIdx.y * S,
+                             blockIdx.x * S, P, reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T, bool EXT>
@@ -76,34 +55,9 @@ __global__ void inv1_kernel(const T* __restrict__ ll, const T* __restrict__ hl,
                             const T* __restrict__ lh, const T* __restrict__ hh,
                             T* out, int h, int w, int tile, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
-    T* s = reinterpret_cast<T*>(smem_raw);
     const int S = 2 * tile;
-    const int E = S + 2 * HALO;
-    const int y0 = blockIdx.y * S, x0 = blockIdx.x * S;
-    for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        if constexpr (EXT) {
-            // signal row p = y0 - HALO + r is channel row (p >> 1) + HALO of
-            // its band: row p + 2*HALO of the extended interleaved image,
-            // which has h + 4*HALO rows
-            const int q = y0 + HALO + r;
-            s[i] = q < h + 4 * HALO
-                       ? band_at(ll, hl, lh, hh, q, mirror_idx(x0 - HALO + c, w), w)
-                       : T(0);
-        } else {
-            s[i] = band_at(ll, hl, lh, hh, mirror_idx(y0 - HALO + r, h),
-                           mirror_idx(x0 - HALO + c, w), w);
-        }
-    }
-    __syncthreads();
-    scale_tile(s, E, E, E, P);
-    lift_tile(s, E, E, E, P, false);
-    lift_tile(s, E, E, E, P, true);
-    for (int i = threadIdx.x; i < S * S; i += blockDim.x) {
-        const int gy = y0 + i / S, gx = x0 + i % S;
-        if (gy < h && gx < w)
-            out[(size_t)gy * w + gx] = s[(HALO + i / S) * E + HALO + i % S];
-    }
+    tiles::inv1_tile<T, EXT>(ll, hl, lh, hh, out, h, w, tile, blockIdx.y * S,
+                             blockIdx.x * S, P, reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename K>

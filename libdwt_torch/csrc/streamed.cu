@@ -1,0 +1,395 @@
+// Streamed 2-D DWT kernels for Hopper (sm_90a): strips through two shared-
+// memory buffers, the next strip's load in flight while the current one
+// lifts.
+//
+// dwt_sfwd2_*      replaces libdwt_tpu/ops/streamed.py streamed_dwt2_2level
+//                  (:369, kernel :423; TPU kernel id B8).
+// dwt_sinv2_*      replaces streamed_idwt2_2level (:651, kernel :715; B10).
+// dwt_sdeep_fwd_*  replaces streamed_wavedec2_deep (:924, kernel :998; B11):
+//                  the whole forward pyramid in one launch.
+// dwt_sdeep_inv_*  replaces streamed_waverec2_deep (:1154, kernel :1277;
+//                  B12): the whole inverse pyramid in one launch.
+//
+// Bound on an H100: bytes.  Each pixel is read once and each coefficient
+// written once (2144x4096 f32: 35.1 MB each way, ~21 us at 3.35 TB/s); the
+// lifting is ~16 flops per pixel over both levels, far below 67 TFLOP/s.
+//
+// Design.  The TPU kernels stream full-width strips because its lane axis
+// needs no halo; a 4096-wide f32 strip with its halo does not fit twice in
+// the 227 KB a block may hold.  Here the frame is cut into column bands of
+// tx samples, each band into segments of strips of ty rows, and one work
+// item is a (band, segment).  A persistent block walks down its item strip
+// by strip: before it lifts strip i it issues the cp.async loads of strip
+// i+1's halo'd window into the other buffer (one 4-byte copy per element,
+// so the border mirror is just the source index), and it waits for strip
+// i+1 only after strip i's outputs are written.  Halos: forward TOP2 = 16
+// rows (streamed.py:400) and HALO2 = 12 columns; inverse 8 LL1 samples at
+// level 2 and 4 signal samples at level 1, on both axes.  The tile
+// arithmetic is fused2l.cu's (tiles.cuh), so a strip's values are bit for
+// bit those of the plain versions in ops/streamed.py.
+//
+// The one-launch pyramids are cooperative kernels (all blocks resident,
+// cooperative_groups grid syncs).  B11: the strip phase of B8 writes levels
+// 1-2 and LL2 into a scratch buffer that sits in the 50 MB L2; after a grid
+// sync each deep level runs level.cu's per-level tile (fwd1_tile) over
+// tiles in a grid-stride loop, with a grid sync between levels.  B12: the
+// deep inverse levels (inv1_tile) reconstruct LL2 into a scratch buffer, a
+// grid sync, then B10's strip phase reads LL2 from it (through the mirror,
+// which gives the whole-point head and repeat tail channel rules of
+// streamed.py:1303-1319).  The grid is the number of blocks that can be
+// resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor after
+// the shared-memory attribute is set), at most the largest phase's items.
+// Scratch buffers are never read before the grid sync that follows their
+// writes, and no pointer is __restrict__, so no read can see a stale line.
+#include <algorithm>
+
+#include <cooperative_groups.h>
+
+#include "tiles.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int TOP2 = 16;   // forward strip row halo
+constexpr int MAX_DEEP = 16;
+
+// Column bands of tx samples, each cut into nseg segments of sps strips of
+// ty rows; item = seg * nbands + band.
+struct Strips {
+    int h, w, ty, tx, nbands, nstrips, sps, nseg;
+    __host__ __device__ int items() const { return nbands * nseg; }
+};
+
+template <typename T>
+struct FwdBands {
+    T *ll2, *hl2, *lh2, *hh2, *hl1, *lh1, *hh1;
+};
+
+template <typename T>
+struct InvBands {
+    const T *ll2, *hl2, *lh2, *hh2, *hl1, *lh1, *hh1;
+    T* out;
+};
+
+// One deep level.  Forward: (h, w) is the input LL's size, ll the input,
+// hl/lh/hh/out the outputs.  Inverse: (h, w) is the output size, ll the
+// coarser LL, hl/lh/hh the bands, out the reconstruction.
+template <typename T>
+struct Level {
+    int h, w;
+    const T* ll;
+    T *hl, *lh, *hh, *out;
+};
+
+template <typename T>
+struct Deep {
+    int n;
+    Level<T> lv[MAX_DEEP];
+};
+
+template <typename T>
+__device__ void fwd2_strips(const T* x, const FwdBands<T>& b, const Strips& g,
+                            const LiftParams& P, T* smem) {
+    const int buf = tiles::fwd2_elems(g.ty, g.tx, TOP2);
+    T* sb[2] = {smem, smem + buf};
+    T* s2 = smem + 2 * buf;
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * g.tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        tiles::fwd2_load<true>(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx, TOP2);
+        __pipeline_commit();
+        for (int i = first; i < last; ++i) {
+            const int k = (i - first) & 1;
+            if (i + 1 < last)
+                tiles::fwd2_load<true>(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0, g.ty,
+                                       g.tx, TOP2);
+            __pipeline_commit();  // possibly empty: keeps wait_prior(1) exact
+            __pipeline_wait_prior(1);
+            __syncthreads();
+            tiles::fwd2_compute(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1,
+                                b.hh1, g.h, g.w, i * g.ty, x0, g.ty, g.tx, TOP2, P);
+        }
+    }
+}
+
+template <typename T>
+__device__ void inv2_strips(const InvBands<T>& b, const Strips& g, const LiftParams& P,
+                            T* smem) {
+    const int n2 = tiles::inv2_l2_elems(g.ty, g.tx);
+    const int stage = n2 + tiles::inv2_l1_elems(g.ty, g.tx);
+    T* sb[2] = {smem, smem + stage};
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * g.tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        tiles::inv2_load<true>(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1, sb[0],
+                               sb[0] + n2, g.h, g.w, first * g.ty, x0, g.ty, g.tx);
+        __pipeline_commit();
+        for (int i = first; i < last; ++i) {
+            const int k = (i - first) & 1;
+            if (i + 1 < last)
+                tiles::inv2_load<true>(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1,
+                                       sb[k ^ 1], sb[k ^ 1] + n2, g.h, g.w,
+                                       (i + 1) * g.ty, x0, g.ty, g.tx);
+            __pipeline_commit();
+            __pipeline_wait_prior(1);
+            __syncthreads();
+            tiles::inv2_compute(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0, g.ty,
+                                g.tx, P);
+        }
+    }
+}
+
+// One deep level over tiles of 2*tile samples, grid-stride.
+template <typename T, bool INV>
+__device__ void deep_level(const Level<T>& L, int tile, const LiftParams& P, T* s) {
+    const int S = 2 * tile;
+    const int nx = (L.w + S - 1) / S, n = nx * ((L.h + S - 1) / S);
+    for (int item = blockIdx.x; item < n; item += gridDim.x) {
+        const int y0 = (item / nx) * S, x0 = (item % nx) * S;
+        if constexpr (INV)
+            tiles::inv1_tile<T, false>(L.ll, L.hl, L.lh, L.hh, L.out, L.h, L.w, tile, y0,
+                                       x0, P, s);
+        else
+            tiles::fwd1_tile<T, false>(L.ll, L.out, L.hl, L.lh, L.hh, L.h, L.w, tile, y0,
+                                       x0, P, s);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+sfwd2_kernel(const T* x, FwdBands<T> b, Strips g, LiftParams P) {
+    extern __shared__ unsigned char smem_raw[];
+    fwd2_strips(x, b, g, P, reinterpret_cast<T*>(smem_raw));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+sinv2_kernel(InvBands<T> b, Strips g, LiftParams P) {
+    extern __shared__ unsigned char smem_raw[];
+    inv2_strips(b, g, P, reinterpret_cast<T*>(smem_raw));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+sdeep_fwd_kernel(const T* x, FwdBands<T> b, Strips g, Deep<T> d, int tile,
+                 LiftParams P) {
+    extern __shared__ unsigned char smem_raw[];
+    T* s = reinterpret_cast<T*>(smem_raw);
+    cg::grid_group grid = cg::this_grid();
+    fwd2_strips(x, b, g, P, s);
+    for (int k = 0; k < d.n; ++k) {
+        grid.sync();
+        deep_level<T, false>(d.lv[k], tile, P, s);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+sdeep_inv_kernel(InvBands<T> b, Strips g, Deep<T> d, int tile, LiftParams P) {
+    extern __shared__ unsigned char smem_raw[];
+    T* s = reinterpret_cast<T*>(smem_raw);
+    cg::grid_group grid = cg::this_grid();
+    for (int k = 0; k < d.n; ++k) {
+        deep_level<T, true>(d.lv[k], tile, P, s);
+        grid.sync();
+    }
+    inv2_strips(b, g, P, s);
+}
+
+// ------------------------------------------------------------ host side
+
+template <typename T>
+size_t fwd_smem(int ty, int tx) {
+    return sizeof(T) * (size_t)(2 * tiles::fwd2_elems(ty, tx, TOP2)
+                                + tiles::fwd2_ll1_elems(ty, tx));
+}
+
+template <typename T>
+size_t inv_smem(int ty, int tx) {
+    return sizeof(T) * 2 * (size_t)(tiles::inv2_l2_elems(ty, tx)
+                                    + tiles::inv2_l1_elems(ty, tx));
+}
+
+template <typename T>
+size_t deep_smem(int tile) {
+    const size_t e = 2 * tile + 2 * tiles::HALO;
+    return sizeof(T) * e * e;
+}
+
+// Set the kernel's shared memory, then the blocks that can be resident at
+// once over the card, and the strip plan: as many segments per band as fill
+// the resident blocks (at least one, at most one strip each).
+template <typename K>
+int plan(K kernel, size_t smem, int h, int w, int ty, int tx, Strips* g,
+         int* resident) {
+    int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    int per_sm = 0, dev = 0, sms = 0;
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                  THREADS, smem)))
+        return err;
+    if ((err = (int)cudaGetDevice(&dev))) return err;
+    if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+        return err;
+    *resident = per_sm * sms;
+    if (*resident < 1) return (int)cudaErrorInvalidConfiguration;
+    g->h = h;
+    g->w = w;
+    g->ty = ty;
+    g->tx = tx;
+    g->nbands = (w + tx - 1) / tx;
+    g->nstrips = (h + ty - 1) / ty;
+    const int nseg = max(1, min(g->nstrips, *resident / g->nbands));
+    g->sps = (g->nstrips + nseg - 1) / nseg;
+    g->nseg = (g->nstrips + g->sps - 1) / g->sps;
+    return 0;
+}
+
+// LL sizes from LL2 (h/4 x w/4) down, one more per deep level.
+void deep_sizes(int h, int w, int n, int* hs, int* ws) {
+    hs[0] = h / 4;
+    ws[0] = w / 4;
+    for (int k = 0; k < n; ++k) {
+        hs[k + 1] = (hs[k] + 1) / 2;
+        ws[k + 1] = (ws[k] + 1) / 2;
+    }
+}
+
+template <typename T>
+int grid_for(const Strips& g, const Deep<T>& d, int tile, int resident) {
+    int most = g.items();
+    const int S = 2 * tile;
+    for (int k = 0; k < d.n; ++k)
+        most = max(most, ((d.lv[k].h + S - 1) / S) * ((d.lv[k].w + S - 1) / S));
+    return min(most, resident);
+}
+
+template <typename T>
+int launch_sfwd2(const T* x, FwdBands<T> b, int h, int w, int ty, int tx,
+                 const LiftParams* P, cudaStream_t stream) {
+    const size_t smem = fwd_smem<T>(ty, tx);
+    Strips g;
+    int resident = 0;
+    const int err = plan(sfwd2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    sfwd2_kernel<T><<<g.items(), THREADS, smem, stream>>>(x, b, g, *P);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sinv2(InvBands<T> b, int h, int w, int ty, int tx, const LiftParams* P,
+                 cudaStream_t stream) {
+    const size_t smem = inv_smem<T>(ty, tx);
+    Strips g;
+    int resident = 0;
+    const int err = plan(sinv2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    sinv2_kernel<T><<<g.items(), THREADS, smem, stream>>>(b, g, *P);
+    return (int)cudaGetLastError();
+}
+
+// ptrs: ll2 scratch, hl2, lh2, hh2, hl1, lh1, hh1, then per deep level
+// (fine first) hl, lh, hh, ll.  info[0..1] <- grid, resident blocks.
+template <typename T>
+int launch_sdeep_fwd(const T* x, void* const* ptrs, int n, int h, int w, int ty,
+                     int tx, int tile, int* info, const LiftParams* P,
+                     cudaStream_t stream) {
+    if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
+    T* const* p = reinterpret_cast<T* const*>(ptrs);
+    FwdBands<T> b{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+    int hs[MAX_DEEP + 1], ws[MAX_DEEP + 1];
+    deep_sizes(h, w, n, hs, ws);
+    Deep<T> d;
+    d.n = n;
+    for (int k = 0; k < n; ++k) {
+        T* const* q = p + 7 + 4 * k;
+        d.lv[k] = Level<T>{hs[k], ws[k], k ? p[7 + 4 * k - 1] : p[0], q[0], q[1], q[2],
+                           q[3]};
+    }
+    const size_t smem = std::max(fwd_smem<T>(ty, tx), deep_smem<T>(tile));
+    Strips g;
+    int resident = 0;
+    int err = plan(sdeep_fwd_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    info[0] = grid_for(g, d, tile, resident);
+    info[1] = resident;
+    LiftParams Pv = *P;
+    void* args[] = {(void*)&x, (void*)&b, (void*)&g, (void*)&d, (void*)&tile, (void*)&Pv};
+    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_fwd_kernel<T>,
+                                           dim3(info[0]), dim3(THREADS), args, smem,
+                                           stream);
+    return err ? err : (int)cudaGetLastError();
+}
+
+// ptrs: LL_J, then per deep level (coarse first) hl, lh, hh, reconstruction
+// (the last one is the LL2 scratch), then hl2, lh2, hh2, hl1, lh1, hh1.
+template <typename T>
+int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
+                     int tile, int* info, const LiftParams* P, cudaStream_t stream) {
+    if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
+    T* const* p = reinterpret_cast<T* const*>(ptrs);
+    int hs[MAX_DEEP + 1], ws[MAX_DEEP + 1];
+    deep_sizes(h, w, n, hs, ws);
+    Deep<T> d;
+    d.n = n;
+    for (int k = 0; k < n; ++k) {
+        T* const* q = p + 1 + 4 * k;
+        d.lv[k] = Level<T>{hs[n - 1 - k], ws[n - 1 - k], k ? p[4 * k] : p[0], q[0], q[1],
+                           q[2], q[3]};
+    }
+    T* const* s = p + 1 + 4 * n;
+    InvBands<T> b{p[4 * n], s[0], s[1], s[2], s[3], s[4], s[5], out};
+    const size_t smem = std::max(inv_smem<T>(ty, tx), deep_smem<T>(tile));
+    Strips g;
+    int resident = 0;
+    int err = plan(sdeep_inv_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    info[0] = grid_for(g, d, tile, resident);
+    info[1] = resident;
+    LiftParams Pv = *P;
+    void* args[] = {(void*)&b, (void*)&g, (void*)&d, (void*)&tile, (void*)&Pv};
+    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_inv_kernel<T>,
+                                           dim3(info[0]), dim3(THREADS), args, smem,
+                                           stream);
+    return err ? err : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// h, w: the frame's size (divisible by 4); ty, tx: the strip rows and band
+// columns (divisible by 4); tile: the deep levels' per-level tile.
+#define LIBDWT_STREAMED(SUF, T)                                                    \
+    extern "C" int dwt_sfwd2_##SUF(const T* x, T* ll2, T* hl2, T* lh2, T* hh2,      \
+                                   T* hl1, T* lh1, T* hh1, int h, int w, int ty,   \
+                                   int tx, const LiftParams* P, void* stream) {    \
+        return launch_sfwd2<T>(x, FwdBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1},  \
+                               h, w, ty, tx, P, (cudaStream_t)stream);             \
+    }                                                                              \
+    extern "C" int dwt_sinv2_##SUF(const T* ll2, const T* hl2, const T* lh2,        \
+                                   const T* hh2, const T* hl1, const T* lh1,       \
+                                   const T* hh1, T* out, int h, int w, int ty,     \
+                                   int tx, const LiftParams* P, void* stream) {    \
+        return launch_sinv2<T>(                                                    \
+            InvBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, h, w, ty, tx, P,  \
+            (cudaStream_t)stream);                                                 \
+    }                                                                              \
+    extern "C" int dwt_sdeep_fwd_##SUF(const T* x, void* const* ptrs, int n, int h, \
+                                       int w, int ty, int tx, int tile, int* info, \
+                                       const LiftParams* P, void* stream) {        \
+        return launch_sdeep_fwd<T>(x, ptrs, n, h, w, ty, tx, tile, info, P,        \
+                                   (cudaStream_t)stream);                          \
+    }                                                                              \
+    extern "C" int dwt_sdeep_inv_##SUF(T* out, void* const* ptrs, int n, int h,     \
+                                       int w, int ty, int tx, int tile, int* info, \
+                                       const LiftParams* P, void* stream) {        \
+        return launch_sdeep_inv<T>(out, ptrs, n, h, w, ty, tx, tile, info, P,      \
+                                   (cudaStream_t)stream);                          \
+    }
+
+LIBDWT_STREAMED(f32, float)
+LIBDWT_STREAMED(i32, int)

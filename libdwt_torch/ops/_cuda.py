@@ -20,8 +20,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu")
-HEADERS = ("lifting.cuh",)
+SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu")
+HEADERS = ("lifting.cuh", "tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -125,10 +125,19 @@ _SIGS = {
     "dwt3_fwd": [_P, _P] + [_I] * 6 + [_PP, _P],
     # host array of the 8 band pointers, output, Z, Y, X, tz, ty, tx
     "dwt3_inv": [_P, _P] + [_I] * 6 + [_PP, _P],
+    # 7 bands + the frame (in or out), h, w, strip rows, band columns
+    "dwt_sfwd2": [_P] * 8 + [_I] * 4 + [_PP, _P],
+    "dwt_sinv2": [_P] * 8 + [_I] * 4 + [_PP, _P],
+    # frame or output, host array of band pointers, deep levels, h, w, ty,
+    # tx, tile, host int[2] <- (grid, resident blocks)
+    "dwt_sdeep_fwd": [_P, _P] + [_I] * 6 + [_P, _PP, _P],
+    "dwt_sdeep_inv": [_P, _P] + [_I] * 6 + [_P, _PP, _P],
 }
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
-              "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu"}
+              "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu",
+              "dwt_sfwd2": "streamed.cu", "dwt_sinv2": "streamed.cu",
+              "dwt_sdeep_fwd": "streamed.cu", "dwt_sdeep_inv": "streamed.cu"}
 _fns: dict = {}
 
 

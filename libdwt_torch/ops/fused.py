@@ -386,67 +386,79 @@ def idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", tile: int = TILE1,
     return _assemble(t[..., HALO: HALO + s_, HALO: HALO + s_], h, w)
 
 
-def fused_dwt2_2level_plain(x, wavelet="cdf97", tile: int = TILE2):
-    """Plain version of B2 (csrc/fused2l.cu dwt_fwd2)."""
+def dwt2_2level_tiles(x, wavelet, ty: int, tx: int, hy: int = HALO2):
+    """Two forward levels on ty x tx tiles with a halo of ``hy`` rows and
+    HALO2 columns (the tile algebra of csrc/tiles.cuh fwd2_*, shared by B2
+    and the streamed B8/B11).  Returns (LL2, (HL2, LH2, HH2), (HL1, LH1, HH1))."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(x.dtype), False)
     h, w = x.shape
-    e, tq = tile + 2 * HALO2, tile // 2
-    e1 = tq + 8
-    ny, nx = _cdiv(h, tile), _cdiv(w, tile)
+    qy, qx = ty // 2, tx // 2
+    ny, nx = _cdiv(h, ty), _cdiv(w, tx)
     dev = x.device
-    t = _gather(x, _tile_index(ny, tile, e, HALO2, h, dev),
-                _tile_index(nx, tile, e, HALO2, w, dev))
+    t = _gather(x, _tile_index(ny, ty, ty + 2 * hy, hy, h, dev),
+                _tile_index(nx, tx, tx + 2 * HALO2, HALO2, w, dev))
     _lift_axis(t, table, -1)
     _lift_axis(t, table, -2)
     _scale_parity(t, scales)
-    core = t[..., HALO2: HALO2 + tile, HALO2: HALO2 + tile]
+    core = t[..., hy: hy + ty, HALO2: HALO2 + tx]
     n, m = h // 2, w // 2
     bands1 = (_band(core, 0, 1, n, m), _band(core, 1, 0, n, m), _band(core, 1, 1, n, m))
     # LL1 with a halo of 4, then the whole-point re-mirror past the
     # bottom/right edge (the signal mirror left it half-point there)
-    s2 = t[..., 4: 4 + 2 * e1: 2, 4: 4 + 2 * e1: 2]
-    s2 = _remirror(s2, n, torch.arange(ny, device=dev) * tq - 4, 2, -2)
-    s2 = _remirror(s2, m, torch.arange(nx, device=dev) * tq - 4, 2, -1)
+    s2 = t[..., hy - 8: hy - 8 + 2 * (qy + 8): 2, HALO2 - 8: HALO2 - 8 + 2 * (qx + 8): 2]
+    s2 = _remirror(s2, n, torch.arange(ny, device=dev) * qy - 4, 2, -2)
+    s2 = _remirror(s2, m, torch.arange(nx, device=dev) * qx - 4, 2, -1)
     _lift_axis(s2, table, -1)
     _lift_axis(s2, table, -2)
     _scale_parity(s2, scales)
-    core2 = s2[..., 4: 4 + tq, 4: 4 + tq]
+    core2 = s2[..., 4: 4 + qy, 4: 4 + qx]
     q, r = h // 4, w // 4
     return (_band(core2, 0, 0, q, r),
             (_band(core2, 0, 1, q, r), _band(core2, 1, 0, q, r), _band(core2, 1, 1, q, r)),
             bands1)
 
 
-def fused_idwt2_2level_plain(ll2, bands2, bands1, wavelet="cdf97", tile: int = TILE2):
-    """Plain version of B5 (csrc/fused2l.cu dwt_inv2)."""
+def fused_dwt2_2level_plain(x, wavelet="cdf97", tile: int = TILE2):
+    """Plain version of B2 (csrc/fused2l.cu dwt_fwd2)."""
+    return dwt2_2level_tiles(x, wavelet, tile, tile)
+
+
+def idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty: int, tx: int):
+    """Two inverse levels on ty x tx output tiles (the tile algebra of
+    csrc/tiles.cuh inv2_*, shared by B5 and the streamed B10/B12)."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(ll2.dtype), True)
     hl1, lh1, hh1 = bands1
     h, w = hl1.shape[0] + lh1.shape[0], hl1.shape[1] + lh1.shape[1]
     n, m = h // 2, w // 2
-    tq = tile // 2
-    e2, e = tq + 16, tile + 2 * HALO
-    ny, nx = _cdiv(h, tile), _cdiv(w, tile)
+    qy, qx = ty // 2, tx // 2
+    ny, nx = _cdiv(h, ty), _cdiv(w, tx)
     dev = ll2.device
     # level 2 in the LL1 domain, halo 8
     y2 = _interleave(ll2, *bands2, n, m)
-    s2 = _gather(y2, _tile_index(ny, tq, e2, 8, n, dev), _tile_index(nx, tq, e2, 8, m, dev))
+    s2 = _gather(y2, _tile_index(ny, qy, qy + 16, 8, n, dev),
+                 _tile_index(nx, qx, qx + 16, 8, m, dev))
     _scale_parity(s2, scales)
     _lift_axis(s2, table, -2)
     _lift_axis(s2, table, -1)
     # LL1 past the bottom/right edge: level-1 channel rule s[N+m] = s[N-1-m]
-    s2 = _remirror(s2, n, torch.arange(ny, device=dev) * tq - 8, 1, -2)
-    s2 = _remirror(s2, m, torch.arange(nx, device=dev) * tq - 8, 1, -1)
+    s2 = _remirror(s2, n, torch.arange(ny, device=dev) * qy - 8, 1, -2)
+    s2 = _remirror(s2, m, torch.arange(nx, device=dev) * qx - 8, 1, -1)
     # level 1, halo 4: LL1 from the tiles above, details mirrored
     y1 = _interleave(None, hl1, lh1, hh1, h, w)
-    t = _gather(y1, _tile_index(ny, tile, e, HALO, h, dev),
-                _tile_index(nx, tile, e, HALO, w, dev))
-    t[..., 0::2, 0::2] = s2[..., 6: 6 + e // 2, 6: 6 + e // 2]
+    t = _gather(y1, _tile_index(ny, ty, ty + 2 * HALO, HALO, h, dev),
+                _tile_index(nx, tx, tx + 2 * HALO, HALO, w, dev))
+    t[..., 0::2, 0::2] = s2[..., 6: 6 + ty // 2 + HALO, 6: 6 + tx // 2 + HALO]
     _scale_parity(t, scales)
     _lift_axis(t, table, -2)
     _lift_axis(t, table, -1)
-    return _assemble(t[..., HALO: HALO + tile, HALO: HALO + tile], h, w)
+    return _assemble(t[..., HALO: HALO + ty, HALO: HALO + tx], h, w)
+
+
+def fused_idwt2_2level_plain(ll2, bands2, bands1, wavelet="cdf97", tile: int = TILE2):
+    """Plain version of B5 (csrc/fused2l.cu dwt_inv2)."""
+    return idwt2_2level_tiles(ll2, bands2, bands1, wavelet, tile, tile)
 
 
 def fused_deep_wavedec2_plain(x, wavelet="cdf97", levels: int = 1, tile: int = TILE1):

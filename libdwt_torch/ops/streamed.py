@@ -1,0 +1,497 @@
+"""Streamed 2-D kernels and the streamed pyramid (port of
+``libdwt_tpu.ops.streamed``).
+
+The JAX kernels stream full-width strips of ``strip_rows`` rows through two
+VMEM buffers with explicit async copies.  The CUDA kernels
+(``csrc/streamed.cu``) keep the semantics and the double buffering, not
+the TPU tiling: a persistent block walks a column band of ``tx`` samples
+down the frame in strips of ``ty`` rows and loads strip i+1 with cp.async
+while it lifts strip i.  ``strip_rows`` is validated exactly as the
+reference validates it (:func:`pick_strip`, the 2..32 strip range, the
+window checks), so the port raises ``ValueError`` on the same geometries,
+but it does not size the CUDA strip.
+
+Ported kernels (TPU kernel ids of ROADMAP section B):
+  B8  streamed_dwt2_2level    -> csrc/streamed.cu dwt_sfwd2_*
+  B10 streamed_idwt2_2level   -> csrc/streamed.cu dwt_sinv2_*
+  B11 streamed_wavedec2_deep  -> csrc/streamed.cu dwt_sdeep_fwd_* (one
+                                 cooperative launch: strips, then the deep
+                                 levels on an L2-resident LL2)
+  B12 streamed_waverec2_deep  -> csrc/streamed.cu dwt_sdeep_inv_*
+Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
+its plain version, with the same strip and tile decomposition, for a CPU
+tensor.  Only the polyphase ('poly') body is ported: ``body='mxu'`` (B13)
+raises ``NotImplementedError``, and the inverse's ``'auto'`` resolves to
+``'poly'`` at every size (see :func:`_resolve_inv_body`).  The single
+streamed levels (B7/B9) are not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+
+from libdwt_torch.models.wavelets import get_wavelet
+from libdwt_torch.ops.fused import (CFIX, CH, HALO, HALO2, KERNELS, TILE1,
+                                    _DEEP_VMEM_LIMIT, KernelStat,
+                                    _check_fused_supported, _check_inputs,
+                                    _empty, _launch, _ptrs,
+                                    dwt2_2level_tiles, fused_deep_wavedec2_plain,
+                                    fused_deep_waverec2_plain, fused_supported,
+                                    fused_wavedec2, fused_waverec2,
+                                    idwt2_2level_tiles)
+
+__all__ = [
+    "streamed_supported", "streamed_deep_ok", "streamed_dwt2_2level",
+    "streamed_idwt2_2level", "streamed_wavedec2_deep", "streamed_waverec2_deep",
+    "streamed_wavedec2", "streamed_waverec2", "pick_strip", "tail_aligned",
+]
+
+#: top halo rows of the reference's strip windows (image/band row i*stride
+#: sits at window row TOP).
+TOP = 8
+#: the reference's forward two-level strip halo; also the CUDA forward
+#: strips' row halo.
+TOP2 = 16
+#: the reference's unrolled-strip budget.
+MAX_STRIPS = 32
+#: the CUDA strips: ty rows of a column band of tx samples (both % 4 == 0).
+STRIP_TY = 64
+STRIP_TX = 64
+
+KERNELS.update({
+    "B8": KernelStat("B8", "streamed_dwt2_2level", "libdwt_torch/csrc/streamed.cu",
+                     "libdwt_tpu/ops/streamed.py:369"),
+    "B10": KernelStat("B10", "streamed_idwt2_2level", "libdwt_torch/csrc/streamed.cu",
+                      "libdwt_tpu/ops/streamed.py:651"),
+    "B11": KernelStat("B11", "streamed_wavedec2_deep", "libdwt_torch/csrc/streamed.cu",
+                      "libdwt_tpu/ops/streamed.py:924"),
+    "B12": KernelStat("B12", "streamed_waverec2_deep", "libdwt_torch/csrc/streamed.cu",
+                      "libdwt_tpu/ops/streamed.py:1154"),
+})
+
+#: (grid, co-resident blocks) of the last cooperative launch of B11 / B12.
+LAST_GRID: dict = {}
+
+
+# ------------------------------------------------------------ geometry
+
+
+def pick_strip(h: int, preferred: int = 256) -> int:
+    """Strip rows: the preferred size, shrunk so the image still splits
+    into >= 2 strips, 32-aligned (the preference is rounded down too)."""
+    preferred = max(64, (preferred // 32) * 32)
+    ty = min(preferred, ((h // 2) // 32) * 32)
+    return max(64, ty)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"streamed kernel geometry: {msg}")
+
+
+def _strip_geom(i: int, total: int, stride: int, top: int = TOP, origin: int = 0):
+    """(want_lo, src_start, length, buf_offset) of strip ``i``'s window
+    over a band of ``total`` rows walked ``stride`` rows per strip with a
+    ``top``-row halo above and below, as the reference's DMA takes it."""
+    want_lo = i * stride - top + origin
+    s = max(want_lo, 0)
+    e = min(i * stride + stride + top + origin, total)
+    return want_lo, s, e - s, s - want_lo
+
+
+def _tail_fits(i: int, total: int, stride: int, tyw: int, fix: int, top: int = TOP,
+               what: str = "tail mirror") -> None:
+    """The reference's in-kernel check that strip ``i``'s tail mirror of
+    depth ``fix`` stays inside its ``tyw``-row window."""
+    if i * stride + stride + fix > total:
+        er = (total - 1) - _strip_geom(i, total, stride, top)[0]
+        _require(er + fix <= tyw - 1,
+                 f"strip {i}: {what} past buffer (er={er}, tyw={tyw})")
+
+
+def _tail_rem(h: int, ty: int) -> int:
+    """Rows of the last strip."""
+    return h - (-(-h // ty) - 1) * ty
+
+
+def tail_aligned(h: int, ty: int) -> bool:
+    """The reference's compiled-path gate: the last strip's rem, rem/2 and
+    rem/4 row DMA slices must be 8-aligned, so rem % 32 == 0.  CUDA has no
+    such constraint; the port keeps the gate so that dispatch refuses the
+    same geometries."""
+    return _tail_rem(h, ty) % 32 == 0
+
+
+def streamed_supported(shape, wavelet, strip_rows: int, levels: int = 1) -> bool:
+    """Geometry gate: even dims (divisible by 4 for the 2-level pair), 2..32
+    strips, a 32-aligned last strip, a symmetric-step wavelet."""
+    h, w = shape
+    div = 4 if levels == 2 else 2
+    if h % div or w % div or not fused_supported(wavelet):
+        return False
+    ty = pick_strip(h, strip_rows or 256)
+    ny = -(-h // ty)
+    if not (2 <= ny <= MAX_STRIPS and h > ty + 48 and tail_aligned(h, ty)):
+        return False
+    # the 2-level inverse also needs its quarter-resolution windows to fit
+    return levels == 1 or h // 4 > ty // 4 + 24
+
+
+def streamed_deep_ok(shape, dtype_itemsize: int, wavelet, level: int,
+                     strip_rows: int = 0) -> bool:
+    """Gate of :func:`streamed_wavedec2_deep`: the 2-level gate, level >= 3,
+    LL2 within the reference's resident-image limit, and enough samples
+    for the deep levels."""
+    h, w = shape
+    if level < 3 or not streamed_supported(shape, wavelet, strip_rows, 2):
+        return False
+    qh, qw = h // 4, w // 4
+    if (qh + 8) * (qw + 8) * dtype_itemsize > _DEEP_VMEM_LIMIT:
+        return False
+    return min(qh, qw) >> (level - 3) > 2 * HALO
+
+
+def mxu_not_ported():
+    raise NotImplementedError(
+        "body='mxu' (the banded-matmul body, ROADMAP.md section B row B13) is "
+        "not ported to the GPU yet; use body='poly'"
+    )
+
+
+def _check_body(body: str) -> None:
+    if body == "mxu":
+        mxu_not_ported()
+    if body != "poly":
+        raise ValueError(f"unknown kernel body {body!r}")
+
+
+def _resolve_inv_body(body: str) -> str:
+    """Inverse body choice.  The reference resolves ``'auto'`` to its
+    banded-matmul body only where its TPU compiler cannot build the
+    polyphase synthesis (above 6 Mpix, float32), and keeps the exact
+    polyphase body everywhere else.  CUDA has no such limit, so here
+    ``'auto'`` is ``'poly'`` at every size: the port's streamed inverse
+    rounds like poly (~1e-6) where the reference's 4K float32 inverse
+    rounds at ~2e-4..5e-4."""
+    if body == "auto":
+        return "poly"
+    _check_body(body)
+    return body
+
+
+def _check_tile(ty: int, tx: int) -> None:
+    if ty <= 0 or tx <= 0 or ty % 4 or tx % 4:
+        raise ValueError("the CUDA strip (ty, tx) must be positive multiples of 4")
+
+
+def _fwd2_geometry(h: int, strip_rows: int) -> None:
+    """The reference's checks of a 2-level forward strip walk (B8, B11)."""
+    ty = pick_strip(h, strip_rows or 256)
+    ny = -(-h // ty)
+    rem = h - (ny - 1) * ty
+    tyw = ty + 2 * TOP2 + (16 if 0 < rem < TOP2 else 0)
+    if h <= tyw or ny < 2 or ny > MAX_STRIPS:
+        raise ValueError("geometry outside the streamed kernel's range")
+    for i in range(ny):
+        want_lo = i * ty - TOP2
+        _tail_fits(i, h, ty, tyw, HALO2, TOP2)
+        if want_lo + tyw > h:
+            _require(h // 2 - 1 - want_lo // 2 + HALO2 // 2 <= tyw // 2 - 1,
+                     f"strip {i}: LL tail mirror past buffer")
+
+
+def _inv2_geometry(h: int, strip_rows: int, deep: bool) -> None:
+    """The reference's checks of a 2-level inverse strip walk (B10, B12).
+    Every band of one resolution gets the same tail check, and the LL1
+    tail check equals the half-resolution bands' one."""
+    ty = pick_strip(h, strip_rows or 256)
+    ny = -(-h // ty)
+    hy, qy = ty // 2, ty // 4
+    cy1, cy2 = h // 2, h // 4
+    remh, remq = cy1 - (ny - 1) * hy, cy2 - (ny - 1) * qy
+    tyw_h = hy + 2 * TOP + (8 if 0 < remh < CFIX else 0)
+    tyw_q = qy + 2 * TOP + (8 if 0 < remq < CFIX else 0)
+    if ny < 2 or ny > MAX_STRIPS or (not deep and (cy1 <= tyw_h or cy2 <= tyw_q)):
+        raise ValueError("geometry outside the streamed kernel's range")
+    for i in range(ny):
+        _tail_fits(i, cy2, qy, tyw_q, CFIX)
+        _tail_fits(i, cy1, hy, tyw_h, CFIX)
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def streamed_dwt2_2level_plain(x, wavelet="cdf97", ty: int = STRIP_TY,
+                               tx: int = STRIP_TX):
+    """Plain version of B8: the strips of ty x tx samples with their
+    TOP2-row and HALO2-column halos."""
+    return dwt2_2level_tiles(x, wavelet, ty, tx, TOP2)
+
+
+def streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet="cdf97",
+                                ty: int = STRIP_TY, tx: int = STRIP_TX):
+    """Plain version of B10."""
+    return idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty, tx)
+
+
+def streamed_wavedec2_deep_plain(x, wavelet="cdf97", level: int = 3,
+                                 ty: int = STRIP_TY, tx: int = STRIP_TX,
+                                 tile: int = TILE1):
+    """Plain version of B11: B8's strips, then the per-level tiles of the
+    deep levels on LL2."""
+    ll2, b2, b1 = streamed_dwt2_2level_plain(x, wavelet, ty, tx)
+    return fused_deep_wavedec2_plain(ll2, wavelet, level - 2, tile) + [b2, b1]
+
+
+def streamed_waverec2_deep_plain(coeffs, wavelet="cdf97", ty: int = STRIP_TY,
+                                 tx: int = STRIP_TX, tile: int = TILE1):
+    """Plain version of B12: the deep inverse levels up to LL2, then B10's
+    strips."""
+    ll2 = fused_deep_waverec2_plain(list(coeffs[:-2]), wavelet, tile)
+    return streamed_idwt2_2level_plain(ll2, coeffs[-2], coeffs[-1], wavelet, ty, tx)
+
+
+# ------------------------------------------------------------ CUDA launches
+
+
+def _launch_coop(kid: str, fn_name: str, dtype, wavelet, inverse, first, ptrs,
+                 args, device) -> None:
+    """A cooperative launch: ``first`` (the frame in or out), then ``ptrs``
+    as a host pointer array; the grid it ran and the co-resident limit
+    land in LAST_GRID[kid]."""
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    info = (ctypes.c_int * 2)()
+    _launch(kid, fn_name, dtype, wavelet, inverse, [first, arr] + args + [info], device)
+    LAST_GRID[kid] = (info[0], info[1])
+
+
+def _deep_shapes(cy2: int, cx2: int, n: int):
+    """LL shapes below LL2, one per deep level (ceil halving)."""
+    out = []
+    for _ in range(n):
+        cy2, cx2 = -(-cy2 // 2), -(-cx2 // 2)
+        out.append((cy2, cx2))
+    return out
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+
+def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "poly",
+                         ty: int = STRIP_TY, tx: int = STRIP_TX):
+    """TWO forward levels in one streamed pass (B8).  Returns (LL2, (HL2,
+    LH2, HH2), (HL1, LH1, HH1)); needs h, w divisible by 4.  Ragged last
+    strips are taken, as the reference takes them in interpret mode."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    if x.ndim != 2:
+        raise ValueError("streamed_dwt2_2level takes one 2-D image")
+    h, w = x.shape
+    if h % 4 or w % 4:
+        raise ValueError("needs h, w divisible by 4")
+    _check_body(body)
+    _fwd2_geometry(h, strip_rows)
+    _check_tile(ty, tx)
+    _check_inputs("streamed_dwt2_2level", ty, x)
+    KERNELS["B8"].calls += 1
+    if not x.is_cuda:
+        return streamed_dwt2_2level_plain(x, wavelet, ty, tx)
+    x = x.contiguous()
+    q = [_empty((h // 4, w // 4), x) for _ in range(4)]
+    b = [_empty((h // 2, w // 2), x) for _ in range(3)]
+    _launch("B8", "dwt_sfwd2", x.dtype, wavelet, False,
+            _ptrs(x, *q, *b) + [h, w, ty, tx], x.device)
+    return q[0], (q[1], q[2], q[3]), (b[0], b[1], b[2])
+
+
+def streamed_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", strip_rows: int = 0,
+                          body: str = "auto", ty: int = STRIP_TY, tx: int = STRIP_TX):
+    """TWO reconstruction levels in one streamed pass (B10), the inverse of
+    :func:`streamed_dwt2_2level`."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    hl1, lh1, hh1 = bands1
+    h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
+    if h % 4 or w % 4:
+        raise ValueError("needs h, w divisible by 4")
+    _resolve_inv_body(body)
+    ins = [ll2, *bands2, *bands1]
+    if [tuple(a.shape) for a in ins] != [(h // 4, w // 4)] * 4 + [(h // 2, w // 2)] * 3:
+        raise ValueError("band shapes do not chain into a two-level pyramid")
+    _inv2_geometry(h, strip_rows, deep=False)
+    _check_tile(ty, tx)
+    _check_inputs("streamed_idwt2_2level", ty, *ins)
+    KERNELS["B10"].calls += 1
+    if not ll2.is_cuda:
+        return streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet, ty, tx)
+    ins = [a.contiguous() for a in ins]
+    out = _empty((h, w), ll2)
+    _launch("B10", "dwt_sinv2", ll2.dtype, wavelet, True,
+            _ptrs(*ins, out) + [h, w, ty, tx], ll2.device)
+    return out
+
+
+def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int = 0,
+                           body: str = "poly", ty: int = STRIP_TY, tx: int = STRIP_TX,
+                           tile: int = TILE1):
+    """The ENTIRE pyramid in ONE launch (B11): levels 1-2 stream through
+    the strips while LL2 goes to a scratch buffer (in L2), then the
+    remaining ``level - 2`` levels run on it after grid-wide syncs.
+    Returns the wavedec2 pytree; floats and integers alike."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    if x.ndim != 2:
+        raise ValueError("streamed_wavedec2_deep takes one 2-D image")
+    h, w = x.shape
+    if level < 3:
+        raise ValueError("use streamed_dwt2_2level for level <= 2")
+    if h % 4 or w % 4:
+        raise ValueError("needs h, w divisible by 4")
+    _check_body(body)
+    _fwd2_geometry(h, strip_rows)
+    cy2, cx2 = h // 4, w // 4
+    if (cy2 + 8) * (cx2 + 8) * x.element_size() > _DEEP_VMEM_LIMIT:
+        raise ValueError("LL2 too large to hold the deep tail in VMEM")
+    n = level - 2
+    if min(cy2, cx2) >> (n - 1) <= 2 * HALO:
+        raise ValueError("too many levels for this size")
+    _check_tile(ty, tx)
+    _check_inputs("streamed_wavedec2_deep", tile, x)
+    KERNELS["B11"].calls += 1
+    if not x.is_cuda:
+        return streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx, tile)
+    x = x.contiguous()
+    ll2 = _empty((cy2, cx2), x)
+    b2 = [_empty((cy2, cx2), x) for _ in range(3)]
+    b1 = [_empty((h // 2, w // 2), x) for _ in range(3)]
+    deep, ptrs = [], _ptrs(ll2, *b2, *b1)
+    ch, cw = cy2, cx2
+    for ny_, nx_ in _deep_shapes(cy2, cx2, n):
+        lvl = (_empty((ny_, cw // 2), x), _empty((ch // 2, nx_), x),
+               _empty((ch // 2, cw // 2), x), _empty((ny_, nx_), x))
+        deep.append(lvl)
+        ptrs += _ptrs(*lvl)
+        ch, cw = ny_, nx_
+    _launch_coop("B11", "dwt_sdeep_fwd", x.dtype, wavelet, False, x.data_ptr(), ptrs,
+                 [n, h, w, ty, tx, tile], x.device)
+    return [deep[-1][3]] + [lvl[:3] for lvl in deep[::-1]] + [tuple(b2), tuple(b1)]
+
+
+def streamed_waverec2_deep(coeffs, wavelet="cdf97", strip_rows: int = 0,
+                           body: str = "auto", ty: int = STRIP_TY, tx: int = STRIP_TX,
+                           tile: int = TILE1):
+    """The ENTIRE reconstruction in ONE launch (B12), the inverse of
+    :func:`streamed_wavedec2_deep`: the deep levels rebuild LL2 into a
+    scratch buffer, then after a grid-wide sync the level-2+1 strips
+    stream out."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    levels = len(coeffs) - 1
+    if levels < 3:
+        raise ValueError("use streamed_idwt2_2level for 2 levels")
+    hl1, lh1, hh1 = coeffs[-1]
+    hl2, lh2, hh2 = coeffs[-2]
+    h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
+    if h % 4 or w % 4:
+        raise ValueError("needs h, w divisible by 4")
+    cy1, cx1 = h // 2, w // 2
+    cy2, cx2 = h // 4, w // 4
+    for name, band, shp in (("hl2", hl2, (cy2, cx2)), ("lh2", lh2, (cy2, cx2)),
+                            ("hh2", hh2, (cy2, cx2)), ("hl1", hl1, (cy1, cx1)),
+                            ("lh1", lh1, (cy1, cx1)), ("hh1", hh1, (cy1, cx1))):
+        if tuple(band.shape) != shp:
+            raise ValueError(f"streamed deep inverse: band {name} has shape "
+                             f"{tuple(band.shape)}, expected {shp}")
+    if (cy2 + 8) * (cx2 + 8) * hl1.element_size() > _DEEP_VMEM_LIMIT:
+        raise ValueError("LL2 too large to hold the deep tail in VMEM")
+    n = levels - 2
+    sizes = [(cy2, cx2)] + _deep_shapes(cy2, cx2, n)
+    ll_shape = sizes[n]
+    if tuple(coeffs[0].shape) != ll_shape:
+        raise ValueError(f"streamed deep inverse: LL has shape "
+                         f"{tuple(coeffs[0].shape)}, expected {ll_shape}")
+    if min(ll_shape) <= CH:
+        raise ValueError(f"coarsest LL {ll_shape} too small for the deep tail's "
+                         f"channel mirrors (needs > {CH} samples per axis)")
+    for triple, (th, tw) in zip(coeffs[1:levels - 1], sizes[n - 1::-1]):
+        want = ((-(-th // 2), tw // 2), (th // 2, -(-tw // 2)), (th // 2, tw // 2))
+        got = tuple(tuple(b.shape) for b in triple)
+        if got != want:
+            raise ValueError(f"streamed deep inverse: coarse triple shapes {got} do "
+                             f"not match the {th}x{tw} level ({want})")
+    _resolve_inv_body(body)
+    _inv2_geometry(h, strip_rows, deep=True)
+    _check_tile(ty, tx)
+    flat = [coeffs[0]] + [b for lvl in coeffs[1:] for b in lvl]
+    _check_inputs("streamed_waverec2_deep", tile, *flat)
+    KERNELS["B12"].calls += 1
+    if not hl1.is_cuda:
+        return streamed_waverec2_deep_plain(coeffs, wavelet, ty, tx, tile)
+    flat = [a.contiguous() for a in flat]
+    ptrs = _ptrs(flat[0])
+    for k in range(n):  # coarse first: the level's bands, then its output
+        ptrs += _ptrs(*flat[1 + 3 * k: 4 + 3 * k], _empty(sizes[n - 1 - k], hl1))
+    out = _empty((h, w), hl1)
+    _launch_coop("B12", "dwt_sdeep_inv", hl1.dtype, wavelet, True, out.data_ptr(),
+                 ptrs + _ptrs(*flat[-6:]), [n, h, w, ty, tx, tile], hl1.device)
+    return out
+
+
+# ------------------------------------------------------------ pyramids
+
+
+def streamed_wavedec2(x, wavelet="cdf97", level: int = 1, strip_rows: int = 0,
+                      body: str = "poly"):
+    """Multi-level MRA: the one-launch pyramid (B11) where
+    :func:`streamed_deep_ok` allows, else streamed 2-level passes (B8)
+    while the geometry allows, then the fused tail of
+    :func:`ops.fused.fused_wavedec2`.  Same pytree as wavedec2."""
+    if x.ndim == 2 and level >= 3 and streamed_deep_ok(
+            tuple(x.shape), x.element_size(), wavelet, level, strip_rows):
+        return streamed_wavedec2_deep(x, wavelet, level, strip_rows=strip_rows, body=body)
+    coeffs = []
+    ll = x
+    remaining = level
+    while remaining >= 2 and ll.ndim == 2 and streamed_supported(
+            tuple(ll.shape), wavelet, strip_rows, levels=2):
+        ll, b2, b1 = streamed_dwt2_2level(ll, wavelet, strip_rows=strip_rows, body=body)
+        coeffs += [b1, b2]
+        remaining -= 2
+    if remaining:
+        rest = fused_wavedec2(ll, wavelet, remaining)
+        ll = rest[0]
+        coeffs.extend(rest[:0:-1])
+    return [ll] + coeffs[::-1]
+
+
+def streamed_waverec2(coeffs, wavelet="cdf97", strip_rows: int = 0, body: str = "auto"):
+    """Inverse of :func:`streamed_wavedec2` (any wavedec2 pytree): the
+    one-launch reconstruction (B12) where its geometry allows, else
+    streamed 2-level inverses (B10) from the coarse end down, with the
+    fused tail for small or odd-geometry levels.  Only the wrapper's own
+    ``ValueError`` (geometry, pytree shapes) sends the deep attempt to the
+    level loop; a launch error propagates."""
+    if len(coeffs) >= 4 and coeffs[0].ndim == 2:
+        try:
+            return streamed_waverec2_deep(coeffs, wavelet, strip_rows=strip_rows,
+                                          body=body)
+        except ValueError:
+            pass
+    ll = coeffs[0]
+    rest = list(coeffs[1:])
+    while rest:
+        if len(rest) >= 2:
+            b2, b1 = rest[0], rest[1]
+            h = b1[0].shape[-2] + b1[1].shape[-2]
+            w = b1[0].shape[-1] + b1[1].shape[-1]
+            if (ll.ndim == 2
+                    and streamed_supported((h, w), wavelet, strip_rows, levels=2)
+                    and ll.shape == b2[0].shape
+                    and all(b.shape == b2[0].shape for b in b2)
+                    and all(tuple(b.shape) == (h // 2, w // 2) for b in b1)):
+                ll = streamed_idwt2_2level(ll, b2, b1, wavelet, strip_rows=strip_rows,
+                                           body=body)
+                rest = rest[2:]
+                continue
+        ll = fused_waverec2([ll, rest[0]], wavelet)
+        rest = rest[1:]
+    return ll

@@ -111,9 +111,10 @@ def test_auto_never_routes_to_unported_kernels():
     tf.reset_counters()
     api.dwt2(x, "cdf97")
     assert all(s.calls == 0 for s in tf.KERNELS.values())
-    for impl in ("streamed", "streamed-mxu"):
-        with pytest.raises(NotImplementedError, match="B7-B13"):
-            pick(1024, 1024, impl=impl)
+    # an explicit 'streamed' is honoured; the banded body (B13) is not ported
+    assert pick(1024, 1024, impl="streamed") == "streamed"
+    with pytest.raises(NotImplementedError, match="B13"):
+        pick(1024, 1024, impl="streamed-mxu")
 
 
 def test_numpy_input_without_cuda_raises(monkeypatch):
@@ -145,9 +146,11 @@ def test_impl_setting_and_errors():
         api.dwt2(torch.zeros(64, 64), impl="streamed-mxu")
     with pytest.raises(ValueError, match="min"):
         api.wavedec2(torch.zeros(16, 16), "cdf97", 2, impl="fused")
-    for impl in ("streamed", "streamed-mxu"):
-        with pytest.raises(NotImplementedError, match="B7-B13"):
+    for impl in ("streamed", "streamed-mxu"):  # one 64-row strip: too short
+        with pytest.raises(ValueError, match="streamed impl needs"):
             api.wavedec2(torch.zeros(64, 64), "cdf97", 2, impl=impl)
+    with pytest.raises(NotImplementedError, match="B7/B9"):
+        api.dwt2(torch.zeros(64, 64), impl="streamed")
     with pytest.raises(NotImplementedError, match="B16-B17"):
         api.wavedec3(torch.zeros(8, 8, 8), impl="streamed")
 

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, each held against its plain version
-(B1-B6 2-D, B14/B15 3-D).
+(B1-B6 2-D, B8/B10/B11/B12 streamed 2-D, B14/B15 3-D).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports torch, numpy and the port only (no JAX), so it also runs on a
@@ -11,8 +11,9 @@ Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
 int32 bit-exactly.  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
-extended-rows contract of the single levels, and 2-D and 3-D tiles whose
-shared memory exceeds the 48 KB default.
+extended-rows contract of the single levels, 2-D and 3-D tiles whose
+shared memory exceeds the 48 KB default, and streamed strips with ragged
+last strips and bands and short quarter tails.
 """
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from libdwt_torch import api
 from libdwt_torch.ops import fused as tf
 from libdwt_torch.ops import fused3d as t3
 from libdwt_torch.ops import separable as sep
+from libdwt_torch.ops import streamed as ts
 
 
 @pytest.fixture
@@ -290,3 +292,83 @@ def test_auto_keeps_float64_on_the_oracle(cuda_device):
         api.wavedec3(v, "cdf97", 2, impl="fused")
     with pytest.raises(TypeError, match="float64"):
         api.dwt2(x, "cdf97", impl="fused")
+
+
+STREAMED = [
+    # (h, w, dtype, wavelet, ty, tx): ragged last strips (260, 204, 200 rows)
+    # and bands (132, 100 columns), short quarter tails (remq 1..3)
+    (260, 128, torch.float32, "cdf97", 64, 64),
+    (204, 132, torch.float32, "cdf97", 32, 48),
+    (512, 384, torch.float32, "cdf53", 128, 128),  # 215 KB of shared memory
+    (256, 256, torch.float32, "haar", 64, 64),
+    (200, 100, torch.float32, "interp53", 16, 20),
+    (200, 128, torch.int32, "cdf53", 64, 64),
+    (288, 128, torch.int32, "cdf97", 16, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dtype,wavelet,ty,tx", STREAMED)
+def test_b8_b10_kernels_match_plain(cuda_device, h, w, dtype, wavelet, ty, tx):
+    x = _img(h, w, dtype, cuda_device, seed=11)
+    exact = dtype == torch.int32
+    tf.reset_counters()
+    c2 = ts.streamed_dwt2_2level(x, wavelet, ty=ty, tx=tx)
+    _close(list(c2), list(ts.streamed_dwt2_2level_plain(x, wavelet, ty, tx)), exact)
+    rec = ts.streamed_idwt2_2level(*c2, wavelet, ty=ty, tx=tx)
+    _close(rec, ts.streamed_idwt2_2level_plain(*c2, wavelet, ty, tx), exact)
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B8"].launches, tf.KERNELS["B10"].launches) == (1, 1)
+    if exact:
+        assert torch.equal(rec, x)
+        _close(list(c2), sep.wavedec2(x, wavelet, 2), True)
+
+
+STREAMED_DEEP = [
+    (256, 320, 4, torch.float32, "cdf97", 64, 64),
+    (512, 384, 5, torch.float32, "cdf97", 32, 32),
+    (1036, 128, 3, torch.float32, "cdf97", 64, 64),  # short quarter tail
+    (260, 256, 3, torch.float32, "cdf53", 64, 48),
+    (256, 320, 4, torch.int32, "cdf53", 64, 64),
+    (512, 384, 5, torch.int32, "cdf97", 32, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,level,dtype,wavelet,ty,tx", STREAMED_DEEP)
+def test_b11_b12_kernels_match_plain(cuda_device, h, w, level, dtype, wavelet, ty, tx):
+    x = _img(h, w, dtype, cuda_device, seed=12)
+    exact = dtype == torch.int32
+    tf.reset_counters()
+    d = ts.streamed_wavedec2_deep(x, wavelet, level, ty=ty, tx=tx)
+    _close(d, ts.streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx), exact)
+    rec = ts.streamed_waverec2_deep(d, wavelet, ty=ty, tx=tx)
+    _close(rec, ts.streamed_waverec2_deep_plain(d, wavelet, ty, tx), exact)
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B11"].launches, tf.KERNELS["B12"].launches) == (1, 1)
+    for kid in ("B11", "B12"):  # the cooperative grid fits the card at once
+        grid, resident = ts.LAST_GRID[kid]
+        assert 1 <= grid <= resident
+    if exact:
+        _close(d, sep.wavedec2(x, wavelet, level), True)
+        assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+def test_streamed_pyramid_on_card_matches_oracle(cuda_device):
+    x = _img(1024, 2560, torch.float32, cuda_device, seed=13)
+    for level, kids in ((5, {"B11": 1, "B12": 1}), (2, {"B8": 1, "B10": 1})):
+        tf.reset_counters()
+        coeffs = api.wavedec2(x, "cdf97", level, impl="streamed")
+        rec = api.waverec2(coeffs, "cdf97", impl="streamed")
+        torch.cuda.synchronize()
+        assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == kids
+        for a, b in zip(_leaves(coeffs), _leaves(sep.wavedec2(x, "cdf97", level))):
+            assert a.shape == b.shape and float((a - b).abs().max()) <= 5e-4
+        assert float((rec - x).abs().max()) <= 1e-3
+    with pytest.raises(NotImplementedError, match="B13"):
+        api.wavedec2(x, "cdf97", 5, impl="streamed-mxu")
+    with pytest.raises(NotImplementedError, match="B13"):
+        api.waverec2(coeffs, "cdf97", impl="streamed-mxu")
+    with pytest.raises(NotImplementedError, match="B7"):
+        api.dwt2(x, "cdf97", impl="streamed")
