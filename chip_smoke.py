@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--reps N]
 
 1. Builds every CUDA kernel of the port from ``libdwt_torch/csrc``.
-2. Drives three paths through the public API, each with the launch
+2. Drives six paths through the public API, each with the launch
    counts set to 0 just before it and read just after, on data made from
    a numpy seed (CDF 9/7, float32):
    - the 2-D pyramid: ``api.wavedec2`` / ``waverec2``, J=5,
@@ -17,16 +17,22 @@
      ``impl='fused'`` on 64x512x512 (B14/B15, twice each);
    - the streamed pyramid: ``api.wavedec2`` / ``waverec2`` with
      ``impl='streamed'`` on the 2144x4096 frame, J=5 (one cooperative
-     launch each: B11, B12) and J=2 (B8, B10).
+     launch each: B11, B12) and J=2 (B8, B10);
+   - the single streamed levels: ``api.dwt2`` / ``idwt2`` with
+     ``impl='streamed'`` on the 2144x4096 frame (B7, B9);
+   - the streamed volume: ``api.wavedec3`` / ``waverec3`` with
+     ``impl='streamed'`` on 64x512x512, J=2 (B16, B17, twice each).
 3. Checks each path against the port's separable oracle on the card
    (pyramids <= 5e-4, single levels <= 3e-5, round trips <= 1e-3), the
    reference's bench gates of B1 (int32 CDF 5/3 at 512x512 exact, f32 at
-   513x511 <= 3e-5), the extended-rows contract, int32 CDF 5/3 through
-   every kernel (exactly equal to the plain versions and the oracle), that
-   'auto' on the CUDA volume takes the 3-D kernels, and that the
-   cooperative grids of B11/B12 fit the card at once.
+   513x511 <= 3e-5), the extended-rows contracts (4 rows fused, 8
+   streamed), int32 CDF 5/3 through every kernel (exactly equal to the
+   plain versions and the oracle), that 'auto' on the CUDA volume takes
+   the 3-D kernels, and that the cooperative grids of B11/B12 fit the
+   card at once.
 4. Holds each kernel against its plain PyTorch version on the card at
-   its path's shapes (float32: <= 3e-5).
+   its path's shapes, the volume kernels at both levels (float32:
+   <= 3e-5).
 5. Times each kernel and its plain version with CUDA events, beside the
    card's bound for the same work, times and profiles the paths, and
    prints the card's name and power limit, a JSON line of kernels, and
@@ -167,6 +173,7 @@ def main() -> int:
     from libdwt_torch.ops import fused3d as F3
     from libdwt_torch.ops import separable as sep
     from libdwt_torch.ops import streamed as S
+    from libdwt_torch.ops import streamed3d as S3
     from libdwt_torch.utils.testimg import test_image
 
     dev = torch.device("cuda")
@@ -443,6 +450,64 @@ def main() -> int:
         require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
                 f"max|diff| {errs[k]:.3e} <= 3e-5")
 
+    # ---- the single streamed levels: dwt2/idwt2 'streamed' at 2144x4096 (B7/B9)
+    F.reset_counters()
+    sbands = api.dwt2(x, WV, impl="streamed")
+    srec1 = api.idwt2(*sbands, WV, impl="streamed")
+    torch.cuda.synchronize()
+    slevel_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print("streamed single-level launches: " + json.dumps(slevel_launches), flush=True)
+    require(slevel_launches == {"B7": 1, "B9": 1},
+            "api.dwt2/idwt2 impl='streamed' launched B7 and B9 once each")
+    launches.update(slevel_launches)
+    err = max_abs(list(sbands), list(sep.dwt2_level(x, WV)))
+    require(err <= 3e-5, f"streamed dwt2 {H}x{W} vs separable oracle max|diff| {err:.3e} <= 3e-5")
+    err = max_abs(srec1, x)
+    require(err <= 1e-3, f"streamed dwt2/idwt2 round trip max|err| {err:.3e} <= 1e-3")
+    got = S.streamed_dwt2_level(xi, "cdf53")
+    require(max_abs(list(got), list(S.streamed_dwt2_level_plain(xi, "cdf53"))) == 0
+            and max_abs(list(got), list(sep.dwt2_level(xi, "cdf53"))) == 0,
+            "int32 cdf53 512x512 B7 forward == plain == oracle")
+    back = S.streamed_idwt2_level(*got, "cdf53")
+    require(max_abs(back, S.streamed_idwt2_level_plain(*got, "cdf53")) == 0
+            and max_abs(back, xi) == 0, "int32 cdf53 512x512 B9 inverse == plain == input")
+    xe8 = torch.from_numpy(rng.standard_normal((512 + 2 * S.TOP, 512)).astype(np.float32)).to(dev)
+    got = S.streamed_dwt2_level(xe8, WV, boundary_rows="extended")
+    err = max_abs(list(got), list(S.streamed_dwt2_level_plain(xe8, WV, ext=S.TOP)))
+    require(err <= 3e-5, f"extended rows 512x512 (+8 rows each side) B7 vs plain "
+            f"max|diff| {err:.3e} <= 3e-5")
+    be8 = [torch.from_numpy(rng.standard_normal((256 + 2 * S.TOP, 256)).astype(np.float32)).to(dev)
+           for _ in range(4)]
+    back = S.streamed_idwt2_level(*be8, WV, boundary_rows="extended")
+    err = max_abs(back, S.streamed_idwt2_level_plain(*be8, WV, ext=S.TOP))
+    require(tuple(back.shape) == (512, 512) and err <= 3e-5,
+            f"extended rows 512x512 (+8 channel rows each side) B9 vs plain "
+            f"max|diff| {err:.3e} <= 3e-5")
+
+    # ---- the streamed volume: wavedec3/waverec3 'streamed', 64x512x512 J=2
+    F.reset_counters()
+    sc3 = api.wavedec3(v, WV, J3, impl="streamed")
+    sr3 = api.waverec3(sc3, WV, impl="streamed")
+    torch.cuda.synchronize()
+    svol_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print("streamed 3-D path launches: " + json.dumps(svol_launches), flush=True)
+    require(svol_launches == {"B16": J3, "B17": J3},
+            f"wavedec3/waverec3 impl='streamed' J={J3} launched B16 and B17 {J3} times each")
+    launches.update(svol_launches)
+    require(all(bool(torch.isfinite(a).all()) for a in leaves(sc3) + [sr3]),
+            "streamed volume pyramid and reconstruction are finite")
+    err = max_abs(leaves(sc3), leaves(want3))
+    require(err <= 5e-4, f"streamed volume pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    err = max_abs(sr3, v)
+    require(err <= 1e-3, f"streamed volume round trip max|err| {err:.3e} <= 1e-3")
+    got = S3.streamed_dwt3_level(vi, "cdf53")
+    require(max_abs(leaves(got), leaves(S3.dwt3_level_streamed_plain(vi, "cdf53"))) == 0
+            and max_abs(leaves(got), leaves(sep.dwt3_level(vi, "cdf53"))) == 0,
+            "int32 cdf53 32x64x64 B16 forward == plain == oracle")
+    back = S3.streamed_idwt3_level(got, "cdf53")
+    require(max_abs(back, S3.idwt3_level_streamed_plain(got, "cdf53")) == 0
+            and max_abs(back, vi) == 0, "int32 cdf53 32x64x64 B17 inverse == plain == input")
+
     # ---- the slice 2 kernels vs their plain versions at their paths' shapes
     b14_l1 = F3.fused_dwt3_level(v, WV)
     ll3 = b14_l1["LLL"]  # 32x256x256, level 2's input
@@ -459,11 +524,30 @@ def main() -> int:
                 lambda: F3.idwt3_level_plain(b14_l1, WV),
                 v.numel() * 4 * 2, v.numel() * OPS_PER_VOXEL_LEVEL),
     }
+    new_cases.update({
+        "B7": (lambda: S.streamed_dwt2_level(x, WV), lambda: S.streamed_dwt2_level_plain(x, WV),
+               x.numel() * 4 * 2, x.numel() * OPS_PER_PIXEL_LEVEL),
+        "B9": (lambda: S.streamed_idwt2_level(*sbands, WV),
+               lambda: S.streamed_idwt2_level_plain(*sbands, WV),
+               x.numel() * 4 * 2, x.numel() * OPS_PER_PIXEL_LEVEL),
+        "B16": (lambda: S3.streamed_dwt3_level(v, WV),
+                lambda: S3.dwt3_level_streamed_plain(v, WV),
+                v.numel() * 4 * 2, v.numel() * OPS_PER_VOXEL_LEVEL),
+        "B17": (lambda: S3.streamed_idwt3_level(b14_l1, WV),
+                lambda: S3.idwt3_level_streamed_plain(b14_l1, WV),
+                v.numel() * 4 * 2, v.numel() * OPS_PER_VOXEL_LEVEL),
+    })
     level2 = {
         "B14": (lambda: F3.fused_dwt3_level(ll3, WV), lambda: F3.dwt3_level_plain(ll3, WV),
                 ll3.numel() * 4 * 2, ll3.numel() * OPS_PER_VOXEL_LEVEL),
         "B15": (lambda: F3.fused_idwt3_level(b14_l2, WV),
                 lambda: F3.idwt3_level_plain(b14_l2, WV),
+                ll3.numel() * 4 * 2, ll3.numel() * OPS_PER_VOXEL_LEVEL),
+        "B16": (lambda: S3.streamed_dwt3_level(ll3, WV),
+                lambda: S3.dwt3_level_streamed_plain(ll3, WV),
+                ll3.numel() * 4 * 2, ll3.numel() * OPS_PER_VOXEL_LEVEL),
+        "B17": (lambda: S3.streamed_idwt3_level(b14_l2, WV),
+                lambda: S3.idwt3_level_streamed_plain(b14_l2, WV),
                 ll3.numel() * 4 * 2, ll3.numel() * OPS_PER_VOXEL_LEVEL),
     }
     for k, (kern, plain, _, _) in new_cases.items():
@@ -527,6 +611,14 @@ def main() -> int:
     print(f"time 3-D path: wavedec3 {fwd_ms:.4f} ms, waverec3 {inv_ms:.4f} ms, "
           f"separable wavedec3 {sep_ms:.4f} ms "
           f"({'x'.join(map(str, VOL))} f32 J={J3}) [{smi}]", flush=True)
+    fwd_ms = time_ms(lambda: api.dwt2(x, WV, impl="streamed"), args.reps)
+    inv_ms = time_ms(lambda: api.idwt2(*sbands, WV, impl="streamed"), args.reps)
+    print(f"time streamed single-level path: dwt2 {fwd_ms:.4f} ms, idwt2 {inv_ms:.4f} ms "
+          f"({H}x{W} f32) [{smi}]", flush=True)
+    fwd_ms = time_ms(lambda: api.wavedec3(v, WV, J3, impl="streamed"), args.reps)
+    inv_ms = time_ms(lambda: api.waverec3(sc3, WV, impl="streamed"), args.reps)
+    print(f"time streamed 3-D path: wavedec3 {fwd_ms:.4f} ms, waverec3 {inv_ms:.4f} ms "
+          f"({'x'.join(map(str, VOL))} f32 J={J3}) [{smi}]", flush=True)
 
     profile_path("main path (wavedec2 + waverec2)",
                  lambda: api.waverec2(api.wavedec2(x, WV, J, impl="fused"), WV, impl="fused"),
@@ -541,6 +633,13 @@ def main() -> int:
                  smi)
     profile_path("3-D path (wavedec3 + waverec3)",
                  lambda: api.waverec3(api.wavedec3(v, WV, J3, impl="fused"), WV, impl="fused"),
+                 smi)
+    profile_path("streamed single-level path (dwt2 + idwt2)",
+                 lambda: api.idwt2(*api.dwt2(x, WV, impl="streamed"), WV, impl="streamed"),
+                 smi)
+    profile_path("streamed 3-D path (wavedec3 + waverec3)",
+                 lambda: api.waverec3(api.wavedec3(v, WV, J3, impl="streamed"), WV,
+                                      impl="streamed"),
                  smi)
 
     print(smi)

@@ -4,13 +4,13 @@ Strategies:
   * ``separable``    — batched torch lifting (the oracle; always valid)
   * ``fused``        — the hand-written CUDA tile kernels of ops/fused and
                        ops/fused3d (their plain versions for CPU tensors)
-  * ``streamed``     — the streamed strip kernels of ops/streamed for
-                       ``wavedec2``/``waverec2``; single streamed levels
-                       (ROADMAP rows B7/B9) and 3-D (B16-B17) are not
-                       ported yet and raise ``NotImplementedError``
-  * ``streamed-mxu`` — the banded-matmul body (B13), not ported yet: raises
-                       ``NotImplementedError`` after the streamed geometry
-                       check
+  * ``streamed``     — the streamed strip and tile kernels of ops/streamed
+                       (single levels, and the ``wavedec2``/``waverec2``
+                       pyramid) and ops/streamed3d (``wavedec3``/``waverec3``)
+  * ``streamed-mxu`` — the banded-matmul body (B13): on a single level it
+                       is the reference's float32 gate, then the streamed
+                       level; a pyramid step that would run the body raises
+                       ``NotImplementedError`` (not ported yet)
   * ``auto``         — built-in thresholds (no tuned table for the GPU yet);
                        never picks a streamed kernel, as the reference
                        without a tuned table
@@ -29,6 +29,7 @@ Devices: a torch tensor stays on its own device; anything else goes to
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -38,6 +39,7 @@ from libdwt_torch.ops import fused as _fused
 from libdwt_torch.ops import fused3d as _fused3d
 from libdwt_torch.ops import separable as _sep
 from libdwt_torch.ops import streamed as _streamed
+from libdwt_torch.ops import streamed3d as _streamed3d
 from libdwt_torch.utils.device import as_tensor
 from libdwt_torch.utils.log import get_logger
 from libdwt_torch.utils.subband import resolve_j
@@ -70,18 +72,13 @@ def get_impl() -> str:
     return _default_impl
 
 
-def _single_level(impl: Optional[str]) -> None:
-    """Single levels: 'streamed-mxu' names a pyramid body; the single
-    streamed levels (B7/B9) are not ported."""
+def _no_mxu_single_level(impl: Optional[str]) -> None:
+    """An explicit 'streamed-mxu' names a pyramid body: single levels
+    refuse it, as the reference does."""
     if impl == "streamed-mxu":
         raise ValueError(
             "impl='streamed-mxu' applies to multi-level transforms only "
             "(wavedec2/waverec2); use impl='streamed' for single levels"
-        )
-    if (impl or _default_impl) in ("streamed", "streamed-mxu"):
-        raise NotImplementedError(
-            "single-level impl='streamed' is not ported to the GPU yet "
-            "(ROADMAP.md section B, rows B7/B9); use impl='fused' or 'separable'"
         )
 
 
@@ -97,8 +94,8 @@ def _auto_fused_ok(on_cuda: bool, dtype) -> bool:
 
 def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
                dtype, levels: int = 1) -> str:
-    """'separable' | 'fused' | 'streamed'.  Explicit requests are honoured
-    or raise; 'auto' uses the built-in thresholds."""
+    """'separable' | 'fused' | 'streamed' | 'streamed-mxu'.  Explicit
+    requests are honoured or raise; 'auto' uses the built-in thresholds."""
     impl = impl or _default_impl
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}")
@@ -110,8 +107,8 @@ def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
                 "streamed impl needs even dims (div. by 4 for 2+ levels), "
                 "2..32 strips of rows and a symmetric-step wavelet"
             )
-        if impl == "streamed-mxu":
-            _streamed.mxu_not_ported()
+        if impl == "streamed-mxu" and not _streamed.mxu_supported(wavelet, dtype):
+            raise ValueError("streamed-mxu impl needs a float32 symmetric wavelet")
         return impl
     feasible = min(h, w) >= _FUSED_MIN_SIZE and _fused.fused_supported(wavelet)
     if impl == "fused":
@@ -138,33 +135,40 @@ def _unframe(per, batch):
 
 def dwt2(x, wavelet="cdf97", impl: Optional[str] = None, device=None):
     """Single-level 2-D forward transform -> (LL, HL, LH, HH).  With
-    'fused' each frame of a batch (..., H, W) runs B1 in turn."""
+    'fused' each frame of a batch (..., H, W) runs B1 in turn, with
+    'streamed' B7 (a 'streamed-mxu' global default runs B7 too)."""
     x = as_tensor(x, device)
-    _single_level(impl)
+    _no_mxu_single_level(impl)
     h, w = x.shape[-2], x.shape[-1]
-    if _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype) == "fused":
+    choice = _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype)
+    if choice != "separable":
+        level_fn = (_fused.fused_dwt2_level if choice == "fused"
+                    else _streamed.streamed_dwt2_level)
         if x.ndim == 2:
-            return _fused.fused_dwt2_level(x, wavelet)
-        per = [_fused.fused_dwt2_level(f, wavelet) for f in _frames(x)]
+            return level_fn(x, wavelet)
+        per = [level_fn(f, wavelet) for f in _frames(x)]
         return tuple(_unframe([p[k] for p in per], x.shape[:-2]) for k in range(4))
     return _sep.dwt2_level(x, wavelet)
 
 
 def idwt2(ll, hl, lh, hh, wavelet="cdf97", impl: Optional[str] = None,
           border: str = "mirror", device=None):
-    """Single-level 2-D inverse transform; non-mirror ``border`` modes
-    ('hole', 'zero') run on the separable path."""
+    """Single-level 2-D inverse transform (B4 with 'fused', B9 with
+    'streamed'); non-mirror ``border`` modes ('hole', 'zero') run on the
+    separable path."""
     ll, hl, lh, hh = (as_tensor(b, device) for b in (ll, hl, lh, hh))
     if border != "mirror":
         return _sep.idwt2_level(ll, hl, lh, hh, wavelet, border=border)
-    _single_level(impl)
+    _no_mxu_single_level(impl)
     h, w = ll.shape[-2] + hh.shape[-2], ll.shape[-1] + hh.shape[-1]
-    if _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype) == "fused":
+    choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype)
+    if choice != "separable":
+        level_fn = (_fused.fused_idwt2_level if choice == "fused"
+                    else _streamed.streamed_idwt2_level)
         if ll.ndim == 2:
-            return _fused.fused_idwt2_level(ll, hl, lh, hh, wavelet)
+            return level_fn(ll, hl, lh, hh, wavelet)
         fl = [_frames(b) for b in (ll, hl, lh, hh)]
-        per = [_fused.fused_idwt2_level(*(b[i] for b in fl), wavelet)
-               for i in range(fl[0].shape[0])]
+        per = [level_fn(*(b[i] for b in fl), wavelet) for i in range(fl[0].shape[0])]
         return _unframe(per, ll.shape[:-2])
     return _sep.idwt2_level(ll, hl, lh, hh, wavelet)
 
@@ -174,14 +178,19 @@ def wavedec2(x, wavelet="cdf97", level: Optional[int] = None,
     """Multi-level 2-D MRA -> [LL_J, (HL_J, LH_J, HH_J), ..., (HL_1, LH_1, HH_1)].
 
     With 'fused' each frame runs :func:`ops.fused.fused_wavedec2`, with
-    'streamed' :func:`ops.streamed.streamed_wavedec2`; a batch (..., H, W)
-    is looped frame by frame."""
+    'streamed' :func:`ops.streamed.streamed_wavedec2` (with
+    'streamed-mxu' its banded body, which raises ``NotImplementedError``
+    where it would run); a batch (..., H, W) is looped frame by frame."""
     x = as_tensor(x, device)
     h, w = x.shape[-2], x.shape[-1]
     j = resolve_j(h, w, level)
     choice = _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype, levels=j)
     if choice != "separable":
-        dec = _fused.fused_wavedec2 if choice == "fused" else _streamed.streamed_wavedec2
+        if choice == "fused":
+            dec = _fused.fused_wavedec2
+        else:
+            dec = functools.partial(_streamed.streamed_wavedec2,
+                                    body="mxu" if choice == "streamed-mxu" else "poly")
         if x.ndim == 2:
             return dec(x, wavelet, j)
         per = [dec(f, wavelet, j) for f in _frames(x)]
@@ -213,8 +222,12 @@ def waverec2(coeffs, wavelet="cdf97", impl: Optional[str] = None,
         choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype,
                             levels=len(coeffs) - 1)
         if choice != "separable":
-            rec = (_fused.fused_waverec2 if choice == "fused"
-                   else _streamed.streamed_waverec2)
+            if choice == "fused":
+                rec = _fused.fused_waverec2
+            else:
+                rec = functools.partial(
+                    _streamed.streamed_waverec2,
+                    body="mxu" if choice == "streamed-mxu" else "auto")
             if ll.ndim == 2:
                 return rec(coeffs, wavelet)
             batch = tuple(ll.shape[:-2])
@@ -246,18 +259,22 @@ def _resolve_impl3(impl: Optional[str]):
 
 def _pick_impl3(shape3, wavelet, impl: Optional[str], on_cuda: bool,
                 dtype) -> str:
-    """3-D strategy: 'separable' | 'fused'.  'fused' needs even dims > 4
-    and a symmetric-step wavelet, else ValueError; 'auto' takes it on a
-    CUDA tensor of a kernel's dtype wherever the geometry allows;
-    'streamed' (B16-B17) is not ported."""
+    """3-D strategy: 'separable' | 'fused' | 'streamed'.  'fused' needs
+    even dims > 4 and a symmetric-step wavelet, 'streamed' the
+    reference's gate :func:`ops.streamed3d.streamed3d_supported` (sized
+    with the dtype's itemsize), else ValueError; 'auto' takes 'fused' on a
+    CUDA tensor of a kernel's dtype wherever the geometry allows."""
     impl, _ = _resolve_impl3(impl)
     if impl == "separable":
         return impl
     if impl == "streamed":
-        raise NotImplementedError(
-            "3-D impl='streamed' is not ported to the GPU yet (ROADMAP.md "
-            "section B, rows B16-B17); use impl='fused' or 'separable'"
-        )
+        if not _streamed3d.streamed3d_supported(shape3, wavelet,
+                                                itemsize=dtype.itemsize):
+            raise ValueError(
+                "streamed 3-D impl needs even dims, 2..32 (z, y) tiles "
+                "and a symmetric-step wavelet"
+            )
+        return impl
     z, yy, xx = shape3
     ok = (_fused.fused_supported(wavelet) and z % 2 == 0 and yy % 2 == 0
           and xx % 2 == 0 and min(z, yy, xx) > 4)
@@ -276,11 +293,12 @@ def wavedec3(x, wavelet="cdf97", level: Optional[int] = None,
     """Multi-level 3-D MRA -> [LLL_J, bands_J, ..., bands_1] (the pytree of
     ``ops.separable.wavedec3``).
 
-    Each level re-dispatches: the fused volume kernel (B14) where its
-    geometry allows, the separable oracle otherwise.  An explicit impl
-    needs an unbatched (Z, Y, X) volume and is honoured or raises at the
-    top level; a kernel's ``UnsupportedGeometry`` falls back to the
-    oracle with a logged warning, and every other error propagates."""
+    Each level re-dispatches: the fused (B14) or streamed (B16) volume
+    kernel where its geometry allows, the separable oracle otherwise.  An
+    explicit impl needs an unbatched (Z, Y, X) volume and is honoured or
+    raises at the top level; a kernel's ``UnsupportedGeometry`` falls back
+    to the oracle with a logged warning, and every other error
+    propagates."""
     x = as_tensor(x, device)
     impl, explicit = _resolve_impl3(impl)
     if explicit and x.ndim != 3:
@@ -300,12 +318,14 @@ def wavedec3(x, wavelet="cdf97", level: Optional[int] = None,
             except ValueError:
                 choice = "separable"
         bands = None
-        if choice == "fused":
-            # _pick_impl3 already refuses the geometries this kernel
-            # declines; the fallback is the reference's guard for its
-            # streamed volume kernel (B16, not ported yet)
+        if choice != "separable":
+            level_fn = (_fused3d.fused_dwt3_level if choice == "fused"
+                        else _streamed3d.streamed_dwt3_level)
+            # the kernels' own support checks (UnsupportedGeometry) are
+            # the reference's documented fallback; they agree with the
+            # gates above, so on today's kernels it is a guard
             try:
-                bands = _fused3d.fused_dwt3_level(low, wavelet)
+                bands = level_fn(low, wavelet)
             except UnsupportedGeometry as e:
                 _log_fallback("wavedec3", choice, e)
         if bands is None:
@@ -316,10 +336,10 @@ def wavedec3(x, wavelet="cdf97", level: Optional[int] = None,
 
 
 def waverec3(coeffs, wavelet="cdf97", impl: Optional[str] = None, device=None):
-    """Inverse of :func:`wavedec3`: each level runs the fused inverse
-    volume kernel (B15) where its geometry allows, the oracle otherwise,
-    with the same honour-or-raise (at the finest level) and fallback
-    rules."""
+    """Inverse of :func:`wavedec3`: each level runs the fused (B15) or
+    streamed (B17) inverse volume kernel where its geometry allows, the
+    oracle otherwise, with the same honour-or-raise (at the finest level)
+    and fallback rules."""
     low = as_tensor(coeffs[0], device)
     rest = [{k: as_tensor(v, device) for k, v in b.items()} for b in coeffs[1:]]
     impl, explicit = _resolve_impl3(impl)
@@ -340,11 +360,11 @@ def waverec3(coeffs, wavelet="cdf97", impl: Optional[str] = None, device=None):
             except ValueError:
                 choice = "separable"
         rec = None
-        if choice == "fused":
-            # reachable only through B17 (streamed, not ported yet); see
-            # wavedec3
-            try:
-                rec = _fused3d.fused_idwt3_level(full, wavelet)
+        if choice != "separable":
+            level_fn = (_fused3d.fused_idwt3_level if choice == "fused"
+                        else _streamed3d.streamed_idwt3_level)
+            try:  # see wavedec3
+                rec = level_fn(full, wavelet)
             except UnsupportedGeometry as e:
                 _log_fallback("waverec3", choice, e)
         if rec is None:

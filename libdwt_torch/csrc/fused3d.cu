@@ -9,14 +9,9 @@
 // of 4 on every axis, in shared memory.  Tile starts are even on all
 // three axes, so local parity is global parity.
 //
-// Forward: the (tz+8) x (ty+8) x (tx+8) tile is read at whole-point
-// mirrored positions (for even dims these equal the reference's mirror
-// fills, fused3d.py:15-18), lifted along x, then y, then z, and each core
-// voxel is scaled by its per-axis parity factors and written to the band
-// of its parity.  Inverse: the interleaved coefficient volume is read from
-// the 8 bands at mirrored positions (for even dims exactly the channel
-// rules of fused3d.py:19-22), scaled by the inverse factors, lifted along
-// z, y, then x, and the core is written out.
+// The tile body (loads through the mirror, the lifting passes, the band
+// writes) is in tiles3.cuh, shared with the streamed volume kernels of
+// streamed3d.cu; here each block loads its tile and lifts it at once.
 //
 // Bound on an H100: bytes.  A 64x512x512 f32 level moves 134.2 MB (40 us
 // at 3.35 TB/s).  The default 16x16x32 core has a 24x24x40 tile (92 KB of
@@ -24,18 +19,13 @@
 // the re-read mostly hits L2.  Like the 2-D tile kernels this first
 // version does one thread loop per lifting step with a barrier between
 // steps, so instruction issue, not memory, is expected to hold it.
-#include "lifting.cuh"
+#include "tiles3.cuh"
 
 namespace {
 
-constexpr int HALO = 4;
 constexpr int THREADS = 512;
 
-// The 8 bands in (z, y, x) name order: band (bz << 2) | (by << 1) | bx.
-template <typename T>
-struct Bands8 {
-    T* b[8];
-};
+using tiles::Bands8;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -43,28 +33,10 @@ fwd3_kernel(const T* __restrict__ x, Bands8<T> out, int Z, int Y, int X,
             int tz, int ty, int tx, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
-    const int ez = tz + 2 * HALO, ey = ty + 2 * HALO, ex = tx + 2 * HALO;
     const int z0 = blockIdx.z * tz, y0 = blockIdx.y * ty, x0 = blockIdx.x * tx;
-    for (int i = threadIdx.x; i < ez * ey * ex; i += blockDim.x) {
-        const int c = i % ex, r = (i / ex) % ey, k = i / (ex * ey);
-        s[i] = x[((size_t)mirror_idx(z0 - HALO + k, Z) * Y + mirror_idx(y0 - HALO + r, Y))
-                     * X + mirror_idx(x0 - HALO + c, X)];
-    }
+    tiles::fwd3_load<false>(x, s, Z, Y, X, z0, y0, x0, tz, ty, tx);
     __syncthreads();
-    lift_lines(s, ex, ez * ey, 1, 1, ex, P);            // x
-    lift_lines(s, ey, ez * ex, ex, ex, ey * ex, P);     // y
-    lift_lines(s, ez, ey * ex, ey * ex, ey * ex, 0, P); // z
-    const int hy = Y / 2, hx = X / 2;
-    for (int i = threadIdx.x; i < tz * ty * tx; i += blockDim.x) {
-        const int c = i % tx, r = (i / tx) % ty, k = i / (tx * ty);
-        const int gz = z0 + k, gy = y0 + r, gx = x0 + c;
-        if (gz < Z && gy < Y && gx < X) {
-            const T v = s[((k + HALO) * ey + r + HALO) * ex + c + HALO];
-            out.b[((gz & 1) << 2) | ((gy & 1) << 1) | (gx & 1)]
-                 [((size_t)(gz >> 1) * hy + (gy >> 1)) * hx + (gx >> 1)] =
-                scale3(v, k, r, c, P);
-        }
-    }
+    tiles::fwd3_compute(s, out, Z, Y, X, z0, y0, x0, tz, ty, tx, P);
 }
 
 template <typename T>
@@ -73,34 +45,15 @@ inv3_kernel(Bands8<const T> in, T* out, int Z, int Y, int X, int tz, int ty,
             int tx, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
-    const int ez = tz + 2 * HALO, ey = ty + 2 * HALO, ex = tx + 2 * HALO;
     const int z0 = blockIdx.z * tz, y0 = blockIdx.y * ty, x0 = blockIdx.x * tx;
-    const int hy = Y / 2, hx = X / 2;
-    for (int i = threadIdx.x; i < ez * ey * ex; i += blockDim.x) {
-        const int c = i % ex, r = (i / ex) % ey, k = i / (ex * ey);
-        const int gz = mirror_idx(z0 - HALO + k, Z);
-        const int gy = mirror_idx(y0 - HALO + r, Y);
-        const int gx = mirror_idx(x0 - HALO + c, X);
-        const T v = in.b[((gz & 1) << 2) | ((gy & 1) << 1) | (gx & 1)]
-                        [((size_t)(gz >> 1) * hy + (gy >> 1)) * hx + (gx >> 1)];
-        s[i] = scale3(v, k, r, c, P);
-    }
+    tiles::inv3_load<false>(in, s, Z, Y, X, z0, y0, x0, tz, ty, tx, P);
     __syncthreads();
-    lift_lines(s, ez, ey * ex, ey * ex, ey * ex, 0, P); // z
-    lift_lines(s, ey, ez * ex, ex, ex, ey * ex, P);     // y
-    lift_lines(s, ex, ez * ey, 1, 1, ex, P);            // x
-    for (int i = threadIdx.x; i < tz * ty * tx; i += blockDim.x) {
-        const int c = i % tx, r = (i / tx) % ty, k = i / (tx * ty);
-        const int gz = z0 + k, gy = y0 + r, gx = x0 + c;
-        if (gz < Z && gy < Y && gx < X)
-            out[((size_t)gz * Y + gy) * X + gx] =
-                s[((k + HALO) * ey + r + HALO) * ex + c + HALO];
-    }
+    tiles::inv3_compute<false>(s, out, Z, Y, X, z0, y0, x0, tz, ty, tx, P);
 }
 
 template <typename K>
 size_t tile3_smem(K kernel, int tz, int ty, int tx, size_t item) {
-    const size_t smem = item * (size_t)(tz + 2 * HALO) * (ty + 2 * HALO) * (tx + 2 * HALO);
+    const size_t smem = item * (size_t)tiles::tile3_elems(tz, ty, tx);
     if (smem > 48 * 1024)
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

@@ -46,8 +46,9 @@ __global__ void fwd1_kernel(const T* __restrict__ x, T* ll, T* hl, T* lh, T* hh,
                             int h, int w, int tile, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
     const int S = 2 * tile;
-    tiles::fwd1_tile<T, EXT>(x, ll, hl, lh, hh, h, w, tile, blockIdx.y * S,
-                             blockIdx.x * S, P, reinterpret_cast<T*>(smem_raw));
+    tiles::fwd1_tile<EXT ? HALO : 0>(x, ll, hl, lh, hh, h, w, blockIdx.y * S,
+                                     blockIdx.x * S, S, S, P,
+                                     reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T, bool EXT>
@@ -56,8 +57,9 @@ __global__ void inv1_kernel(const T* __restrict__ ll, const T* __restrict__ hl,
                             T* out, int h, int w, int tile, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
     const int S = 2 * tile;
-    tiles::inv1_tile<T, EXT>(ll, hl, lh, hh, out, h, w, tile, blockIdx.y * S,
-                             blockIdx.x * S, P, reinterpret_cast<T*>(smem_raw));
+    tiles::inv1_tile<EXT ? HALO : 0>(ll, hl, lh, hh, out, h, w, blockIdx.y * S,
+                                     blockIdx.x * S, S, S, P,
+                                     reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename K>

@@ -2,8 +2,10 @@
 // memory buffers, the next strip's load in flight while the current one
 // lifts.
 //
-// dwt_sfwd2_*      replaces libdwt_tpu/ops/streamed.py streamed_dwt2_2level
-//                  (:369, kernel :423; TPU kernel id B8).
+// dwt_sfwd1_*      replaces libdwt_tpu/ops/streamed.py streamed_dwt2_level
+//                  (:257, kernel :300; TPU kernel id B7): one level.
+// dwt_sinv1_*      replaces streamed_idwt2_level (:535, kernel :579; B9).
+// dwt_sfwd2_*      replaces streamed_dwt2_2level (:369, kernel :423; B8).
 // dwt_sinv2_*      replaces streamed_idwt2_2level (:651, kernel :715; B10).
 // dwt_sdeep_fwd_*  replaces streamed_wavedec2_deep (:924, kernel :998; B11):
 //                  the whole forward pyramid in one launch.
@@ -27,6 +29,15 @@
 // level 2 and 4 signal samples at level 1, on both axes.  The tile
 // arithmetic is fused2l.cu's (tiles.cuh), so a strip's values are bit for
 // bit those of the plain versions in ops/streamed.py.
+//
+// The single levels B7/B9 walk the same (band, segment) items with
+// level.cu's one-level body (tiles.cuh fwd1_*/inv1_*): a halo of 4 on both
+// axes, so a 64x64 strip is a 72x72 window and the two buffers take 41 KB.
+// The inverse reads the interleaved coefficients through the mirror, which
+// for equal band shapes is exactly _fix_strip's channel rules.  Under
+// boundary_rows='extended' the input carries TOP = 8 rows (forward) or
+// channel rows (inverse) above and below, read straight.  A 2144x4096 f32
+// level moves 70.3 MB (21 us at 3.35 TB/s).
 //
 // The one-launch pyramids are cooperative kernels (all blocks resident,
 // cooperative_groups grid syncs).  B11: the strip phase of B8 writes levels
@@ -52,6 +63,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int TOP = 8;     // the single levels' extended contract (rows)
 constexpr int TOP2 = 16;   // forward strip row halo
 constexpr int MAX_DEEP = 16;
 
@@ -151,11 +163,61 @@ __device__ void deep_level(const Level<T>& L, int tile, const LiftParams& P, T* 
     for (int item = blockIdx.x; item < n; item += gridDim.x) {
         const int y0 = (item / nx) * S, x0 = (item % nx) * S;
         if constexpr (INV)
-            tiles::inv1_tile<T, false>(L.ll, L.hl, L.lh, L.hh, L.out, L.h, L.w, tile, y0,
-                                       x0, P, s);
+            tiles::inv1_tile<0>(L.ll, L.hl, L.lh, L.hh, L.out, L.h, L.w, y0, x0, S, S, P,
+                                s);
         else
-            tiles::fwd1_tile<T, false>(L.ll, L.out, L.hl, L.lh, L.hh, L.h, L.w, tile, y0,
-                                       x0, P, s);
+            tiles::fwd1_tile<0>(L.ll, L.out, L.hl, L.lh, L.hh, L.h, L.w, y0, x0, S, S, P,
+                                s);
+    }
+}
+
+// The single levels (B7, B9): strips of ty x tx samples with a halo of 4 on
+// both axes, walked down each item's column band like fwd2_strips.
+template <int EXT, typename T>
+__device__ void fwd1_strips(const T* x, T* ll, T* hl, T* lh, T* hh, const Strips& g,
+                            const LiftParams& P, T* smem) {
+    T* sb[2] = {smem, smem + tiles::lvl1_elems(g.ty, g.tx)};
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * g.tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        tiles::fwd1_load<EXT, true>(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx);
+        __pipeline_commit();
+        for (int i = first; i < last; ++i) {
+            const int k = (i - first) & 1;
+            if (i + 1 < last)
+                tiles::fwd1_load<EXT, true>(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0,
+                                            g.ty, g.tx);
+            __pipeline_commit();
+            __pipeline_wait_prior(1);
+            __syncthreads();
+            tiles::fwd1_compute(sb[k], ll, hl, lh, hh, g.h, g.w, i * g.ty, x0, g.ty, g.tx,
+                                P);
+        }
+    }
+}
+
+template <int EXT, typename T>
+__device__ void inv1_strips(const T* ll, const T* hl, const T* lh, const T* hh, T* out,
+                            const Strips& g, const LiftParams& P, T* smem) {
+    T* sb[2] = {smem, smem + tiles::lvl1_elems(g.ty, g.tx)};
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * g.tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        tiles::inv1_load<EXT, true>(ll, hl, lh, hh, sb[0], g.h, g.w, first * g.ty, x0,
+                                    g.ty, g.tx);
+        __pipeline_commit();
+        for (int i = first; i < last; ++i) {
+            const int k = (i - first) & 1;
+            if (i + 1 < last)
+                tiles::inv1_load<EXT, true>(ll, hl, lh, hh, sb[k ^ 1], g.h, g.w,
+                                            (i + 1) * g.ty, x0, g.ty, g.tx);
+            __pipeline_commit();
+            __pipeline_wait_prior(1);
+            __syncthreads();
+            tiles::inv1_compute(sb[k], out, g.h, g.w, i * g.ty, x0, g.ty, g.tx, P);
+        }
     }
 }
 
@@ -171,6 +233,21 @@ __global__ void __launch_bounds__(THREADS)
 sinv2_kernel(InvBands<T> b, Strips g, LiftParams P) {
     extern __shared__ unsigned char smem_raw[];
     inv2_strips(b, g, P, reinterpret_cast<T*>(smem_raw));
+}
+
+template <int EXT, typename T>
+__global__ void __launch_bounds__(THREADS)
+sfwd1_kernel(const T* x, T* ll, T* hl, T* lh, T* hh, Strips g, LiftParams P) {
+    extern __shared__ unsigned char smem_raw[];
+    fwd1_strips<EXT>(x, ll, hl, lh, hh, g, P, reinterpret_cast<T*>(smem_raw));
+}
+
+template <int EXT, typename T>
+__global__ void __launch_bounds__(THREADS)
+sinv1_kernel(const T* ll, const T* hl, const T* lh, const T* hh, T* out, Strips g,
+             LiftParams P) {
+    extern __shared__ unsigned char smem_raw[];
+    inv1_strips<EXT>(ll, hl, lh, hh, out, g, P, reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T>
@@ -293,6 +370,30 @@ int launch_sinv2(InvBands<T> b, int h, int w, int ty, int tx, const LiftParams* 
     return (int)cudaGetLastError();
 }
 
+template <int EXT, typename T>
+int launch_sfwd1(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w, int ty, int tx,
+                 const LiftParams* P, cudaStream_t stream) {
+    const size_t smem = sizeof(T) * 2 * (size_t)tiles::lvl1_elems(ty, tx);
+    Strips g;
+    int resident = 0;
+    const int err = plan(sfwd1_kernel<EXT, T>, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    sfwd1_kernel<EXT, T><<<g.items(), THREADS, smem, stream>>>(x, ll, hl, lh, hh, g, *P);
+    return (int)cudaGetLastError();
+}
+
+template <int EXT, typename T>
+int launch_sinv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int h,
+                 int w, int ty, int tx, const LiftParams* P, cudaStream_t stream) {
+    const size_t smem = sizeof(T) * 2 * (size_t)tiles::lvl1_elems(ty, tx);
+    Strips g;
+    int resident = 0;
+    const int err = plan(sinv1_kernel<EXT, T>, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    sinv1_kernel<EXT, T><<<g.items(), THREADS, smem, stream>>>(ll, hl, lh, hh, out, g, *P);
+    return (int)cudaGetLastError();
+}
+
 // ptrs: ll2 scratch, hl2, lh2, hh2, hl1, lh1, hh1, then per deep level
 // (fine first) hl, lh, hh, ll.  info[0..1] <- grid, resident blocks.
 template <typename T>
@@ -361,9 +462,32 @@ int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int
 
 }  // namespace
 
-// h, w: the frame's size (divisible by 4); ty, tx: the strip rows and band
-// columns (divisible by 4); tile: the deep levels' per-level tile.
+// h, w: the frame's size (divisible by 4; even for the single levels, and
+// without the extension when ext_rows is set); ty, tx: the strip rows and
+// band columns (divisible by 4); tile: the deep levels' per-level tile;
+// ext_rows: 0, or TOP for boundary_rows='extended'.
 #define LIBDWT_STREAMED(SUF, T)                                                    \
+    extern "C" int dwt_sfwd1_##SUF(const T* x, T* ll, T* hl, T* lh, T* hh, int h,   \
+                                   int w, int ty, int tx, int ext_rows,            \
+                                   const LiftParams* P, void* stream) {            \
+        if (ext_rows != 0 && ext_rows != TOP) return (int)cudaErrorInvalidValue;   \
+        return ext_rows                                                            \
+            ? launch_sfwd1<TOP, T>(x, ll, hl, lh, hh, h, w, ty, tx, P,             \
+                                   (cudaStream_t)stream)                           \
+            : launch_sfwd1<0, T>(x, ll, hl, lh, hh, h, w, ty, tx, P,               \
+                                 (cudaStream_t)stream);                            \
+    }                                                                              \
+    extern "C" int dwt_sinv1_##SUF(const T* ll, const T* hl, const T* lh,           \
+                                   const T* hh, T* out, int h, int w, int ty,      \
+                                   int tx, int ext_rows, const LiftParams* P,      \
+                                   void* stream) {                                 \
+        if (ext_rows != 0 && ext_rows != TOP) return (int)cudaErrorInvalidValue;   \
+        return ext_rows                                                            \
+            ? launch_sinv1<TOP, T>(ll, hl, lh, hh, out, h, w, ty, tx, P,           \
+                                   (cudaStream_t)stream)                           \
+            : launch_sinv1<0, T>(ll, hl, lh, hh, out, h, w, ty, tx, P,             \
+                                 (cudaStream_t)stream);                            \
+    }                                                                              \
     extern "C" int dwt_sfwd2_##SUF(const T* x, T* ll2, T* hl2, T* lh2, T* hh2,      \
                                    T* hl1, T* lh1, T* hh1, int h, int w, int ty,   \
                                    int tx, const LiftParams* P, void* stream) {    \

@@ -1,6 +1,6 @@
-// Tile bodies shared by the 2-D kernels: one level (level.cu, and the deep
-// phases of streamed.cu) and two levels per pass (fused2l.cu, and the strip
-// phases of streamed.cu).
+// Tile bodies shared by the 2-D kernels: one level (level.cu, the single
+// streamed levels and the deep phases of streamed.cu) and two levels per
+// pass (fused2l.cu, and the strip phases of streamed.cu).
 //
 // Each body is split into a load and a compute step so that the same
 // arithmetic serves a kernel that loads a tile and lifts it at once (one
@@ -49,73 +49,112 @@ __device__ __forceinline__ const T* band_ptr(const T* ll, const T* hl, const T* 
 
 // ------------------------------------------------------------ one level
 
-// Forward: the (2T+8)^2 tile of an h x w image at (y0, x0), mirror reads
-// (EXT: rows straight from a caller extension of HALO rows each side, 0
-// past it) -> lift rows, columns, scale -> the tile's T x T samples of
-// each band.  Ends with a barrier, so the caller may reuse ``s``.
-template <typename T, bool EXT>
-__device__ void fwd1_tile(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w,
-                          int tile, int y0, int x0, const LiftParams& P, T* s) {
-    const int S = 2 * tile;
-    const int E = S + 2 * HALO;
-    for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        if constexpr (EXT) {
-            // signal row y0 - HALO + r is row y0 + r of the h + 2*HALO rows
-            const int q = y0 + r;
-            s[i] = q < h + 2 * HALO ? x[(size_t)q * w + mirror_idx(x0 - HALO + c, w)]
-                                    : T(0);
+// A one-level tile: ty x tx samples (both even) with a halo of HALO on
+// both axes, (ty + 8) x (tx + 8) elements.
+__host__ __device__ __forceinline__ int lvl1_elems(int ty, int tx) {
+    return (ty + 2 * HALO) * (tx + 2 * HALO);
+}
+
+// Forward load of the tile of an h x w image at (y0, x0) through mirror
+// reads.  EXT > 0: x carries a caller extension of EXT rows above and
+// below the image (h + 2*EXT rows), read straight with no row mirror, and
+// rows past it read as 0 (they reach only outputs past the image).  EXT is
+// 4 for the fused single level (B1) and 8 for the streamed one (B7).
+template <int EXT, bool ASYNC, typename T>
+__device__ void fwd1_load(const T* x, T* s, int h, int w, int y0, int x0, int ty,
+                          int tx) {
+    const int EX = tx + 2 * HALO, n = (ty + 2 * HALO) * EX;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int r = i / EX, c = i % EX;
+        const int cx = mirror_idx(x0 - HALO + c, w);
+        if constexpr (EXT > 0) {
+            // signal row y0 - HALO + r is row y0 - HALO + r + EXT of x
+            const int q = y0 - HALO + EXT + r;
+            if (q < h + 2 * EXT)
+                copy_elem<ASYNC>(s + i, x + (size_t)q * w + cx);
+            else
+                s[i] = T(0);
         } else {
-            s[i] = x[(size_t)mirror_idx(y0 - HALO + r, h) * w
-                     + mirror_idx(x0 - HALO + c, w)];
+            copy_elem<ASYNC>(s + i, x + (size_t)mirror_idx(y0 - HALO + r, h) * w + cx);
         }
     }
-    __syncthreads();
-    lift_tile(s, E, E, E, P, true);
-    lift_tile(s, E, E, E, P, false);
-    scale_tile(s, E, E, E, P);
-    for (int i = threadIdx.x; i < S * S; i += blockDim.x) {
-        const int gy = y0 + i / S, gx = x0 + i % S;
+}
+
+// Lift a loaded forward tile: rows, columns, scale -> its ty x tx samples
+// into the four bands.  Ends with a barrier, so the caller may reuse ``s``.
+template <typename T>
+__device__ void fwd1_compute(T* s, T* ll, T* hl, T* lh, T* hh, int h, int w, int y0,
+                             int x0, int ty, int tx, const LiftParams& P) {
+    const int EY = ty + 2 * HALO, EX = tx + 2 * HALO;
+    lift_tile(s, EY, EX, EX, P, true);
+    lift_tile(s, EY, EX, EX, P, false);
+    scale_tile(s, EY, EX, EX, P);
+    for (int i = threadIdx.x; i < ty * tx; i += blockDim.x) {
+        const int gy = y0 + i / tx, gx = x0 + i % tx;
         if (gy < h && gx < w)
-            band_put(ll, hl, lh, hh, gy, gx, w, s[(HALO + i / S) * E + HALO + i % S]);
+            band_put(ll, hl, lh, hh, gy, gx, w, s[(HALO + i / tx) * EX + HALO + i % tx]);
     }
     __syncthreads();
 }
 
-// Inverse: the interleaved coefficient tile read through the mirror ->
-// scale, inverse columns, rows -> the tile's 2T x 2T outputs.  Ends with a
-// barrier.
-template <typename T, bool EXT>
-__device__ void inv1_tile(const T* ll, const T* hl, const T* lh, const T* hh, T* out,
-                          int h, int w, int tile, int y0, int x0, const LiftParams& P,
-                          T* s) {
-    const int S = 2 * tile;
-    const int E = S + 2 * HALO;
-    for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        if constexpr (EXT) {
-            // signal row p = y0 - HALO + r is channel row (p >> 1) + HALO of
-            // its band: row p + 2*HALO of the extended interleaved image,
-            // which has h + 4*HALO rows
-            const int q = y0 + HALO + r;
-            s[i] = q < h + 4 * HALO
-                       ? band_at(ll, hl, lh, hh, q, mirror_idx(x0 - HALO + c, w), w)
-                       : T(0);
+// One forward tile, loaded and lifted at once (level.cu, the deep phase of
+// streamed.cu).
+template <int EXT, typename T>
+__device__ void fwd1_tile(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w, int y0,
+                          int x0, int ty, int tx, const LiftParams& P, T* s) {
+    fwd1_load<EXT, false>(x, s, h, w, y0, x0, ty, tx);
+    __syncthreads();
+    fwd1_compute(s, ll, hl, lh, hh, h, w, y0, x0, ty, tx, P);
+}
+
+// Inverse load: the interleaved coefficient tile read through the mirror.
+// EXT > 0: every band carries EXT caller channel rows above and below, so
+// the extended interleaved image has h + 4*EXT rows and signal row p is
+// its row p + 2*EXT; rows past it read as 0.
+template <int EXT, bool ASYNC, typename T>
+__device__ void inv1_load(const T* ll, const T* hl, const T* lh, const T* hh, T* s,
+                          int h, int w, int y0, int x0, int ty, int tx) {
+    const int EX = tx + 2 * HALO, n = (ty + 2 * HALO) * EX;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int r = i / EX, c = i % EX;
+        const int cx = mirror_idx(x0 - HALO + c, w);
+        if constexpr (EXT > 0) {
+            const int q = y0 - HALO + 2 * EXT + r;
+            if (q < h + 4 * EXT)
+                copy_elem<ASYNC>(s + i, band_ptr(ll, hl, lh, hh, q, cx, w));
+            else
+                s[i] = T(0);
         } else {
-            s[i] = band_at(ll, hl, lh, hh, mirror_idx(y0 - HALO + r, h),
-                           mirror_idx(x0 - HALO + c, w), w);
+            copy_elem<ASYNC>(s + i, band_ptr(ll, hl, lh, hh, mirror_idx(y0 - HALO + r, h),
+                                             cx, w));
         }
     }
-    __syncthreads();
-    scale_tile(s, E, E, E, P);
-    lift_tile(s, E, E, E, P, false);
-    lift_tile(s, E, E, E, P, true);
-    for (int i = threadIdx.x; i < S * S; i += blockDim.x) {
-        const int gy = y0 + i / S, gx = x0 + i % S;
+}
+
+// Scale, inverse columns, rows -> the tile's ty x tx outputs.  Ends with a
+// barrier.
+template <typename T>
+__device__ void inv1_compute(T* s, T* out, int h, int w, int y0, int x0, int ty, int tx,
+                             const LiftParams& P) {
+    const int EY = ty + 2 * HALO, EX = tx + 2 * HALO;
+    scale_tile(s, EY, EX, EX, P);
+    lift_tile(s, EY, EX, EX, P, false);
+    lift_tile(s, EY, EX, EX, P, true);
+    for (int i = threadIdx.x; i < ty * tx; i += blockDim.x) {
+        const int gy = y0 + i / tx, gx = x0 + i % tx;
         if (gy < h && gx < w)
-            out[(size_t)gy * w + gx] = s[(HALO + i / S) * E + HALO + i % S];
+            out[(size_t)gy * w + gx] = s[(HALO + i / tx) * EX + HALO + i % tx];
     }
     __syncthreads();
+}
+
+template <int EXT, typename T>
+__device__ void inv1_tile(const T* ll, const T* hl, const T* lh, const T* hh, T* out,
+                          int h, int w, int y0, int x0, int ty, int tx,
+                          const LiftParams& P, T* s) {
+    inv1_load<EXT, false>(ll, hl, lh, hh, s, h, w, y0, x0, ty, tx);
+    __syncthreads();
+    inv1_compute(s, out, h, w, y0, x0, ty, tx, P);
 }
 
 // ------------------------------------------------------------ two levels

@@ -5,8 +5,11 @@
 - fused      — the 2-D tile kernels (CUDA on the card, plain torch on
                the CPU) and the fused pyramid functions
 - fused3d    — the 3-D tile kernels (one fused level, forward and inverse)
-- streamed   — the streamed strip kernels (two levels per pass, and the
-               whole pyramid in one cooperative launch) and their drivers
+- streamed   — the streamed strip kernels (one level, two levels per
+               pass, and the whole pyramid in one cooperative launch) and
+               the streamed pyramid functions
+- streamed3d — the streamed 3-D tile kernels (one level, forward and
+               inverse)
 """
 
 

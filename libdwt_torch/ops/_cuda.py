@@ -20,8 +20,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu")
-HEADERS = ("lifting.cuh", "tiles.cuh")
+SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu", "streamed3d.cu")
+HEADERS = ("lifting.cuh", "tiles.cuh", "tiles3.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -125,6 +125,12 @@ _SIGS = {
     "dwt3_fwd": [_P, _P] + [_I] * 6 + [_PP, _P],
     # host array of the 8 band pointers, output, Z, Y, X, tz, ty, tx
     "dwt3_inv": [_P, _P] + [_I] * 6 + [_PP, _P],
+    "dwt3_sfwd": [_P, _P] + [_I] * 6 + [_PP, _P],
+    "dwt3_sinv": [_P, _P] + [_I] * 6 + [_PP, _P],
+    # image (or bands) in, bands (or image) out, h, w, strip rows, band
+    # columns, extension rows (0 or 8)
+    "dwt_sfwd1": [_P] * 5 + [_I] * 5 + [_PP, _P],
+    "dwt_sinv1": [_P] * 5 + [_I] * 5 + [_PP, _P],
     # 7 bands + the frame (in or out), h, w, strip rows, band columns
     "dwt_sfwd2": [_P] * 8 + [_I] * 4 + [_PP, _P],
     "dwt_sinv2": [_P] * 8 + [_I] * 4 + [_PP, _P],
@@ -136,6 +142,8 @@ _SIGS = {
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
               "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu",
+              "dwt3_sfwd": "streamed3d.cu", "dwt3_sinv": "streamed3d.cu",
+              "dwt_sfwd1": "streamed.cu", "dwt_sinv1": "streamed.cu",
               "dwt_sfwd2": "streamed.cu", "dwt_sinv2": "streamed.cu",
               "dwt_sdeep_fwd": "streamed.cu", "dwt_sdeep_inv": "streamed.cu"}
 _fns: dict = {}

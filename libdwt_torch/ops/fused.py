@@ -329,33 +329,65 @@ def _cdiv(a: int, b: int) -> int:
 # ------------------------------------------------------ plain kernel versions
 
 
+def dwt2_level_tiles(x, wavelet, ty: int, tx: int, ext: int = 0):
+    """One forward 2-D level on ty x tx tiles with a halo of HALO on both
+    axes (the tile algebra of csrc/tiles.cuh fwd1_*, shared by B1/B3 and
+    the streamed B7) -> (LL, HL, LH, HH), any size.  ``ext`` > 0: x
+    carries that many caller rows above and below the image
+    (boundary_rows='extended'), read with no row mirror; rows past them
+    read as 0, as in the kernels."""
+    wavelet = get_wavelet(wavelet)
+    table, scales = _step_table(wavelet, _is_int(x.dtype), False)
+    h, w = x.shape
+    h -= 2 * ext
+    ny, nx = _cdiv(h, ty), _cdiv(w, tx)
+    rx = _tile_index(nx, tx, tx + 2 * HALO, HALO, w, x.device)
+    if ext:
+        # signal row y0 - HALO + r is row y0 - HALO + ext + r of x
+        t = _gather(_zero_rows(x, ny * ty + HALO + ext),
+                    _ext_rows(ny, ty, ty + 2 * HALO, ext - HALO, x.device), rx)
+    else:
+        t = _gather(x, _tile_index(ny, ty, ty + 2 * HALO, HALO, h, x.device), rx)
+    _lift_axis(t, table, -1)
+    _lift_axis(t, table, -2)
+    _scale_parity(t, scales)
+    core = t[..., HALO: HALO + ty, HALO: HALO + tx]
+    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
+    return (_band(core, 0, 0, cy, cx), _band(core, 0, 1, cy, fx),
+            _band(core, 1, 0, fy, cx), _band(core, 1, 1, fy, fx))
+
+
 def dwt2_level_plain(x, wavelet="cdf97", tile: int = TILE1, ext: bool = False):
     """Plain version of the per-level forward tile kernel (csrc/level.cu
     dwt_fwd1): one 2-D level -> (LL, HL, LH, HH), any size.  ``ext``: x
     carries HALO caller rows above and below (boundary_rows='extended'),
     read with no row mirror."""
+    return dwt2_level_tiles(x, wavelet, 2 * tile, 2 * tile, HALO if ext else 0)
+
+
+def idwt2_level_tiles(ll, hl, lh, hh, wavelet, ty: int, tx: int, ext: int = 0):
+    """One inverse 2-D level on ty x tx output tiles (the tile algebra of
+    csrc/tiles.cuh inv1_*, shared by B4/B6 and the streamed B9).  ``ext``
+    > 0: every band carries that many caller channel rows above and below
+    (boundary_rows='extended'), read with no row mirror."""
     wavelet = get_wavelet(wavelet)
-    table, scales = _step_table(wavelet, _is_int(x.dtype), False)
-    h, w = x.shape
+    table, scales = _step_table(wavelet, _is_int(ll.dtype), True)
+    h, w = ll.shape[0] + lh.shape[0], ll.shape[1] + hl.shape[1]
+    # the extended bands interleave to h + 4*ext rows: signal row p is
+    # channel row (p >> 1) + ext of its band, i.e. row p + 2*ext
+    y = _interleave(ll, hl, lh, hh, h, w)
+    h -= 4 * ext
+    ny, nx = _cdiv(h, ty), _cdiv(w, tx)
+    rx = _tile_index(nx, tx, tx + 2 * HALO, HALO, w, y.device)
     if ext:
-        h -= 2 * HALO
-    s_ = 2 * tile
-    e = s_ + 2 * HALO
-    ny, nx = _cdiv(h, s_), _cdiv(w, s_)
-    rx = _tile_index(nx, s_, e, HALO, w, x.device)
-    if ext:
-        # signal row y0 - HALO + r is row y0 + r of the extended image
-        t = _gather(_zero_rows(x, ny * s_ + 2 * HALO),
-                    _ext_rows(ny, s_, e, 0, x.device), rx)
+        t = _gather(_zero_rows(y, ny * ty + HALO + 2 * ext),
+                    _ext_rows(ny, ty, ty + 2 * HALO, 2 * ext - HALO, y.device), rx)
     else:
-        t = _gather(x, _tile_index(ny, s_, e, HALO, h, x.device), rx)
-    _lift_axis(t, table, -1)
-    _lift_axis(t, table, -2)
+        t = _gather(y, _tile_index(ny, ty, ty + 2 * HALO, HALO, h, y.device), rx)
     _scale_parity(t, scales)
-    core = t[..., HALO: HALO + s_, HALO: HALO + s_]
-    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
-    return (_band(core, 0, 0, cy, cx), _band(core, 0, 1, cy, fx),
-            _band(core, 1, 0, fy, cx), _band(core, 1, 1, fy, fx))
+    _lift_axis(t, table, -2)
+    _lift_axis(t, table, -1)
+    return _assemble(t[..., HALO: HALO + ty, HALO: HALO + tx], h, w)
 
 
 def idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", tile: int = TILE1,
@@ -363,27 +395,8 @@ def idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", tile: int = TILE1,
     """Plain version of the per-level inverse tile kernel (csrc/level.cu
     dwt_inv1).  ``ext``: every band carries CH caller channel rows above
     and below (boundary_rows='extended'), read with no row mirror."""
-    wavelet = get_wavelet(wavelet)
-    table, scales = _step_table(wavelet, _is_int(ll.dtype), True)
-    h, w = ll.shape[0] + lh.shape[0], ll.shape[1] + hl.shape[1]
-    s_ = 2 * tile
-    e = s_ + 2 * HALO
-    # the extended bands interleave to h + 4*CH rows: signal row p is
-    # channel row (p >> 1) + CH of its band, i.e. row p + 2*CH
-    y = _interleave(ll, hl, lh, hh, h, w)
-    if ext:
-        h -= 4 * CH
-    ny, nx = _cdiv(h, s_), _cdiv(w, s_)
-    rx = _tile_index(nx, s_, e, HALO, w, y.device)
-    if ext:
-        t = _gather(_zero_rows(y, ny * s_ + 4 * CH),
-                    _ext_rows(ny, s_, e, 2 * CH - HALO, y.device), rx)
-    else:
-        t = _gather(y, _tile_index(ny, s_, e, HALO, h, y.device), rx)
-    _scale_parity(t, scales)
-    _lift_axis(t, table, -2)
-    _lift_axis(t, table, -1)
-    return _assemble(t[..., HALO: HALO + s_, HALO: HALO + s_], h, w)
+    return idwt2_level_tiles(ll, hl, lh, hh, wavelet, 2 * tile, 2 * tile,
+                             CH if ext else 0)
 
 
 def dwt2_2level_tiles(x, wavelet, ty: int, tx: int, hy: int = HALO2):

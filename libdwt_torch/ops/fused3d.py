@@ -68,13 +68,15 @@ def _check_strip_y(strip_y: int) -> None:
         raise ValueError("strip_y must be a multiple of 16")
 
 
-def _check_tile(tile, itemsize: int) -> None:
+def _check_tile(tile, itemsize: int, buffers: int = 1) -> None:
+    """The CUDA tile: three positive even sizes whose ``buffers`` copies
+    (two for the streamed kernels) fit in shared memory."""
     if len(tile) != 3 or any(t <= 0 or t % 2 for t in tile):
         raise ValueError("tile must be three positive even sizes (z, y, x)")
     e = [t + 2 * HALO for t in tile]
-    if e[0] * e[1] * e[2] * itemsize > _SMEM_MAX:
-        raise ValueError(f"tile {tuple(tile)} needs more than {_SMEM_MAX} bytes "
-                         "of shared memory")
+    if buffers * e[0] * e[1] * e[2] * itemsize > _SMEM_MAX:
+        raise ValueError(f"{buffers} buffer(s) of tile {tuple(tile)} need more than "
+                         f"{_SMEM_MAX} bytes of shared memory")
 
 
 # ------------------------------------------------------ plain kernel versions

@@ -12,6 +12,9 @@ window checks), so the port raises ``ValueError`` on the same geometries,
 but it does not size the CUDA strip.
 
 Ported kernels (TPU kernel ids of ROADMAP section B):
+  B7  streamed_dwt2_level     -> csrc/streamed.cu dwt_sfwd1_* (one level;
+                                 the 8-row extended contract)
+  B9  streamed_idwt2_level    -> csrc/streamed.cu dwt_sinv1_*
   B8  streamed_dwt2_2level    -> csrc/streamed.cu dwt_sfwd2_*
   B10 streamed_idwt2_2level   -> csrc/streamed.cu dwt_sinv2_*
   B11 streamed_wavedec2_deep  -> csrc/streamed.cu dwt_sdeep_fwd_* (one
@@ -22,32 +25,38 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
 its plain version, with the same strip and tile decomposition, for a CPU
 tensor.  Only the polyphase ('poly') body is ported: ``body='mxu'`` (B13)
 raises ``NotImplementedError``, and the inverse's ``'auto'`` resolves to
-``'poly'`` at every size (see :func:`_resolve_inv_body`).  The single
-streamed levels (B7/B9) are not ported.
+``'poly'`` at every size (see :func:`_resolve_inv_body`).
 """
 from __future__ import annotations
 
 import ctypes
 
+import torch
+
 from libdwt_torch.models.wavelets import get_wavelet
 from libdwt_torch.ops.fused import (CFIX, CH, HALO, HALO2, KERNELS, TILE1,
                                     _DEEP_VMEM_LIMIT, KernelStat,
-                                    _check_fused_supported, _check_inputs,
-                                    _empty, _launch, _ptrs,
-                                    dwt2_2level_tiles, fused_deep_wavedec2_plain,
+                                    _check_boundary_rows, _check_fused_supported,
+                                    _check_inputs, _empty, _launch, _ptrs,
+                                    dwt2_2level_tiles, dwt2_level_tiles,
+                                    fused_deep_wavedec2_plain,
                                     fused_deep_waverec2_plain, fused_supported,
                                     fused_wavedec2, fused_waverec2,
-                                    idwt2_2level_tiles)
+                                    idwt2_2level_tiles, idwt2_level_tiles)
 
 __all__ = [
-    "streamed_supported", "streamed_deep_ok", "streamed_dwt2_2level",
-    "streamed_idwt2_2level", "streamed_wavedec2_deep", "streamed_waverec2_deep",
-    "streamed_wavedec2", "streamed_waverec2", "pick_strip", "tail_aligned",
+    "streamed_supported", "streamed_deep_ok", "mxu_supported", "streamed_dwt2_level",
+    "streamed_idwt2_level", "streamed_dwt2_2level", "streamed_idwt2_2level",
+    "streamed_wavedec2_deep", "streamed_waverec2_deep", "streamed_wavedec2",
+    "streamed_waverec2", "pick_strip", "tail_aligned",
 ]
 
 #: top halo rows of the reference's strip windows (image/band row i*stride
-#: sits at window row TOP).
+#: sits at window row TOP); also the depth of the single levels'
+#: boundary_rows='extended' contract.
 TOP = 8
+#: the reference's channel-domain mirror depth of the single levels.
+CMIR = 4
 #: the reference's forward two-level strip halo; also the CUDA forward
 #: strips' row halo.
 TOP2 = 16
@@ -58,6 +67,10 @@ STRIP_TY = 64
 STRIP_TX = 64
 
 KERNELS.update({
+    "B7": KernelStat("B7", "streamed_dwt2_level", "libdwt_torch/csrc/streamed.cu",
+                     "libdwt_tpu/ops/streamed.py:257"),
+    "B9": KernelStat("B9", "streamed_idwt2_level", "libdwt_torch/csrc/streamed.cu",
+                     "libdwt_tpu/ops/streamed.py:535"),
     "B8": KernelStat("B8", "streamed_dwt2_2level", "libdwt_torch/csrc/streamed.cu",
                      "libdwt_tpu/ops/streamed.py:369"),
     "B10": KernelStat("B10", "streamed_idwt2_2level", "libdwt_torch/csrc/streamed.cu",
@@ -150,6 +163,12 @@ def streamed_deep_ok(shape, dtype_itemsize: int, wavelet, level: int,
     return min(qh, qw) >> (level - 3) > 2 * HALO
 
 
+def mxu_supported(wavelet, dtype) -> bool:
+    """The reference's gate of its banded-matmul body (B13): float32 and a
+    symmetric-step wavelet."""
+    return dtype == torch.float32 and fused_supported(wavelet)
+
+
 def mxu_not_ported():
     raise NotImplementedError(
         "body='mxu' (the banded-matmul body, ROADMAP.md section B row B13) is "
@@ -181,6 +200,34 @@ def _resolve_inv_body(body: str) -> str:
 def _check_tile(ty: int, tx: int) -> None:
     if ty <= 0 or tx <= 0 or ty % 4 or tx % 4:
         raise ValueError("the CUDA strip (ty, tx) must be positive multiples of 4")
+
+
+def _fwd1_geometry(h: int, strip_rows: int, ext: bool) -> None:
+    """The reference's checks of a single forward strip walk (B7); the
+    tail mirror exists only without the caller's row extension."""
+    ty = pick_strip(h, strip_rows or 256)
+    ny = -(-h // ty)
+    rem = h - (ny - 1) * ty
+    tyw = ty + 2 * TOP + (8 if 0 < rem < TOP else 0)
+    if h <= tyw or ny < 2 or ny > MAX_STRIPS:
+        raise ValueError("geometry outside the streamed kernel's range")
+    if not ext:
+        for i in range(ny):
+            _tail_fits(i, h, ty, tyw, HALO)
+
+
+def _inv1_geometry(cy: int, strip_rows: int, ext: bool) -> None:
+    """The reference's checks of a single inverse strip walk (B9) over
+    bands of ``cy`` channel rows."""
+    ty = pick_strip(2 * cy, strip_rows or 256)
+    ny = -(-(2 * cy) // ty)
+    hy = ty // 2
+    tyw = hy + 2 * TOP
+    if cy <= tyw or ny < 2 or ny > MAX_STRIPS:
+        raise ValueError("geometry outside the streamed kernel's range")
+    if not ext:
+        for i in range(ny):
+            _tail_fits(i, cy, hy, tyw, CMIR)
 
 
 def _fwd2_geometry(h: int, strip_rows: int) -> None:
@@ -218,6 +265,19 @@ def _inv2_geometry(h: int, strip_rows: int, deep: bool) -> None:
 
 
 # ------------------------------------------------------------ plain versions
+
+
+def streamed_dwt2_level_plain(x, wavelet="cdf97", ty: int = STRIP_TY,
+                              tx: int = STRIP_TX, ext: int = 0):
+    """Plain version of B7: the strips of ty x tx samples with a halo of
+    HALO on both axes; ``ext`` rows of caller extension (0 or TOP)."""
+    return dwt2_level_tiles(x, wavelet, ty, tx, ext)
+
+
+def streamed_idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", ty: int = STRIP_TY,
+                               tx: int = STRIP_TX, ext: int = 0):
+    """Plain version of B9; ``ext`` channel rows of caller extension."""
+    return idwt2_level_tiles(ll, hl, lh, hh, wavelet, ty, tx, ext)
 
 
 def streamed_dwt2_2level_plain(x, wavelet="cdf97", ty: int = STRIP_TY,
@@ -274,6 +334,74 @@ def _deep_shapes(cy2: int, cx2: int, n: int):
 
 
 # ------------------------------------------------------------ kernel wrappers
+
+
+def streamed_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
+                        boundary_rows: str = "mirror", ty: int = STRIP_TY,
+                        tx: int = STRIP_TX):
+    """ONE forward level over streamed strips (B7) -> (LL, HL, LH, HH), the
+    values of the separable ``dwt2_level``; even h, w.
+
+    ``boundary_rows='extended'``: the caller supplies TOP = 8 valid rows
+    above and below the image (x has h + 16 rows, the sharded callers'
+    contract), read with no row mirror; columns still mirror.  ``h`` is
+    taken from the shape, so a wrong extension depth is not detected (as
+    in the reference).  ``strip_rows`` is validated as the reference
+    validates it; the CUDA strip is ``ty`` x ``tx``."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    if x.ndim != 2:
+        raise ValueError("streamed_dwt2_level takes one 2-D image; loop batches")
+    ext = _check_boundary_rows(boundary_rows)
+    e = TOP if ext else 0
+    h, w = x.shape[0] - 2 * e, x.shape[1]
+    if h % 2 or w % 2:
+        raise ValueError("streamed kernel needs even dims; use the oracle")
+    _fwd1_geometry(h, strip_rows, ext)
+    _check_tile(ty, tx)
+    _check_inputs("streamed_dwt2_level", ty, x)
+    KERNELS["B7"].calls += 1
+    if not x.is_cuda:
+        return streamed_dwt2_level_plain(x, wavelet, ty, tx, e)
+    x = x.contiguous()
+    out = [_empty((h // 2, w // 2), x) for _ in range(4)]
+    _launch("B7", "dwt_sfwd1", x.dtype, wavelet, False,
+            _ptrs(x, *out) + [h, w, ty, tx, e], x.device)
+    return tuple(out)
+
+
+def streamed_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
+                         boundary_rows: str = "mirror", ty: int = STRIP_TY,
+                         tx: int = STRIP_TX):
+    """ONE inverse level over streamed strips (B9), the inverse of
+    :func:`streamed_dwt2_level`; the four bands must share one shape.
+
+    ``boundary_rows='extended'``: every band carries TOP = 8 valid channel
+    rows above and below, read with no row mirror."""
+    wavelet = get_wavelet(wavelet)
+    _check_fused_supported(wavelet)
+    ext = _check_boundary_rows(boundary_rows)
+    e = TOP if ext else 0
+    if ll.ndim != 2:
+        raise ValueError("streamed_idwt2_level takes the four 2-D bands of one "
+                         "level; loop batches")
+    for name, band in (("hl", hl), ("lh", lh), ("hh", hh)):
+        if band.shape != ll.shape:
+            raise ValueError(
+                f"streamed inverse needs equal band shapes (even dims): "
+                f"ll={tuple(ll.shape)} vs {name}={tuple(band.shape)}; use the oracle")
+    cy, cx = ll.shape[0] - 2 * e, ll.shape[1]
+    _inv1_geometry(cy, strip_rows, ext)
+    _check_tile(ty, tx)
+    _check_inputs("streamed_idwt2_level", ty, ll, hl, lh, hh)
+    KERNELS["B9"].calls += 1
+    if not ll.is_cuda:
+        return streamed_idwt2_level_plain(ll, hl, lh, hh, wavelet, ty, tx, e)
+    ins = [b.contiguous() for b in (ll, hl, lh, hh)]
+    out = _empty((2 * cy, 2 * cx), ll)
+    _launch("B9", "dwt_sinv1", ll.dtype, wavelet, True,
+            _ptrs(*ins, out) + [2 * cy, 2 * cx, ty, tx, e], ll.device)
+    return out
 
 
 def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "poly",

@@ -111,10 +111,14 @@ def test_auto_never_routes_to_unported_kernels():
     tf.reset_counters()
     api.dwt2(x, "cdf97")
     assert all(s.calls == 0 for s in tf.KERNELS.values())
-    # an explicit 'streamed' is honoured; the banded body (B13) is not ported
+    # an explicit 'streamed' is honoured; 'streamed-mxu' passes the
+    # reference's float32 gate, and the banded body (B13) itself raises
     assert pick(1024, 1024, impl="streamed") == "streamed"
+    assert pick(1024, 1024, impl="streamed-mxu") == "streamed-mxu"
+    with pytest.raises(ValueError, match="float32 symmetric"):
+        pick(1024, 1024, impl="streamed-mxu", dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="B13"):
-        pick(1024, 1024, impl="streamed-mxu")
+        api.wavedec2(x, "cdf97", 3, impl="streamed-mxu")
 
 
 def test_numpy_input_without_cuda_raises(monkeypatch):
@@ -149,10 +153,18 @@ def test_impl_setting_and_errors():
     for impl in ("streamed", "streamed-mxu"):  # one 64-row strip: too short
         with pytest.raises(ValueError, match="streamed impl needs"):
             api.wavedec2(torch.zeros(64, 64), "cdf97", 2, impl=impl)
-    with pytest.raises(NotImplementedError, match="B7/B9"):
+    # the reference's outcomes: one 64-row strip is too short for the
+    # streamed level; an 8x8x8 volume is two reference tiles of 4 slabs,
+    # so both packages run their streamed volume kernel (B16) on it
+    with pytest.raises(ValueError, match="streamed impl needs"):
         api.dwt2(torch.zeros(64, 64), impl="streamed")
-    with pytest.raises(NotImplementedError, match="B16-B17"):
-        api.wavedec3(torch.zeros(8, 8, 8), impl="streamed")
+    with pytest.raises(ValueError):
+        japi.dwt2(np.zeros((64, 64), np.float32), impl="streamed")
+    v = np.random.default_rng(3).random((8, 8, 8), dtype=np.float32)
+    tf.reset_counters()
+    got = api.wavedec3(torch.from_numpy(v), impl="streamed")
+    assert tf.KERNELS["B16"].calls == 1
+    _close(got, japi.wavedec3(v, impl="streamed"), 3e-5)
 
 
 @pytest.mark.parametrize("impl", [None, "separable"])

@@ -166,8 +166,10 @@ def test_3d_dispatch_rules():
     assert pick((64, 512, 512), "d4") == "separable"
     with pytest.raises(ValueError, match="even dims > 4"):
         pick((63, 512, 512), impl="fused")
-    with pytest.raises(NotImplementedError, match="B16-B17"):
-        pick((64, 512, 512), impl="streamed")
+    # 'streamed' (B16/B17) is honoured where the reference's gate holds
+    assert pick((64, 512, 512), impl="streamed") == "streamed"
+    with pytest.raises(ValueError, match="2..32"):
+        pick((63, 512, 512), impl="streamed")
     with pytest.raises(ValueError, match="impl"):
         pick((64, 512, 512), impl="nope")
 

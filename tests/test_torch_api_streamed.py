@@ -1,11 +1,15 @@
-"""Port vs reference, end to end: the streamed 2-D pyramid through its
-drivers and the public API (``impl='streamed'``).
+"""Port vs reference, end to end: the streamed 2-D pyramid through
+``streamed_wavedec2``/``streamed_waverec2``, and the streamed pyramid,
+single levels and volume levels through the public API
+(``impl='streamed'``).
 
 The port runs on CPU tensors (each kernel's plain version); the JAX package
 runs the same calls, its Pallas kernels in interpret mode off the TPU.
 float32 is held to 3e-5 per output, integers exactly.  The kernels' call
 counts show which kernels each call reached.
 """
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -14,11 +18,16 @@ import libdwt_tpu.api as japi
 import libdwt_tpu.ops.separable as js
 import libdwt_tpu.ops.streamed as jst
 from libdwt_torch import api
+from libdwt_torch.ops import UnsupportedGeometry
 from libdwt_torch.ops import fused as tf
 from libdwt_torch.ops import streamed as ts
+from libdwt_torch.ops import streamed3d as ts3
+from libdwt_torch.utils.log import get_logger
 
 
 def _leaves(t):
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _leaves(t[k])]
     if isinstance(t, (list, tuple)):
         return [x for s in t for x in _leaves(s)]
     return [t]
@@ -30,7 +39,10 @@ def _close(got, want, atol=3e-5):
     for a, b in zip(g, w):
         a, b = a.numpy(), np.asarray(b)
         assert a.shape == b.shape and a.dtype == b.dtype
-        np.testing.assert_allclose(a, b, atol=atol, rtol=0)
+        if np.issubdtype(a.dtype, np.integer):
+            assert np.array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, atol=atol, rtol=0)
 
 
 def _t(tree):
@@ -48,6 +60,7 @@ def _fresh():
     tf.reset_counters()
     yield
     api.set_impl("auto")
+    japi.set_impl("auto")
 
 
 @pytest.mark.parametrize("level,fwd,inv", [(4, {"B11": 1}, {"B12": 1}),
@@ -121,22 +134,35 @@ def test_streamed_dispatch_rules():
         pick(2144, 4096, "streamed", wavelet="d4")
     with pytest.raises(ValueError, match="streamed impl needs"):
         pick(64, 64, "streamed-mxu")  # the geometry check comes first
+    # then the reference's float32 gate of the banded body; the body itself
+    # (B13) raises only where a pyramid would run it
+    assert pick(2144, 4096, "streamed-mxu") == "streamed-mxu"
+    with pytest.raises(ValueError, match="float32 symmetric"):
+        api._pick_impl(2144, 4096, "cdf97", "streamed-mxu", True, torch.int32, 2)
+    with pytest.raises(ValueError):
+        japi._pick_impl(2144, 4096, "cdf97", "streamed-mxu", np.int32, levels=2)
+    x = torch.zeros(256, 320)
+    for level in (2, 4):  # B8 / B11 would run the body
+        with pytest.raises(NotImplementedError, match="B13"):
+            api.wavedec2(x, "cdf97", level, impl="streamed-mxu")
+    c = ts.streamed_wavedec2(x, "cdf97", 4)
     with pytest.raises(NotImplementedError, match="B13"):
-        pick(2144, 4096, "streamed-mxu")
+        api.waverec2(c, "cdf97", impl="streamed-mxu")
 
 
 def test_single_streamed_levels_not_ported():
-    x = torch.zeros(256, 256)
-    with pytest.raises(NotImplementedError, match="B7/B9"):
-        api.dwt2(x, "cdf97", impl="streamed")
-    with pytest.raises(NotImplementedError, match="B7/B9"):
-        api.idwt2(x[:128, :128], x[:128, :128], x[:128, :128], x[:128, :128], "cdf97",
-                  impl="streamed")
+    """Formerly the refusal of single streamed levels; they are ported now
+    (B7/B9), and explicit and global-default 'streamed' reach them."""
+    x = torch.from_numpy(np.random.default_rng(12).random((256, 256), dtype=np.float32))
+    b = api.dwt2(x, "cdf97", impl="streamed")
+    rec = api.idwt2(*b, "cdf97", impl="streamed")
+    assert _calls() == {"B7": 1, "B9": 1}
+    np.testing.assert_allclose(rec.numpy(), x.numpy(), atol=5e-5, rtol=0)
+    tf.reset_counters()
     api.set_impl("streamed")
-    with pytest.raises(NotImplementedError, match="B7/B9"):
-        api.dwt2(x, "cdf97")
-    got = api.wavedec2(x, "cdf97", 2)  # the default reaches the pyramid
-    assert _calls() == {"B8": 1} and len(got) == 3
+    assert all(torch.equal(p, q) for p, q in zip(api.dwt2(x, "cdf97"), b))
+    got = api.wavedec2(x, "cdf97", 2)  # the default reaches the pyramid too
+    assert _calls() == {"B7": 1, "B8": 1} and len(got) == 3
 
 
 def test_deep_fallback_catches_only_value_errors(monkeypatch):
@@ -158,3 +184,129 @@ def test_deep_fallback_catches_only_value_errors(monkeypatch):
     monkeypatch.setattr(ts, "streamed_waverec2_deep", broken)
     with pytest.raises(RuntimeError, match="kernel failed"):
         api.waverec2(c, "cdf97", impl="streamed")
+
+
+# ------------------------------------------------- single levels and volumes
+
+
+@pytest.mark.parametrize("dtype,wavelet", [(np.float32, "cdf97"), (np.int32, "cdf53")])
+def test_streamed_single_levels_match_reference(dtype, wavelet):
+    rng = np.random.default_rng(21)
+    x = (rng.integers(-300, 300, (2, 288, 132)) if dtype == np.int32
+         else rng.random((2, 288, 132))).astype(dtype)
+    got = api.dwt2(torch.from_numpy(x), wavelet, impl="streamed")
+    assert _calls() == {"B7": 2}  # a batch runs frame by frame
+    want = japi.dwt2(x, wavelet, impl="streamed")
+    _close(got, want)
+    _close(got, js.dwt2_level(x, wavelet), 3e-5)
+    rec = api.idwt2(*got, wavelet, impl="streamed")
+    assert _calls() == {"B7": 2, "B9": 2}
+    _close(rec, japi.idwt2(*want, wavelet, impl="streamed"))
+    np.testing.assert_allclose(rec.numpy(), x, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_streamed_mxu_default_on_single_levels_matches_reference(dtype):
+    """A global 'streamed-mxu' default: float32 single levels run the
+    streamed level (the banded body exists only for pyramids), int32 fails
+    the reference's float32 gate with ValueError in both packages."""
+    rng = np.random.default_rng(22)
+    x = (rng.integers(-300, 300, (256, 128)) if dtype == np.int32
+         else rng.random((256, 128))).astype(dtype)
+    api.set_impl("streamed-mxu")
+    japi.set_impl("streamed-mxu")
+    if dtype == np.int32:
+        for mod, arr in ((api, torch.from_numpy(x)), (japi, x)):
+            with pytest.raises(ValueError, match="float32 symmetric"):
+                mod.dwt2(arr, "cdf53")
+        return
+    got = api.dwt2(torch.from_numpy(x), "cdf97")
+    want = japi.dwt2(x, "cdf97")
+    _close(got, want)
+    rec = api.idwt2(*got, "cdf97")
+    _close(rec, japi.idwt2(*want, "cdf97"))
+    assert _calls() == {"B7": 1, "B9": 1}
+    with pytest.raises(ValueError, match="multi-level"):  # explicit: refused
+        api.dwt2(torch.from_numpy(x), "cdf97", impl="streamed-mxu")
+
+
+def test_streamed_volume_matches_reference():
+    """J=3 on 16x64x64: levels 1-2 on the streamed kernels, level 3
+    (4x16x16, a dim <= HZ) fails the gate and runs the oracle in both
+    packages."""
+    v = np.random.default_rng(23).random((16, 64, 64), dtype=np.float32)
+    got = api.wavedec3(torch.from_numpy(v), "cdf97", 3, impl="streamed")
+    assert _calls() == {"B16": 2}
+    want = japi.wavedec3(v, "cdf97", 3, impl="streamed")
+    _close(got, want)
+    _close(got, js.wavedec3(v, "cdf97", 3), 3e-5)
+    rec = api.waverec3(got, "cdf97", impl="streamed")
+    assert _calls() == {"B16": 2, "B17": 2}
+    _close(rec, japi.waverec3(want, "cdf97", impl="streamed"))
+    np.testing.assert_allclose(rec.numpy(), v, atol=1e-5, rtol=0)
+
+
+def test_streamed_volume_int32_and_default_match_reference():
+    vi = np.random.default_rng(24).integers(-300, 300, (16, 32, 48)).astype(np.int32)
+    api.set_impl("streamed")
+    japi.set_impl("streamed")
+    got = api.wavedec3(torch.from_numpy(vi), "cdf53", 2)
+    want = japi.wavedec3(vi, "cdf53", 2)
+    _close(got, want)
+    rec = api.waverec3(got, "cdf53")
+    assert np.array_equal(rec.numpy(), vi)
+    assert _calls() == {"B16": 2, "B17": 2}
+    with pytest.raises(ValueError, match="unbatched"):
+        api.wavedec3(torch.zeros(2, 16, 32, 48), "cdf53", 1)
+
+
+def test_streamed_float64_on_the_cpu_matches_reference():
+    """float64 has no CUDA kernel, but a CPU tensor runs the plain versions
+    on the kernels' tiles, whose shared-memory budget is the kernels'
+    (float32/int32) and does not refuse a float64 volume."""
+    rng = np.random.default_rng(26)
+    x, v = rng.random((256, 128)), rng.random((16, 32, 32))
+    got = api.dwt2(torch.from_numpy(x), "cdf97", impl="streamed")
+    _close(got, japi.dwt2(x, "cdf97", impl="streamed"), 1e-12)
+    c3 = api.wavedec3(torch.from_numpy(v), "cdf97", 2, impl="streamed")
+    _close(c3, japi.wavedec3(v, "cdf97", 2, impl="streamed"), 1e-12)
+    rec = api.waverec3(c3, "cdf97", impl="streamed")
+    assert _calls() == {"B7": 1, "B16": 2, "B17": 2}
+    np.testing.assert_allclose(rec.numpy(), v, atol=1e-12, rtol=0)
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def test_streamed_volume_unsupported_geometry_falls_back_with_a_warning(monkeypatch):
+    def decline(*a, **k):
+        raise UnsupportedGeometry("declined for the test")
+
+    monkeypatch.setattr(ts3, "streamed_dwt3_level", decline)
+    monkeypatch.setattr(ts3, "streamed_idwt3_level", decline)
+    handler = _Records()
+    get_logger().addHandler(handler)
+    try:
+        v = np.random.default_rng(25).random((16, 32, 32), dtype=np.float32)
+        got = api.wavedec3(torch.from_numpy(v), "cdf97", 2, impl="streamed")
+        rec = api.waverec3(got, "cdf97", impl="streamed")
+    finally:
+        get_logger().removeHandler(handler)
+    msgs = [r.getMessage() for r in handler.records]
+    assert len(msgs) == 4 and all("declined for the test" in m for m in msgs)
+    assert all(r.levelno == logging.WARNING for r in handler.records)
+    _close(got, js.wavedec3(v, "cdf97", 2), 1e-5)
+    np.testing.assert_allclose(rec.numpy(), v, atol=1e-4, rtol=0)
+
+    def broken(*a, **k):
+        raise RuntimeError("kernel failed")
+
+    monkeypatch.setattr(ts3, "streamed_dwt3_level", broken)
+    with pytest.raises(RuntimeError, match="kernel failed"):
+        api.wavedec3(torch.from_numpy(v), "cdf97", 1, impl="streamed")

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, each held against its plain version
-(B1-B6 2-D, B8/B10/B11/B12 streamed 2-D, B14/B15 3-D).
+(B1-B6 2-D, B7-B12 streamed 2-D, B14-B17 3-D).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports torch, numpy and the port only (no JAX), so it also runs on a
@@ -11,9 +11,10 @@ Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
 int32 bit-exactly.  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
-extended-rows contract of the single levels, 2-D and 3-D tiles whose
-shared memory exceeds the 48 KB default, and streamed strips with ragged
-last strips and bands and short quarter tails.
+extended-rows contracts of the single levels (4 rows fused, 8 streamed),
+2-D and 3-D tiles whose shared memory exceeds the 48 KB default, streamed
+strips with ragged last strips and bands and short tails, and streamed
+volume tiles with ragged z, y and x tails.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from libdwt_torch.ops import fused as tf
 from libdwt_torch.ops import fused3d as t3
 from libdwt_torch.ops import separable as sep
 from libdwt_torch.ops import streamed as ts
+from libdwt_torch.ops import streamed3d as ts3
 
 
 @pytest.fixture
@@ -142,6 +144,12 @@ def test_float64_on_card_raises(cuda_device):
         tf.fused_dwt2_level(x)
     with pytest.raises(TypeError, match="float64"):
         t3.fused_dwt3_level(x[:16, :16].reshape(16, 16, 1).expand(16, 16, 16).contiguous())
+    with pytest.raises(TypeError, match="float64"):
+        ts.streamed_dwt2_level(torch.zeros(256, 256, dtype=torch.float64, device=cuda_device),
+                               strip_rows=64)
+    with pytest.raises(TypeError, match="float64"):
+        ts3.streamed_dwt3_level(torch.zeros(16, 16, 16, dtype=torch.float64,
+                                            device=cuda_device))
 
 
 LEVEL = [
@@ -370,5 +378,106 @@ def test_streamed_pyramid_on_card_matches_oracle(cuda_device):
         api.wavedec2(x, "cdf97", 5, impl="streamed-mxu")
     with pytest.raises(NotImplementedError, match="B13"):
         api.waverec2(coeffs, "cdf97", impl="streamed-mxu")
-    with pytest.raises(NotImplementedError, match="B7"):
-        api.dwt2(x, "cdf97", impl="streamed")
+
+
+SINGLE = [
+    # (h, w, dtype, wavelet, ty, tx): ragged last strips (260, 204, 200 rows)
+    # and bands (132, 100 columns), short tails (204 rows at ty=64: 12)
+    (260, 128, torch.float32, "cdf97", 64, 64),
+    (204, 132, torch.float32, "cdf97", 64, 48),
+    (512, 384, torch.float32, "cdf53", 128, 128),  # 148 KB of shared memory
+    (256, 256, torch.float32, "haar", 32, 64),
+    (200, 100, torch.float32, "interp53", 16, 20),
+    (200, 128, torch.int32, "cdf53", 64, 64),
+    (288, 132, torch.int32, "cdf97", 16, 16),
+    (256, 256, torch.int32, "haar", 32, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dtype,wavelet,ty,tx", SINGLE)
+def test_b7_b9_kernels_match_plain(cuda_device, h, w, dtype, wavelet, ty, tx):
+    x = _img(h, w, dtype, cuda_device, seed=14)
+    exact = dtype == torch.int32
+    tf.reset_counters()
+    b = ts.streamed_dwt2_level(x, wavelet, ty=ty, tx=tx)
+    _close(list(b), list(ts.streamed_dwt2_level_plain(x, wavelet, ty, tx)), exact)
+    rec = ts.streamed_idwt2_level(*b, wavelet, ty=ty, tx=tx)
+    _close(rec, ts.streamed_idwt2_level_plain(*b, wavelet, ty, tx), exact)
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B7"].launches, tf.KERNELS["B9"].launches) == (1, 1)
+    if exact:
+        _close(list(b), list(sep.dwt2_level(x, wavelet)), True)
+        assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dtype,wavelet,ty,tx", [
+    (512, 512, torch.float32, "cdf97", 64, 64), (260, 132, torch.float32, "cdf53", 32, 48),
+    (260, 132, torch.int32, "cdf53", 64, 64), (204, 128, torch.int32, "cdf97", 16, 20)])
+def test_streamed_extended_rows_kernels_match_plain(cuda_device, h, w, dtype, wavelet,
+                                                    ty, tx):
+    """The 8-row (TOP) contract of the single streamed levels, both ways."""
+    exact = dtype == torch.int32
+    xe = _img(h + 2 * ts.TOP, w, dtype, cuda_device, seed=15)
+    b = ts.streamed_dwt2_level(xe, wavelet, boundary_rows="extended", ty=ty, tx=tx)
+    _close(list(b), list(ts.streamed_dwt2_level_plain(xe, wavelet, ty, tx, ts.TOP)), exact)
+    assert tuple(b[0].shape) == (h // 2, w // 2)
+    bands = [_img(h // 2 + 2 * ts.TOP, w // 2, dtype, cuda_device, seed=16 + i)
+             for i in range(4)]
+    rec = ts.streamed_idwt2_level(*bands, wavelet, boundary_rows="extended", ty=ty, tx=tx)
+    assert tuple(rec.shape) == (h, w)
+    _close(rec, ts.streamed_idwt2_level_plain(*bands, wavelet, ty, tx, ts.TOP), exact)
+
+
+SVOLUME = [
+    ((64, 128, 128), torch.float32, "cdf97", ts3.STILE3),  # 184 KB of shared memory
+    ((32, 64, 64), torch.float32, "cdf97", (16, 16, 16)),  # 108 KB
+    ((30, 70, 66), torch.float32, "cdf97", (8, 16, 16)),   # ragged z, y, x tails
+    ((10, 34, 32), torch.float32, "cdf53", (4, 8, 8)),
+    ((16, 16, 16), torch.float32, "interp53", (16, 16, 16)),
+    ((16, 24, 16), torch.float32, "haar", (4, 8, 8)),
+    ((30, 70, 66), torch.int32, "cdf53", (8, 16, 16)),
+    ((32, 64, 64), torch.int32, "cdf97", ts3.STILE3),
+    ((16, 24, 16), torch.int32, "haar", (2, 4, 4)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,wavelet,tile", SVOLUME)
+def test_b16_b17_kernels_match_plain(cuda_device, shape, dtype, wavelet, tile):
+    x = _vol(shape, dtype, cuda_device, seed=17)
+    exact = dtype == torch.int32
+    tf.reset_counters()
+    b = ts3.streamed_dwt3_level(x, wavelet, tile=tile)
+    want = ts3.dwt3_level_streamed_plain(x, wavelet, tile)
+    _close([b[k] for k in t3.BANDS], [want[k] for k in t3.BANDS], exact)
+    rec = ts3.streamed_idwt3_level(b, wavelet, tile=tile)
+    _close(rec, ts3.idwt3_level_streamed_plain(b, wavelet, tile), exact)
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B16"].launches, tf.KERNELS["B17"].launches) == (1, 1)
+    if exact:
+        oracle = sep.dwt3_level(x, wavelet)
+        _close([b[k] for k in t3.BANDS], [oracle[k] for k in t3.BANDS], True)
+        assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+def test_streamed_levels_and_volume_on_card_match_oracle(cuda_device):
+    x = _img(1024, 2560, torch.float32, cuda_device, seed=18)
+    v = _vol((64, 128, 128), torch.float32, cuda_device, seed=19)
+    tf.reset_counters()
+    b = api.dwt2(x, "cdf97", impl="streamed")
+    rec = api.idwt2(*b, "cdf97", impl="streamed")
+    c3 = api.wavedec3(v, "cdf97", 2, impl="streamed")
+    r3 = api.waverec3(c3, "cdf97", impl="streamed")
+    torch.cuda.synchronize()
+    assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
+        "B7": 1, "B9": 1, "B16": 2, "B17": 2}
+    assert float(max((p - q).abs().max() for p, q in zip(b, sep.dwt2_level(x, "cdf97")))) <= 3e-5
+    assert float((rec - x).abs().max()) <= 1e-3
+    want = sep.wavedec3(v, "cdf97", 2)
+    assert float((c3[0] - want[0]).abs().max()) <= 5e-4
+    for got_l, want_l in zip(c3[1:], want[1:]):
+        assert max(float((got_l[k] - want_l[k]).abs().max()) for k in want_l) <= 5e-4
+    assert float((r3 - v).abs().max()) <= 1e-3

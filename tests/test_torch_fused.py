@@ -21,7 +21,7 @@ import torch
 import libdwt_tpu.ops.fused as jf
 import libdwt_tpu.ops.separable as js
 from libdwt_tpu.utils.testimg import test_image as make_image
-from libdwt_torch.ops import _cuda, fused3d, streamed
+from libdwt_torch.ops import _cuda, fused3d, streamed, streamed3d
 from libdwt_torch.ops import fused as tf
 
 
@@ -160,12 +160,15 @@ def test_wrappers_count_calls_not_launches_on_cpu():
     tf.fused_idwt2_level(*tf.fused_dwt2_level(x))
     v = torch.from_numpy(np.random.default_rng(0).random((8, 8, 8), dtype=np.float32))
     fused3d.fused_idwt3_level(fused3d.fused_dwt3_level(v))
+    streamed3d.streamed_idwt3_level(streamed3d.streamed_dwt3_level(v))
     xs = torch.from_numpy(_img(256, 256))
+    streamed.streamed_idwt2_level(*streamed.streamed_dwt2_level(xs, strip_rows=64),
+                                  strip_rows=64)
     streamed.streamed_idwt2_2level(*streamed.streamed_dwt2_2level(xs))
     streamed.streamed_waverec2_deep(streamed.streamed_wavedec2_deep(xs, "cdf97", 3))
     assert {k: (s.calls, s.launches) for k, s in tf.KERNELS.items()} == {
-        k: (1, 0) for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B8", "B10", "B11",
-                            "B12", "B14", "B15")}
+        k: (1, 0) for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "B10",
+                            "B11", "B12", "B14", "B15", "B16", "B17")}
     tf.reset_counters()
     assert all(s.calls == 0 for s in tf.KERNELS.values())
 
@@ -259,7 +262,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.build_all()
     assert _cuda.build_dir() == tmp_path / "b"
-    assert set(_cuda.SOURCES) == {"fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu"}
+    assert set(_cuda.SOURCES) == {"fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu",
+                                  "streamed3d.cu"}
     assert all((_cuda.CSRC / s).exists() for s in _cuda.SOURCES + _cuda.HEADERS)
 
 

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Time the streamed CUDA kernels (B8, B10, B11, B12) of the PyTorch port
-over several CUDA strip shapes (ty rows x tx band columns) on one GPU.
+"""Time the streamed CUDA kernels of the PyTorch port over several CUDA
+strip and tile shapes on one GPU.
 
     python3 tools/streamed_strip_sweep.py [--reps N]
 
-Runs on a 2144x4096 float32 frame (CDF 9/7, J=5 for B11/B12, random data
-from numpy seed 0) and prints one JSON line per shape: each kernel's time
-in ms (CUDA events, chip_smoke.time_ms), the cooperative grid and its
-co-resident limit, and the largest difference of the one-launch pyramid
-from the default shape's (0 expected: the strips only move the halo).
-Exits non-zero without a CUDA device.
+2-D: B7, B9 (one level), B8, B10 (two levels), B11, B12 (J=5, one launch)
+on a 2144x4096 float32 frame (CDF 9/7, random data from numpy seed 0), per
+strip shape (ty rows x tx band columns).  3-D: B16, B17 on a 64x512x512
+float32 volume and its 32x256x256 second level, per core tile (tz, ty, tx).
+Prints one JSON line per shape: each kernel's time in ms (CUDA events,
+chip_smoke.time_ms), the cooperative grid of B11/B12 and its co-resident
+limit, and the largest difference from the default shape's result (0
+expected: the strips and tiles only move the halo).  Exits non-zero
+without a CUDA device.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 SHAPES = [(64, 64), (32, 64), (16, 64), (32, 128), (16, 128), (64, 32),
           (32, 32), (128, 64), (64, 128)]
+TILES3 = [(16, 16, 16), (16, 16, 32), (8, 16, 32), (8, 8, 32), (8, 16, 16),
+          (16, 8, 32), (4, 16, 32)]
 
 
 def main() -> int:
@@ -36,13 +41,18 @@ def main() -> int:
         return 2
     import chip_smoke as C
     from libdwt_torch.ops import streamed as S
+    from libdwt_torch.ops import streamed3d as S3
 
-    x = torch.from_numpy(np.random.default_rng(0).random((2144, 4096), dtype=np.float32)).cuda()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2144, 4096), dtype=np.float32)).cuda()
+    c1 = S.streamed_dwt2_level(x)
     c2 = S.streamed_dwt2_2level(x)
     c5 = S.streamed_wavedec2_deep(x, "cdf97", 5)
     print(C.nvidia_smi())
     for ty, tx in SHAPES:
         r = {"ty": ty, "tx": tx,
+             "B7": C.time_ms(lambda: S.streamed_dwt2_level(x, ty=ty, tx=tx), args.reps),
+             "B9": C.time_ms(lambda: S.streamed_idwt2_level(*c1, ty=ty, tx=tx), args.reps),
              "B8": C.time_ms(lambda: S.streamed_dwt2_2level(x, ty=ty, tx=tx), args.reps),
              "B10": C.time_ms(lambda: S.streamed_idwt2_2level(*c2, ty=ty, tx=tx), args.reps),
              "B11": C.time_ms(lambda: S.streamed_wavedec2_deep(x, "cdf97", 5, ty=ty, tx=tx),
@@ -50,8 +60,24 @@ def main() -> int:
         r["grid_B11"] = S.LAST_GRID["B11"]
         r["B12"] = C.time_ms(lambda: S.streamed_waverec2_deep(c5, ty=ty, tx=tx), args.reps)
         r["grid_B12"] = S.LAST_GRID["B12"]
-        r["max_abs_vs_default"] = C.max_abs(
-            C.leaves(S.streamed_wavedec2_deep(x, "cdf97", 5, ty=ty, tx=tx)), C.leaves(c5))
+        r["max_abs_vs_default"] = max(
+            C.max_abs(C.leaves(S.streamed_wavedec2_deep(x, "cdf97", 5, ty=ty, tx=tx)),
+                      C.leaves(c5)),
+            C.max_abs(list(S.streamed_dwt2_level(x, ty=ty, tx=tx)), list(c1)))
+        print(json.dumps(r), flush=True)
+    v = torch.from_numpy(rng.random((64, 512, 512), dtype=np.float32)).cuda()
+    b1 = S3.streamed_dwt3_level(v)
+    ll = b1["LLL"]
+    b2 = S3.streamed_dwt3_level(ll)
+    for tile in TILES3:
+        r = {"tile": tile,
+             "B16": C.time_ms(lambda: S3.streamed_dwt3_level(v, tile=tile), args.reps),
+             "B17": C.time_ms(lambda: S3.streamed_idwt3_level(b1, tile=tile), args.reps),
+             "B16_level2": C.time_ms(lambda: S3.streamed_dwt3_level(ll, tile=tile), args.reps),
+             "B17_level2": C.time_ms(lambda: S3.streamed_idwt3_level(b2, tile=tile),
+                                     args.reps),
+             "max_abs_vs_default": C.max_abs(C.leaves(S3.streamed_dwt3_level(v, tile=tile)),
+                                             C.leaves(b1))}
         print(json.dumps(r), flush=True)
     return 0
 
