@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--reps N]
 
 1. Builds every CUDA kernel of the port from ``libdwt_torch/csrc``.
-2. Drives six paths through the public API, each with the launch
+2. Drives seven paths through the public API, each with the launch
    counts set to 0 just before it and read just after, on data made from
    a numpy seed (CDF 9/7, float32):
    - the 2-D pyramid: ``api.wavedec2`` / ``waverec2``, J=5,
@@ -21,7 +21,10 @@
    - the single streamed levels: ``api.dwt2`` / ``idwt2`` with
      ``impl='streamed'`` on the 2144x4096 frame (B7, B9);
    - the streamed volume: ``api.wavedec3`` / ``waverec3`` with
-     ``impl='streamed'`` on 64x512x512, J=2 (B16, B17, twice each).
+     ``impl='streamed'`` on 64x512x512, J=2 (B16, B17, twice each);
+   - the banded-matmul pyramid: ``api.wavedec2`` / ``waverec2`` with
+     ``impl='streamed-mxu'`` on the 2144x4096 frame, J=5 (B11, B12 with
+     their banded body B13) and J=2 (B8, B10 with B13).
 3. Checks each path against the port's separable oracle on the card
    (pyramids <= 5e-4, single levels <= 3e-5, round trips <= 1e-3), the
    reference's bench gates of B1 (int32 CDF 5/3 at 512x512 exact, f32 at
@@ -29,10 +32,12 @@
    streamed), int32 CDF 5/3 through every kernel (exactly equal to the
    plain versions and the oracle), that 'auto' on the CUDA volume takes
    the 3-D kernels, and that the cooperative grids of B11/B12 fit the
-   card at once.
+   card at once (with either body).  The banded pyramid is held to 5e-4
+   both ways (the reference's own bound for its banded body).
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5).
+   <= 3e-5), and each banded instantiation of B8/B10/B11/B12 against its
+   plain version (<= 2e-5: the tensor cores sum in another order).
 5. Times each kernel and its plain version with CUDA events, beside the
    card's bound for the same work, times and profiles the paths, and
    prints the card's name and power limit, a JSON line of kernels, and
@@ -49,13 +54,14 @@ import subprocess
 import sys
 import time
 
-# (memory bytes/s, float32 non-tensor-core FLOP/s) by card, from NVIDIA's
-# data sheets; matched against torch.cuda.get_device_name in order.
+# (memory bytes/s, float32 non-tensor-core FLOP/s, dense bf16 tensor-core
+# FLOP/s) by card, from NVIDIA's data sheets; matched against
+# torch.cuda.get_device_name in order.
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51.2e12),
-    ("H100 NVL", 3.9e12, 60.0e12),
-    ("H200", 4.8e12, 67.0e12),
-    ("H100", 3.35e12, 67.0e12),
+    ("H100 PCIe", 2.0e12, 51.2e12, 756e12),
+    ("H100 NVL", 3.9e12, 60.0e12, 835e12),
+    ("H200", 4.8e12, 67.0e12, 989e12),
+    ("H100", 3.35e12, 67.0e12, 989e12),
 )
 #: float ops per pixel per level of a 4-step lifting pass on both axes:
 #: per axis 4 steps x 3 ops on half the samples, plus one scale multiply.
@@ -65,10 +71,20 @@ OPS_PER_VOXEL_LEVEL = 21
 
 
 def card_peaks(name: str):
-    for key, bw, fl in CARD_PEAKS:
+    for key, bw, fl, tc in CARD_PEAKS:
         if key in name:
-            return bw, fl
+            return bw, fl, tc
     raise SystemExit(f"no peak rates known for card {name!r}")
+
+
+def band_ops_per_sample(wavelet) -> float:
+    """Tensor-core flops the banded body (B13) needs per sample of one 1-D
+    pass: 5 bf16 products x 2 flops x the band's taps (an interior row
+    pair of the pass matrix, averaged over the two parities)."""
+    from libdwt_torch.ops import banded
+
+    m = banded.lift_matrix(64, wavelet)
+    return 5 * 2 * float((m[30:32] != 0).sum()) / 2
 
 
 def nvidia_smi() -> str:
@@ -179,7 +195,7 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    bw, flops = card_peaks(name)
+    bw, flops, tc_flops = card_peaks(name)
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -508,6 +524,68 @@ def main() -> int:
     require(max_abs(back, S3.idwt3_level_streamed_plain(got, "cdf53")) == 0
             and max_abs(back, vi) == 0, "int32 cdf53 32x64x64 B17 inverse == plain == input")
 
+    # ---- the banded-matmul pyramid: wavedec2/waverec2 impl='streamed-mxu' at
+    # 2144x4096, J=5 (B11, B12, each running the banded body B13) and J=2
+    # (B8, B10, each running B13)
+    F.reset_counters()
+    mc = api.wavedec2(x, WV, J, impl="streamed-mxu")
+    mrec = api.waverec2(mc, WV, impl="streamed-mxu")
+    torch.cuda.synchronize()
+    mxu_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print(f"streamed-mxu J={J} launches: " + json.dumps(mxu_launches)
+          + f", cooperative (grid, resident blocks): {json.dumps(S.LAST_GRID)}", flush=True)
+    require(mxu_launches == {"B11": 1, "B12": 1, "B13": 2},
+            f"api.wavedec2/waverec2 impl='streamed-mxu' J={J} launched B11 and B12 "
+            "once each, both with the banded body B13")
+    require(all(1 <= g <= r for g, r in S.LAST_GRID.values()),
+            "B11/B12 banded-body cooperative grids fit the card's co-resident blocks")
+    require(all(bool(torch.isfinite(a).all()) for a in leaves(mc) + [mrec]),
+            "streamed-mxu pyramid and reconstruction are finite")
+    err = max_abs(leaves(mc), leaves(want))
+    require(err <= 5e-4, f"streamed-mxu pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    err = max_abs(mrec, x)
+    require(err <= 5e-4, f"streamed-mxu round trip max|err| {err:.3e} <= 5e-4")
+    F.reset_counters()
+    m2c = api.wavedec2(x, WV, 2, impl="streamed-mxu")
+    m2rec = api.waverec2(m2c, WV, impl="streamed-mxu")
+    torch.cuda.synchronize()
+    mxu2_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print("streamed-mxu J=2 launches: " + json.dumps(mxu2_launches), flush=True)
+    require(mxu2_launches == {"B8": 1, "B10": 1, "B13": 2},
+            "api.wavedec2/waverec2 impl='streamed-mxu' J=2 launched B8 and B10 once "
+            "each, both with the banded body B13")
+    require(all(bool(torch.isfinite(a).all()) for a in leaves(m2c) + [m2rec]),
+            "streamed-mxu J=2 pyramid and reconstruction are finite")
+    err = max_abs(leaves(m2c), leaves(sep.wavedec2(x, WV, 2)))
+    require(err <= 5e-4, f"streamed-mxu J=2 pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    err = max_abs(m2rec, x)
+    require(err <= 5e-4, f"streamed-mxu J=2 round trip max|err| {err:.3e} <= 5e-4")
+    launches["B13"] = mxu_launches["B13"] + mxu2_launches["B13"]
+    # each banded instantiation vs its plain version at its path's shapes
+    band_ops = x.numel() * 2.5 * band_ops_per_sample(WV)  # 2 passes at level 1, 2 at 1/4
+    deep_ops = x.numel() * sum(4.0 ** -k for k in range(2, J)) * OPS_PER_PIXEL_LEVEL
+    mxu_cases = {  # kernel, plain, bytes, float32 ops, tensor-core ops
+        "B8": (lambda: S.streamed_dwt2_2level(x, WV, body="mxu"),
+               lambda: S.streamed_dwt2_2level_plain(x, WV, body="mxu"),
+               x.numel() * 4 * 2, 0, band_ops),
+        "B10": (lambda: S.streamed_idwt2_2level(*m2c, WV, body="mxu"),
+                lambda: S.streamed_idwt2_2level_plain(*m2c, WV, body="mxu"),
+                x.numel() * 4 * 2, 0, band_ops),
+        "B11": (lambda: S.streamed_wavedec2_deep(x, WV, J, body="mxu"),
+                lambda: S.streamed_wavedec2_deep_plain(x, WV, J, body="mxu"),
+                x.numel() * 4 * 2, deep_ops, band_ops),
+        "B12": (lambda: S.streamed_waverec2_deep(mc, WV, body="mxu"),
+                lambda: S.streamed_waverec2_deep_plain(mc, WV, body="mxu"),
+                x.numel() * 4 * 2, deep_ops, band_ops),
+    }
+    mxu_errs = {}
+    for k, (kern, plain, *_) in mxu_cases.items():
+        mxu_errs[k] = max_abs(leaves(kern()), leaves(plain()))
+        torch.cuda.synchronize()
+        require(mxu_errs[k] <= 2e-5, f"{k} banded body (B13) vs plain at its path's shapes "
+                f"max|diff| {mxu_errs[k]:.3e} <= 2e-5")
+    errs["B13"] = max(mxu_errs.values())
+
     # ---- the slice 2 kernels vs their plain versions at their paths' shapes
     b14_l1 = F3.fused_dwt3_level(v, WV)
     ll3 = b14_l1["LLL"]  # 32x256x256, level 2's input
@@ -562,15 +640,16 @@ def main() -> int:
                 f"max|diff| {err:.3e} <= 3e-5")
 
     # ---- times at the paths' shapes
-    def timed(k, kern, plain, nbytes, ops, tag=""):
+    def timed(k, kern, plain, nbytes, ops, tensor_ops=0, tag=""):
         ms = time_ms(kern, args.reps)
         plain_ms = time_ms(plain, max(3, args.reps // 4), warm=1)
         bytes_ms = nbytes / bw * 1e3
-        ops_ms = ops / flops * 1e3
+        ops_ms = (ops / flops + tensor_ops / tc_flops) * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        tc = f", {tensor_ops / 1e9:.2f} Gflop on the tensor cores" if tensor_ops else ""
         print(f"time {k}{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {max(bytes_ms, ops_ms):.4f} ms ({bound_by}; "
-              f"{nbytes / 1e6:.1f} MB moved) [{smi}]", flush=True)
+              f"{nbytes / 1e6:.1f} MB moved{tc}) [{smi}]", flush=True)
         return ms, plain_ms, max(bytes_ms, ops_ms), bound_by
 
     rows = []
@@ -586,6 +665,23 @@ def main() -> int:
         })
     for k, case in level2.items():
         timed(k, *case, tag=f" level 2 ({'x'.join(map(str, ll3.shape))})")
+    # B13: each banded instantiation beside its plain version and bound; the
+    # row holds the J=5 pair, B11 + B12 with the banded body
+    mxu_t = {k: timed("B13", *case, tag=f" in {k} (body='mxu')")
+             for k, case in mxu_cases.items()}
+    st = F.KERNELS["B13"]
+    rows.append({
+        "name": f"B13 {st.name} (in B11 + B12, J={J})", "route": "cuda",
+        "source": st.source, "replaces": st.replaces, "launches": launches["B13"],
+        "max_abs_err": errs["B13"],
+        "ms": mxu_t["B11"][0] + mxu_t["B12"][0],
+        "plain_ms": mxu_t["B11"][1] + mxu_t["B12"][1],
+        "bound_ms": mxu_t["B11"][2] + mxu_t["B12"][2],
+        "bound_by": "bytes" if all(mxu_t[k][3] == "bytes" for k in ("B11", "B12"))
+        else "operations",
+        "library_ms": None,
+    })
+    rows.sort(key=lambda r: int(r["name"].split()[0][1:]))
     fwd_ms = time_ms(lambda: api.wavedec2(x, WV, J, impl="fused"), args.reps)
     inv_ms = time_ms(lambda: api.waverec2(coeffs, WV, impl="fused"), args.reps)
     sep_ms = time_ms(lambda: sep.wavedec2(x, WV, J), max(3, args.reps // 4), warm=1)
@@ -619,6 +715,13 @@ def main() -> int:
     inv_ms = time_ms(lambda: api.waverec3(sc3, WV, impl="streamed"), args.reps)
     print(f"time streamed 3-D path: wavedec3 {fwd_ms:.4f} ms, waverec3 {inv_ms:.4f} ms "
           f"({'x'.join(map(str, VOL))} f32 J={J3}) [{smi}]", flush=True)
+    fwd_ms = time_ms(lambda: api.wavedec2(x, WV, J, impl="streamed-mxu"), args.reps)
+    inv_ms = time_ms(lambda: api.waverec2(mc, WV, impl="streamed-mxu"), args.reps)
+    fwd2_ms = time_ms(lambda: api.wavedec2(x, WV, 2, impl="streamed-mxu"), args.reps)
+    inv2_ms = time_ms(lambda: api.waverec2(m2c, WV, impl="streamed-mxu"), args.reps)
+    print(f"time streamed-mxu path: wavedec2 {fwd_ms:.4f} ms, waverec2 {inv_ms:.4f} ms "
+          f"(J={J}); wavedec2 {fwd2_ms:.4f} ms, waverec2 {inv2_ms:.4f} ms (J=2) "
+          f"({H}x{W} f32) [{smi}]", flush=True)
 
     profile_path("main path (wavedec2 + waverec2)",
                  lambda: api.waverec2(api.wavedec2(x, WV, J, impl="fused"), WV, impl="fused"),
@@ -640,6 +743,14 @@ def main() -> int:
     profile_path("streamed 3-D path (wavedec3 + waverec3)",
                  lambda: api.waverec3(api.wavedec3(v, WV, J3, impl="streamed"), WV,
                                       impl="streamed"),
+                 smi)
+    profile_path(f"streamed-mxu path J={J} (wavedec2 + waverec2)",
+                 lambda: api.waverec2(api.wavedec2(x, WV, J, impl="streamed-mxu"), WV,
+                                      impl="streamed-mxu"),
+                 smi)
+    profile_path("streamed-mxu path J=2 (wavedec2 + waverec2)",
+                 lambda: api.waverec2(api.wavedec2(x, WV, 2, impl="streamed-mxu"), WV,
+                                      impl="streamed-mxu"),
                  smi)
 
     print(smi)

@@ -7,10 +7,12 @@ Strategies:
   * ``streamed``     — the streamed strip and tile kernels of ops/streamed
                        (single levels, and the ``wavedec2``/``waverec2``
                        pyramid) and ops/streamed3d (``wavedec3``/``waverec3``)
-  * ``streamed-mxu`` — the banded-matmul body (B13): on a single level it
-                       is the reference's float32 gate, then the streamed
-                       level; a pyramid step that would run the body raises
-                       ``NotImplementedError`` (not ported yet)
+  * ``streamed-mxu`` — the streamed pyramid with the banded-matmul strip
+                       body (B13, float32 only): ``wavedec2``/``waverec2``
+                       run B8/B10/B11/B12's ``body='mxu'`` instantiations; an
+                       explicit 'streamed-mxu' on a single level raises
+                       ``ValueError`` (as in the reference), and as the
+                       global default it runs the streamed level B7/B9
   * ``auto``         — built-in thresholds (no tuned table for the GPU yet);
                        never picks a streamed kernel, as the reference
                        without a tuned table
@@ -179,8 +181,8 @@ def wavedec2(x, wavelet="cdf97", level: Optional[int] = None,
 
     With 'fused' each frame runs :func:`ops.fused.fused_wavedec2`, with
     'streamed' :func:`ops.streamed.streamed_wavedec2` (with
-    'streamed-mxu' its banded body, which raises ``NotImplementedError``
-    where it would run); a batch (..., H, W) is looped frame by frame."""
+    'streamed-mxu' its banded-matmul strip body, B13); a batch (..., H, W)
+    is looped frame by frame."""
     x = as_tensor(x, device)
     h, w = x.shape[-2], x.shape[-1]
     j = resolve_j(h, w, level)

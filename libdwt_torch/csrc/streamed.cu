@@ -52,10 +52,20 @@
 // the shared-memory attribute is set), at most the largest phase's items.
 // Scratch buffers are never read before the grid sync that follows their
 // writes, and no pointer is __restrict__, so no read can see a stale line.
+//
+// The banded-matmul body (B13, banded.cuh) replaces the polyphase lift of
+// the strip phases of B8/B10/B11/B12 in their MXU = true instantiations
+// (dwt_*_mxu_f32, float32 only): the matrices ride in the kernel's shared
+// memory after the float windows and the body's three data parts, copied
+// there once per block before its first strip.  The deep levels of B11/B12
+// stay polyphase, as in the reference (streamed.py:1167-1169).  At the
+// default 64x64 strip a forward block then holds 177 KB and an inverse
+// block 145 KB, one block per SM.
 #include <algorithm>
 
 #include <cooperative_groups.h>
 
+#include "banded.cuh"
 #include "tiles.cuh"
 
 namespace cg = cooperative_groups;
@@ -101,12 +111,43 @@ struct Deep {
     Level<T> lv[MAX_DEEP];
 };
 
+// Shared memory of the two-level strips: the float windows (``*_base``:
+// two buffers, and the forward's LL1 tile), and with the banded body the
+// elements of one of its data parts (``*_parts``: the larger window).
 template <typename T>
+__host__ __device__ size_t fwd_base(int ty, int tx) {
+    return sizeof(T) * (size_t)(2 * tiles::fwd2_elems(ty, tx, TOP2)
+                                + tiles::fwd2_ll1_elems(ty, tx));
+}
+__host__ __device__ inline int fwd_parts(int ty, int tx) {
+    const int a = banded::part_elems(ty + 2 * TOP2, tx + 2 * tiles::HALO2);
+    const int b = banded::part_elems(ty / 2 + 8, tx / 2 + 8);
+    return a > b ? a : b;
+}
+template <typename T>
+__host__ __device__ size_t inv_base(int ty, int tx) {
+    return sizeof(T) * 2 * (size_t)(tiles::inv2_l2_elems(ty, tx)
+                                    + tiles::inv2_l1_elems(ty, tx));
+}
+__host__ __device__ inline int inv_parts(int ty, int tx) {
+    const int a = banded::part_elems(ty / 2 + 2 * tiles::IH2, tx / 2 + 2 * tiles::IH2);
+    const int b = banded::part_elems(ty + 2 * tiles::IH1, tx + 2 * tiles::IH1);
+    return a > b ? a : b;
+}
+
+// The strips of the two forward levels.  MXU: the banded body (float32),
+// which first copies its matrices into shared memory.
+template <typename T, bool MXU>
 __device__ void fwd2_strips(const T* x, const FwdBands<T>& b, const Strips& g,
-                            const LiftParams& P, T* smem) {
+                            const LiftParams& P, const banded::MxuMats& M,
+                            unsigned char* raw) {
+    T* smem = reinterpret_cast<T*>(raw);
     const int buf = tiles::fwd2_elems(g.ty, g.tx, TOP2);
     T* sb[2] = {smem, smem + buf};
     T* s2 = smem + 2 * buf;
+    const banded::MxuLift lift =
+        banded::make_lift(M, raw, fwd_base<T>(g.ty, g.tx), fwd_parts(g.ty, g.tx));
+    if constexpr (MXU) banded::load_mats(M, lift.mats);
     for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
         const int x0 = (item % g.nbands) * g.tx;
         const int first = (item / g.nbands) * g.sps;
@@ -121,18 +162,27 @@ __device__ void fwd2_strips(const T* x, const FwdBands<T>& b, const Strips& g,
             __pipeline_commit();  // possibly empty: keeps wait_prior(1) exact
             __pipeline_wait_prior(1);
             __syncthreads();
-            tiles::fwd2_compute(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1,
-                                b.hh1, g.h, g.w, i * g.ty, x0, g.ty, g.tx, TOP2, P);
+            if constexpr (MXU)
+                banded::fwd2_compute_mxu(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1,
+                                         b.lh1, b.hh1, g.h, g.w, i * g.ty, x0, g.ty, g.tx,
+                                         TOP2, lift);
+            else
+                tiles::fwd2_compute(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1,
+                                    b.hh1, g.h, g.w, i * g.ty, x0, g.ty, g.tx, TOP2, P);
         }
     }
 }
 
-template <typename T>
+template <typename T, bool MXU>
 __device__ void inv2_strips(const InvBands<T>& b, const Strips& g, const LiftParams& P,
-                            T* smem) {
+                            const banded::MxuMats& M, unsigned char* raw) {
+    T* smem = reinterpret_cast<T*>(raw);
     const int n2 = tiles::inv2_l2_elems(g.ty, g.tx);
     const int stage = n2 + tiles::inv2_l1_elems(g.ty, g.tx);
     T* sb[2] = {smem, smem + stage};
+    const banded::MxuLift lift =
+        banded::make_lift(M, raw, inv_base<T>(g.ty, g.tx), inv_parts(g.ty, g.tx));
+    if constexpr (MXU) banded::load_mats(M, lift.mats);
     for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
         const int x0 = (item % g.nbands) * g.tx;
         const int first = (item / g.nbands) * g.sps;
@@ -149,8 +199,12 @@ __device__ void inv2_strips(const InvBands<T>& b, const Strips& g, const LiftPar
             __pipeline_commit();
             __pipeline_wait_prior(1);
             __syncthreads();
-            tiles::inv2_compute(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0, g.ty,
-                                g.tx, P);
+            if constexpr (MXU)
+                banded::inv2_compute_mxu(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0,
+                                         g.ty, g.tx, lift);
+            else
+                tiles::inv2_compute(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0, g.ty,
+                                    g.tx, P);
         }
     }
 }
@@ -221,24 +275,24 @@ __device__ void inv1_strips(const T* ll, const T* hl, const T* lh, const T* hh, 
     }
 }
 
-template <typename T>
+template <typename T, bool MXU>
 __global__ void __launch_bounds__(THREADS)
-sfwd2_kernel(const T* x, FwdBands<T> b, Strips g, LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
-    fwd2_strips(x, b, g, P, reinterpret_cast<T*>(smem_raw));
+sfwd2_kernel(const T* x, FwdBands<T> b, Strips g, LiftParams P, banded::MxuMats M) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    fwd2_strips<T, MXU>(x, b, g, P, M, smem_raw);
 }
 
-template <typename T>
+template <typename T, bool MXU>
 __global__ void __launch_bounds__(THREADS)
-sinv2_kernel(InvBands<T> b, Strips g, LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
-    inv2_strips(b, g, P, reinterpret_cast<T*>(smem_raw));
+sinv2_kernel(InvBands<T> b, Strips g, LiftParams P, banded::MxuMats M) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    inv2_strips<T, MXU>(b, g, P, M, smem_raw);
 }
 
 template <int EXT, typename T>
 __global__ void __launch_bounds__(THREADS)
 sfwd1_kernel(const T* x, T* ll, T* hl, T* lh, T* hh, Strips g, LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     fwd1_strips<EXT>(x, ll, hl, lh, hh, g, P, reinterpret_cast<T*>(smem_raw));
 }
 
@@ -246,49 +300,50 @@ template <int EXT, typename T>
 __global__ void __launch_bounds__(THREADS)
 sinv1_kernel(const T* ll, const T* hl, const T* lh, const T* hh, T* out, Strips g,
              LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     inv1_strips<EXT>(ll, hl, lh, hh, out, g, P, reinterpret_cast<T*>(smem_raw));
 }
 
-template <typename T>
+template <typename T, bool MXU>
 __global__ void __launch_bounds__(THREADS)
 sdeep_fwd_kernel(const T* x, FwdBands<T> b, Strips g, Deep<T> d, int tile,
-                 LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
+                 LiftParams P, banded::MxuMats M) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
     cg::grid_group grid = cg::this_grid();
-    fwd2_strips(x, b, g, P, s);
+    fwd2_strips<T, MXU>(x, b, g, P, M, smem_raw);
     for (int k = 0; k < d.n; ++k) {
         grid.sync();
         deep_level<T, false>(d.lv[k], tile, P, s);
     }
 }
 
-template <typename T>
+template <typename T, bool MXU>
 __global__ void __launch_bounds__(THREADS)
-sdeep_inv_kernel(InvBands<T> b, Strips g, Deep<T> d, int tile, LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
+sdeep_inv_kernel(InvBands<T> b, Strips g, Deep<T> d, int tile, LiftParams P,
+                 banded::MxuMats M) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
     cg::grid_group grid = cg::this_grid();
     for (int k = 0; k < d.n; ++k) {
         deep_level<T, true>(d.lv[k], tile, P, s);
         grid.sync();
     }
-    inv2_strips(b, g, P, s);
+    inv2_strips<T, MXU>(b, g, P, M, smem_raw);
 }
 
 // ------------------------------------------------------------ host side
 
-template <typename T>
-size_t fwd_smem(int ty, int tx) {
-    return sizeof(T) * (size_t)(2 * tiles::fwd2_elems(ty, tx, TOP2)
-                                + tiles::fwd2_ll1_elems(ty, tx));
+template <typename T, bool MXU>
+size_t fwd_smem(int ty, int tx, const banded::MxuMats& M) {
+    const size_t base = fwd_base<T>(ty, tx);
+    return MXU ? banded::smem_bytes(base, fwd_parts(ty, tx), M.elems) : base;
 }
 
-template <typename T>
-size_t inv_smem(int ty, int tx) {
-    return sizeof(T) * 2 * (size_t)(tiles::inv2_l2_elems(ty, tx)
-                                    + tiles::inv2_l1_elems(ty, tx));
+template <typename T, bool MXU>
+size_t inv_smem(int ty, int tx, const banded::MxuMats& M) {
+    const size_t base = inv_base<T>(ty, tx);
+    return MXU ? banded::smem_bytes(base, inv_parts(ty, tx), M.elems) : base;
 }
 
 template <typename T>
@@ -346,27 +401,30 @@ int grid_for(const Strips& g, const Deep<T>& d, int tile, int resident) {
     return min(most, resident);
 }
 
-template <typename T>
+// The polyphase instantiations take no matrices.
+const banded::MxuMats NO_MATS{};
+
+template <typename T, bool MXU>
 int launch_sfwd2(const T* x, FwdBands<T> b, int h, int w, int ty, int tx,
-                 const LiftParams* P, cudaStream_t stream) {
-    const size_t smem = fwd_smem<T>(ty, tx);
+                 const LiftParams* P, const banded::MxuMats* M, cudaStream_t stream) {
+    const size_t smem = fwd_smem<T, MXU>(ty, tx, *M);
     Strips g;
     int resident = 0;
-    const int err = plan(sfwd2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    const int err = plan(sfwd2_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
-    sfwd2_kernel<T><<<g.items(), THREADS, smem, stream>>>(x, b, g, *P);
+    sfwd2_kernel<T, MXU><<<g.items(), THREADS, smem, stream>>>(x, b, g, *P, *M);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool MXU>
 int launch_sinv2(InvBands<T> b, int h, int w, int ty, int tx, const LiftParams* P,
-                 cudaStream_t stream) {
-    const size_t smem = inv_smem<T>(ty, tx);
+                 const banded::MxuMats* M, cudaStream_t stream) {
+    const size_t smem = inv_smem<T, MXU>(ty, tx, *M);
     Strips g;
     int resident = 0;
-    const int err = plan(sinv2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    const int err = plan(sinv2_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
-    sinv2_kernel<T><<<g.items(), THREADS, smem, stream>>>(b, g, *P);
+    sinv2_kernel<T, MXU><<<g.items(), THREADS, smem, stream>>>(b, g, *P, *M);
     return (int)cudaGetLastError();
 }
 
@@ -396,10 +454,10 @@ int launch_sinv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int
 
 // ptrs: ll2 scratch, hl2, lh2, hh2, hl1, lh1, hh1, then per deep level
 // (fine first) hl, lh, hh, ll.  info[0..1] <- grid, resident blocks.
-template <typename T>
+template <typename T, bool MXU>
 int launch_sdeep_fwd(const T* x, void* const* ptrs, int n, int h, int w, int ty,
                      int tx, int tile, int* info, const LiftParams* P,
-                     cudaStream_t stream) {
+                     const banded::MxuMats* M, cudaStream_t stream) {
     if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
     T* const* p = reinterpret_cast<T* const*>(ptrs);
     FwdBands<T> b{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
@@ -412,16 +470,18 @@ int launch_sdeep_fwd(const T* x, void* const* ptrs, int n, int h, int w, int ty,
         d.lv[k] = Level<T>{hs[k], ws[k], k ? p[7 + 4 * k - 1] : p[0], q[0], q[1], q[2],
                            q[3]};
     }
-    const size_t smem = std::max(fwd_smem<T>(ty, tx), deep_smem<T>(tile));
+    const size_t smem = std::max(fwd_smem<T, MXU>(ty, tx, *M), deep_smem<T>(tile));
     Strips g;
     int resident = 0;
-    int err = plan(sdeep_fwd_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    int err = plan(sdeep_fwd_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
     info[0] = grid_for(g, d, tile, resident);
     info[1] = resident;
     LiftParams Pv = *P;
-    void* args[] = {(void*)&x, (void*)&b, (void*)&g, (void*)&d, (void*)&tile, (void*)&Pv};
-    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_fwd_kernel<T>,
+    banded::MxuMats Mv = *M;
+    void* args[] = {(void*)&x, (void*)&b,    (void*)&g,  (void*)&d,
+                    (void*)&tile, (void*)&Pv, (void*)&Mv};
+    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_fwd_kernel<T, MXU>,
                                            dim3(info[0]), dim3(THREADS), args, smem,
                                            stream);
     return err ? err : (int)cudaGetLastError();
@@ -429,9 +489,10 @@ int launch_sdeep_fwd(const T* x, void* const* ptrs, int n, int h, int w, int ty,
 
 // ptrs: LL_J, then per deep level (coarse first) hl, lh, hh, reconstruction
 // (the last one is the LL2 scratch), then hl2, lh2, hh2, hl1, lh1, hh1.
-template <typename T>
+template <typename T, bool MXU>
 int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
-                     int tile, int* info, const LiftParams* P, cudaStream_t stream) {
+                     int tile, int* info, const LiftParams* P, const banded::MxuMats* M,
+                     cudaStream_t stream) {
     if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
     T* const* p = reinterpret_cast<T* const*>(ptrs);
     int hs[MAX_DEEP + 1], ws[MAX_DEEP + 1];
@@ -445,16 +506,17 @@ int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int
     }
     T* const* s = p + 1 + 4 * n;
     InvBands<T> b{p[4 * n], s[0], s[1], s[2], s[3], s[4], s[5], out};
-    const size_t smem = std::max(inv_smem<T>(ty, tx), deep_smem<T>(tile));
+    const size_t smem = std::max(inv_smem<T, MXU>(ty, tx, *M), deep_smem<T>(tile));
     Strips g;
     int resident = 0;
-    int err = plan(sdeep_inv_kernel<T>, smem, h, w, ty, tx, &g, &resident);
+    int err = plan(sdeep_inv_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
     info[0] = grid_for(g, d, tile, resident);
     info[1] = resident;
     LiftParams Pv = *P;
-    void* args[] = {(void*)&b, (void*)&g, (void*)&d, (void*)&tile, (void*)&Pv};
-    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_inv_kernel<T>,
+    banded::MxuMats Mv = *M;
+    void* args[] = {(void*)&b, (void*)&g, (void*)&d, (void*)&tile, (void*)&Pv, (void*)&Mv};
+    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_inv_kernel<T, MXU>,
                                            dim3(info[0]), dim3(THREADS), args, smem,
                                            stream);
     return err ? err : (int)cudaGetLastError();
@@ -491,29 +553,64 @@ int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int
     extern "C" int dwt_sfwd2_##SUF(const T* x, T* ll2, T* hl2, T* lh2, T* hh2,      \
                                    T* hl1, T* lh1, T* hh1, int h, int w, int ty,   \
                                    int tx, const LiftParams* P, void* stream) {    \
-        return launch_sfwd2<T>(x, FwdBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1},  \
-                               h, w, ty, tx, P, (cudaStream_t)stream);             \
+        return launch_sfwd2<T, false>(x, FwdBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, \
+                                                     hh1},                         \
+                                      h, w, ty, tx, P, &NO_MATS,                   \
+                                      (cudaStream_t)stream);                       \
     }                                                                              \
     extern "C" int dwt_sinv2_##SUF(const T* ll2, const T* hl2, const T* lh2,        \
                                    const T* hh2, const T* hl1, const T* lh1,       \
                                    const T* hh1, T* out, int h, int w, int ty,     \
                                    int tx, const LiftParams* P, void* stream) {    \
-        return launch_sinv2<T>(                                                    \
+        return launch_sinv2<T, false>(                                             \
             InvBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, h, w, ty, tx, P,  \
-            (cudaStream_t)stream);                                                 \
+            &NO_MATS, (cudaStream_t)stream);                                       \
     }                                                                              \
     extern "C" int dwt_sdeep_fwd_##SUF(const T* x, void* const* ptrs, int n, int h, \
                                        int w, int ty, int tx, int tile, int* info, \
                                        const LiftParams* P, void* stream) {        \
-        return launch_sdeep_fwd<T>(x, ptrs, n, h, w, ty, tx, tile, info, P,        \
-                                   (cudaStream_t)stream);                          \
+        return launch_sdeep_fwd<T, false>(x, ptrs, n, h, w, ty, tx, tile, info, P, \
+                                          &NO_MATS, (cudaStream_t)stream);         \
     }                                                                              \
     extern "C" int dwt_sdeep_inv_##SUF(T* out, void* const* ptrs, int n, int h,     \
                                        int w, int ty, int tx, int tile, int* info, \
                                        const LiftParams* P, void* stream) {        \
-        return launch_sdeep_inv<T>(out, ptrs, n, h, w, ty, tx, tile, info, P,      \
-                                   (cudaStream_t)stream);                          \
+        return launch_sdeep_inv<T, false>(out, ptrs, n, h, w, ty, tx, tile, info,  \
+                                          P, &NO_MATS, (cudaStream_t)stream);      \
     }
 
 LIBDWT_STREAMED(f32, float)
 LIBDWT_STREAMED(i32, int)
+
+// The banded body (B13), float32 only: the same arguments, then the
+// matrices (ops/banded.py kernel_mats).
+extern "C" int dwt_sfwd2_mxu_f32(const float* x, float* ll2, float* hl2, float* lh2,
+                                 float* hh2, float* hl1, float* lh1, float* hh1, int h,
+                                 int w, int ty, int tx, const LiftParams* P,
+                                 const banded::MxuMats* M, void* stream) {
+    return launch_sfwd2<float, true>(x, FwdBands<float>{ll2, hl2, lh2, hh2, hl1, lh1, hh1},
+                                     h, w, ty, tx, P, M, (cudaStream_t)stream);
+}
+extern "C" int dwt_sinv2_mxu_f32(const float* ll2, const float* hl2, const float* lh2,
+                                 const float* hh2, const float* hl1, const float* lh1,
+                                 const float* hh1, float* out, int h, int w, int ty, int tx,
+                                 const LiftParams* P, const banded::MxuMats* M,
+                                 void* stream) {
+    return launch_sinv2<float, true>(
+        InvBands<float>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, h, w, ty, tx, P, M,
+        (cudaStream_t)stream);
+}
+extern "C" int dwt_sdeep_fwd_mxu_f32(const float* x, void* const* ptrs, int n, int h,
+                                     int w, int ty, int tx, int tile, int* info,
+                                     const LiftParams* P, const banded::MxuMats* M,
+                                     void* stream) {
+    return launch_sdeep_fwd<float, true>(x, ptrs, n, h, w, ty, tx, tile, info, P, M,
+                                         (cudaStream_t)stream);
+}
+extern "C" int dwt_sdeep_inv_mxu_f32(float* out, void* const* ptrs, int n, int h, int w,
+                                     int ty, int tx, int tile, int* info,
+                                     const LiftParams* P, const banded::MxuMats* M,
+                                     void* stream) {
+    return launch_sdeep_inv<float, true>(out, ptrs, n, h, w, ty, tx, tile, info, P, M,
+                                         (cudaStream_t)stream);
+}

@@ -180,22 +180,40 @@ __device__ void fwd2_load(const T* x, T* s1, int h, int w, int y0, int x0, int t
     }
 }
 
+// The polyphase 2-D lift of a whole window (rows x cols, row stride cols)
+// of a two-level tile, in place, for level 1 or 2: forward rows, columns,
+// scale; inverse scale, columns, rows.  The banded body (banded.cuh
+// MxuLift) has the same interface.
+template <typename T>
+struct PolyLift {
+    const LiftParams& P;
+    __device__ void fwd(T* s, int rows, int cols, int) const {
+        lift_tile(s, rows, cols, cols, P, true);
+        lift_tile(s, rows, cols, cols, P, false);
+        scale_tile(s, rows, cols, cols, P);
+    }
+    __device__ void inv(T* s, int rows, int cols, int) const {
+        scale_tile(s, rows, cols, cols, P);
+        lift_tile(s, rows, cols, cols, P, false);
+        lift_tile(s, rows, cols, cols, P, true);
+    }
+};
+
 // Lift a loaded forward tile -> HL1/LH1/HH1 of its core -> LL1 with halo 4
 // -> rewrite the LL1 halo past the bottom/right image edge whole-point
 // (the signal-domain mirror induces a HALF-point mirror on LL1 there; the
 // oracle extends LL1 whole-point around its own last sample; the top/left
 // need no fix: streamed.py:485-490) -> lift LL1 -> the four level-2 bands.
-// ll2 may be a scratch buffer.  Ends with a barrier.
-template <typename T>
-__device__ void fwd2_compute(T* s1, T* s2, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1,
-                             T* lh1, T* hh1, int h, int w, int y0, int x0, int ty,
-                             int tx, int hy, const LiftParams& P) {
+// ll2 may be a scratch buffer.  ``lift`` lifts a whole window (PolyLift or
+// the banded body).  Ends with a barrier.
+template <typename T, typename Lift>
+__device__ void fwd2_lifted(T* s1, T* s2, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1,
+                            T* lh1, T* hh1, int h, int w, int y0, int x0, int ty,
+                            int tx, int hy, const Lift& lift) {
     const int EY = ty + 2 * hy, EX = tx + 2 * HALO2;
     const int QY = ty / 2, QX = tx / 2;
     const int E1Y = QY + 8, E1X = QX + 8;
-    lift_tile(s1, EY, EX, EX, P, true);
-    lift_tile(s1, EY, EX, EX, P, false);
-    scale_tile(s1, EY, EX, EX, P);
+    lift.fwd(s1, EY, EX, 1);
 
     for (int i = threadIdx.x; i < ty * tx; i += blockDim.x) {
         const int gy = y0 + i / tx, gx = x0 + i % tx;
@@ -229,9 +247,7 @@ __device__ void fwd2_compute(T* s1, T* s2, T* ll2, T* hl2, T* lh2, T* hh2, T* hl
     }
     __syncthreads();
 
-    lift_tile(s2, E1Y, E1X, E1X, P, true);
-    lift_tile(s2, E1Y, E1X, E1X, P, false);
-    scale_tile(s2, E1Y, E1X, E1X, P);
+    lift.fwd(s2, E1Y, E1X, 2);
     for (int i = threadIdx.x; i < QY * QX; i += blockDim.x) {
         const int gy = y0 / 2 + i / QX, gx = x0 / 2 + i % QX;
         if (gy < N && gx < M)
@@ -239,6 +255,14 @@ __device__ void fwd2_compute(T* s1, T* s2, T* ll2, T* hl2, T* lh2, T* hh2, T* hl
                         s2[(4 + i / QX) * E1X + 4 + i % QX]);
     }
     __syncthreads();
+}
+
+template <typename T>
+__device__ void fwd2_compute(T* s1, T* s2, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1,
+                             T* lh1, T* hh1, int h, int w, int y0, int x0, int ty,
+                             int tx, int hy, const LiftParams& P) {
+    fwd2_lifted(s1, s2, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, y0, x0, ty, tx, hy,
+                PolyLift<T>{P});
 }
 
 // Inverse tile of ty x tx output samples: the level-2 coefficients in the
@@ -275,20 +299,18 @@ __device__ void inv2_load(const T* ll2, const T* hl2, const T* lh2, const T* hh2
     }
 }
 
-// Level 2: scale, inverse columns, rows -> LL1 with halo 2; rewrite the LL1
-// rows/columns past the bottom/right edge with the level-1 channel rule
-// s[N+m] = s[N-1-m] (streamed.py:770-775) -> interleave into the level-1
-// tile -> scale, inverse columns, rows -> write.  Ends with a barrier.
-template <typename T>
-__device__ void inv2_compute(T* s2, T* s1, T* out, int h, int w, int y0, int x0,
-                             int ty, int tx, const LiftParams& P) {
+// Level 2: lift (PolyLift: scale, inverse columns, rows) -> LL1 with halo 2;
+// rewrite the LL1 rows/columns past the bottom/right edge with the level-1
+// channel rule s[N+m] = s[N-1-m] (streamed.py:770-775) -> interleave into
+// the level-1 tile -> lift -> write.  Ends with a barrier.
+template <typename T, typename Lift>
+__device__ void inv2_lifted(T* s2, T* s1, T* out, int h, int w, int y0, int x0, int ty,
+                            int tx, const Lift& lift) {
     const int E2Y = ty / 2 + 2 * IH2, E2X = tx / 2 + 2 * IH2;
     const int EY = ty + 2 * IH1, EX = tx + 2 * IH1;
     const int N = h / 2, M = w / 2;
     const int by = y0 / 2 - IH2, bx = x0 / 2 - IH2;
-    scale_tile(s2, E2Y, E2X, E2X, P);
-    lift_tile(s2, E2Y, E2X, E2X, P, false);
-    lift_tile(s2, E2Y, E2X, E2X, P, true);
+    lift.inv(s2, E2Y, E2X, 2);
 
     for (int i = threadIdx.x; i < E2Y * E2X; i += blockDim.x) {
         const int r = i / E2X, c = i % E2X;
@@ -312,15 +334,19 @@ __device__ void inv2_compute(T* s2, T* s1, T* out, int h, int w, int y0, int x0,
         if (((py | px) & 1) == 0) s1[i] = s2[((py >> 1) - by) * E2X + (px >> 1) - bx];
     }
     __syncthreads();
-    scale_tile(s1, EY, EX, EX, P);
-    lift_tile(s1, EY, EX, EX, P, false);
-    lift_tile(s1, EY, EX, EX, P, true);
+    lift.inv(s1, EY, EX, 1);
     for (int i = threadIdx.x; i < ty * tx; i += blockDim.x) {
         const int gy = y0 + i / tx, gx = x0 + i % tx;
         if (gy < h && gx < w)
             out[(size_t)gy * w + gx] = s1[(IH1 + i / tx) * EX + IH1 + i % tx];
     }
     __syncthreads();
+}
+
+template <typename T>
+__device__ void inv2_compute(T* s2, T* s1, T* out, int h, int w, int y0, int x0,
+                             int ty, int tx, const LiftParams& P) {
+    inv2_lifted(s2, s1, out, h, w, y0, x0, ty, tx, PolyLift<T>{P});
 }
 
 }  // namespace tiles

@@ -21,11 +21,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu", "streamed3d.cu")
-HEADERS = ("lifting.cuh", "tiles.cuh", "tiles3.cuh")
+HEADERS = ("lifting.cuh", "tiles.cuh", "tiles3.cuh", "banded.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _MAX_STEPS = 4
+#: most 16-row blocks of one banded pass matrix (windows of <= 256
+#: samples), and the bf16 padding of each shared-memory canvas row:
+#: ``MAX_BLOCKS`` and ``PAD`` in csrc/banded.cuh.
+MXU_MAX_BLOCKS = 16
+MXU_ROW_PAD = 8
 
 
 class LiftParams(ctypes.Structure):
@@ -44,6 +49,32 @@ class LiftParams(ctypes.Structure):
         ("scale", ctypes.c_float * 4),
         ("scale_lo", ctypes.c_float),
         ("scale_hi", ctypes.c_float),
+    ]
+
+
+class BandMat(ctypes.Structure):
+    """Mirror of ``struct BandMat`` in csrc/banded.cuh: one banded pass
+    matrix (window length, contraction window, blocks, canvases, offset of
+    its canvases in the shared copy, and per block its canvas and k0)."""
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("kw", ctypes.c_int),
+        ("nblk", ctypes.c_int),
+        ("ncanvas", ctypes.c_int),
+        ("off", ctypes.c_int),
+        ("canvas", ctypes.c_ubyte * MXU_MAX_BLOCKS),
+        ("k0", ctypes.c_short * MXU_MAX_BLOCKS),
+    ]
+
+
+class MxuMats(ctypes.Structure):
+    """Mirror of ``struct MxuMats`` in csrc/banded.cuh: the four pass
+    matrices of a strip kernel with the banded body, their bf16 canvases
+    on the card laid out as the kernel copies them to shared memory."""
+    _fields_ = [
+        ("data", ctypes.c_void_p),
+        ("elems", ctypes.c_int),
+        ("m", BandMat * 4),
     ]
 
 
@@ -116,6 +147,7 @@ def build_all() -> dict:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PP = ctypes.POINTER(LiftParams)
+_PM = ctypes.POINTER(MxuMats)
 _SIGS = {
     "dwt_fwd2": [_P] * 8 + [_I, _I, _I, _PP, _P],
     "dwt_inv2": [_P] * 8 + [_I, _I, _I, _PP, _P],
@@ -138,26 +170,35 @@ _SIGS = {
     # tx, tile, host int[2] <- (grid, resident blocks)
     "dwt_sdeep_fwd": [_P, _P] + [_I] * 6 + [_P, _PP, _P],
     "dwt_sdeep_inv": [_P, _P] + [_I] * 6 + [_P, _PP, _P],
+    # the banded body (B13) in B8/B10/B11/B12: the same, with the matrices
+    # after the lifting parameters; float32 only
+    "dwt_sfwd2_mxu": [_P] * 8 + [_I] * 4 + [_PP, _PM, _P],
+    "dwt_sinv2_mxu": [_P] * 8 + [_I] * 4 + [_PP, _PM, _P],
+    "dwt_sdeep_fwd_mxu": [_P, _P] + [_I] * 6 + [_P, _PP, _PM, _P],
+    "dwt_sdeep_inv_mxu": [_P, _P] + [_I] * 6 + [_P, _PP, _PM, _P],
 }
+_F32_ONLY = ("dwt_sfwd2_mxu", "dwt_sinv2_mxu", "dwt_sdeep_fwd_mxu", "dwt_sdeep_inv_mxu")
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
               "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu",
               "dwt3_sfwd": "streamed3d.cu", "dwt3_sinv": "streamed3d.cu",
               "dwt_sfwd1": "streamed.cu", "dwt_sinv1": "streamed.cu",
               "dwt_sfwd2": "streamed.cu", "dwt_sinv2": "streamed.cu",
-              "dwt_sdeep_fwd": "streamed.cu", "dwt_sdeep_inv": "streamed.cu"}
+              "dwt_sdeep_fwd": "streamed.cu", "dwt_sdeep_inv": "streamed.cu",
+              **{base: "streamed.cu" for base in _F32_ONLY}}
 _fns: dict = {}
 
 
 def kernel_fn(name: str, suffix: str):
-    """The C entry point ``<name>_<suffix>`` (suffix 'f32' or 'i32'),
-    building and loading the libraries on first use."""
+    """The C entry point ``<name>_<suffix>`` (suffix 'f32' or 'i32'; the
+    banded body's only 'f32'), building and loading the libraries on
+    first use."""
     key = f"{name}_{suffix}"
     if key not in _fns:
         paths = build_all()
         libs = {src: ctypes.CDLL(str(p)) for src, p in paths.items()}
         for base, argtypes in _SIGS.items():
-            for suf in ("f32", "i32"):
+            for suf in ("f32",) if base in _F32_ONLY else ("f32", "i32"):
                 fn = getattr(libs[_SOURCE_OF[base]], f"{base}_{suf}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -399,10 +399,29 @@ def idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", tile: int = TILE1,
                              CH if ext else 0)
 
 
-def dwt2_2level_tiles(x, wavelet, ty: int, tx: int, hy: int = HALO2):
+def _lift2d(t, table, scales, inverse: bool, lift2d):
+    """The 2-D lift of interleaved windows: ``lift2d(t)`` where given (the
+    banded body), else the polyphase steps in place (forward rows,
+    columns, scale; inverse scale, columns, rows)."""
+    if lift2d is not None:
+        return lift2d(t)
+    if inverse:
+        _scale_parity(t, scales)
+        _lift_axis(t, table, -2)
+        _lift_axis(t, table, -1)
+    else:
+        _lift_axis(t, table, -1)
+        _lift_axis(t, table, -2)
+        _scale_parity(t, scales)
+    return t
+
+
+def dwt2_2level_tiles(x, wavelet, ty: int, tx: int, hy: int = HALO2, lift2d=None):
     """Two forward levels on ty x tx tiles with a halo of ``hy`` rows and
     HALO2 columns (the tile algebra of csrc/tiles.cuh fwd2_*, shared by B2
-    and the streamed B8/B11).  Returns (LL2, (HL2, LH2, HH2), (HL1, LH1, HH1))."""
+    and the streamed B8/B11).  Returns (LL2, (HL2, LH2, HH2), (HL1, LH1, HH1)).
+    ``lift2d``: the 2-D lift of a batch of windows, if not the polyphase
+    steps (B13's banded body)."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(x.dtype), False)
     h, w = x.shape
@@ -411,9 +430,7 @@ def dwt2_2level_tiles(x, wavelet, ty: int, tx: int, hy: int = HALO2):
     dev = x.device
     t = _gather(x, _tile_index(ny, ty, ty + 2 * hy, hy, h, dev),
                 _tile_index(nx, tx, tx + 2 * HALO2, HALO2, w, dev))
-    _lift_axis(t, table, -1)
-    _lift_axis(t, table, -2)
-    _scale_parity(t, scales)
+    t = _lift2d(t, table, scales, False, lift2d)
     core = t[..., hy: hy + ty, HALO2: HALO2 + tx]
     n, m = h // 2, w // 2
     bands1 = (_band(core, 0, 1, n, m), _band(core, 1, 0, n, m), _band(core, 1, 1, n, m))
@@ -422,9 +439,7 @@ def dwt2_2level_tiles(x, wavelet, ty: int, tx: int, hy: int = HALO2):
     s2 = t[..., hy - 8: hy - 8 + 2 * (qy + 8): 2, HALO2 - 8: HALO2 - 8 + 2 * (qx + 8): 2]
     s2 = _remirror(s2, n, torch.arange(ny, device=dev) * qy - 4, 2, -2)
     s2 = _remirror(s2, m, torch.arange(nx, device=dev) * qx - 4, 2, -1)
-    _lift_axis(s2, table, -1)
-    _lift_axis(s2, table, -2)
-    _scale_parity(s2, scales)
+    s2 = _lift2d(s2, table, scales, False, lift2d)
     core2 = s2[..., 4: 4 + qy, 4: 4 + qx]
     q, r = h // 4, w // 4
     return (_band(core2, 0, 0, q, r),
@@ -437,9 +452,10 @@ def fused_dwt2_2level_plain(x, wavelet="cdf97", tile: int = TILE2):
     return dwt2_2level_tiles(x, wavelet, tile, tile)
 
 
-def idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty: int, tx: int):
+def idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty: int, tx: int, lift2d=None):
     """Two inverse levels on ty x tx output tiles (the tile algebra of
-    csrc/tiles.cuh inv2_*, shared by B5 and the streamed B10/B12)."""
+    csrc/tiles.cuh inv2_*, shared by B5 and the streamed B10/B12);
+    ``lift2d`` as in :func:`dwt2_2level_tiles`."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(ll2.dtype), True)
     hl1, lh1, hh1 = bands1
@@ -452,9 +468,7 @@ def idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty: int, tx: int):
     y2 = _interleave(ll2, *bands2, n, m)
     s2 = _gather(y2, _tile_index(ny, qy, qy + 16, 8, n, dev),
                  _tile_index(nx, qx, qx + 16, 8, m, dev))
-    _scale_parity(s2, scales)
-    _lift_axis(s2, table, -2)
-    _lift_axis(s2, table, -1)
+    s2 = _lift2d(s2, table, scales, True, lift2d)
     # LL1 past the bottom/right edge: level-1 channel rule s[N+m] = s[N-1-m]
     s2 = _remirror(s2, n, torch.arange(ny, device=dev) * qy - 8, 1, -2)
     s2 = _remirror(s2, m, torch.arange(nx, device=dev) * qx - 8, 1, -1)
@@ -463,9 +477,7 @@ def idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty: int, tx: int):
     t = _gather(y1, _tile_index(ny, ty, ty + 2 * HALO, HALO, h, dev),
                 _tile_index(nx, tx, tx + 2 * HALO, HALO, w, dev))
     t[..., 0::2, 0::2] = s2[..., 6: 6 + ty // 2 + HALO, 6: 6 + tx // 2 + HALO]
-    _scale_parity(t, scales)
-    _lift_axis(t, table, -2)
-    _lift_axis(t, table, -1)
+    t = _lift2d(t, table, scales, True, lift2d)
     return _assemble(t[..., HALO: HALO + ty, HALO: HALO + tx], h, w)
 
 
@@ -512,12 +524,14 @@ def _suffix(dtype) -> str:
     raise TypeError(f"the CUDA kernels take float32 or int32, got {dtype}")
 
 
-def _launch(kid: str, fn_name: str, dtype, wavelet, inverse, args, device):
+def _launch(kid: str, fn_name: str, dtype, wavelet, inverse, args, device, extra=()):
+    """Launch ``fn_name`` with ``args``, the lifting parameters, ``extra``
+    (the banded body's matrices) and the current stream; count it."""
     fn = _cuda.kernel_fn(fn_name, _suffix(dtype))
     params = _lift_params(wavelet, dtype == torch.int32, inverse)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.byref(params), stream)
+        err = fn(*args, ctypes.byref(params), *extra, stream)
     _cuda.check(err, KERNELS[kid].name)
     KERNELS[kid].launches += 1
 

@@ -21,11 +21,15 @@ Ported kernels (TPU kernel ids of ROADMAP section B):
                                  cooperative launch: strips, then the deep
                                  levels on an L2-resident LL2)
   B12 streamed_waverec2_deep  -> csrc/streamed.cu dwt_sdeep_inv_*
+  B13 banded.apply_packed     -> csrc/banded.cuh, the ``body='mxu'`` strip
+                                 body of B8/B10/B11/B12 (dwt_*_mxu_f32)
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
 its plain version, with the same strip and tile decomposition, for a CPU
-tensor.  Only the polyphase ('poly') body is ported: ``body='mxu'`` (B13)
-raises ``NotImplementedError``, and the inverse's ``'auto'`` resolves to
-``'poly'`` at every size (see :func:`_resolve_inv_body`).
+tensor.  ``body='mxu'`` (float32, symmetric-step wavelets) lifts the
+strips with the banded-matmul body of :mod:`libdwt_torch.ops.banded`; the
+deep levels of B11/B12 stay polyphase, as in the reference.  The
+inverse's ``'auto'`` resolves to ``'poly'`` at every size (see
+:func:`_resolve_inv_body`).
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ import ctypes
 import torch
 
 from libdwt_torch.models.wavelets import get_wavelet
+from libdwt_torch.ops import banded
+from libdwt_torch.ops.banded import mxu_supported
 from libdwt_torch.ops.fused import (CFIX, CH, HALO, HALO2, KERNELS, TILE1,
                                     _DEEP_VMEM_LIMIT, KernelStat,
                                     _check_boundary_rows, _check_fused_supported,
@@ -79,6 +85,10 @@ KERNELS.update({
                       "libdwt_tpu/ops/streamed.py:924"),
     "B12": KernelStat("B12", "streamed_waverec2_deep", "libdwt_torch/csrc/streamed.cu",
                       "libdwt_tpu/ops/streamed.py:1154"),
+    # counts every launch that runs the banded body; the host kernel (B8,
+    # B10, B11 or B12) counts the same launch too
+    "B13": KernelStat("B13", "banded_apply_packed", "libdwt_torch/csrc/banded.cuh",
+                      "libdwt_tpu/ops/banded.py:389"),
 })
 
 #: (grid, co-resident blocks) of the last cooperative launch of B11 / B12.
@@ -163,37 +173,30 @@ def streamed_deep_ok(shape, dtype_itemsize: int, wavelet, level: int,
     return min(qh, qw) >> (level - 3) > 2 * HALO
 
 
-def mxu_supported(wavelet, dtype) -> bool:
-    """The reference's gate of its banded-matmul body (B13): float32 and a
-    symmetric-step wavelet."""
-    return dtype == torch.float32 and fused_supported(wavelet)
-
-
-def mxu_not_ported():
-    raise NotImplementedError(
-        "body='mxu' (the banded-matmul body, ROADMAP.md section B row B13) is "
-        "not ported to the GPU yet; use body='poly'"
-    )
-
-
-def _check_body(body: str) -> None:
+def _check_body(body: str, wavelet, dtype) -> None:
+    """The reference's body checks, in its order and with its error class:
+    'mxu' needs float32 and a symmetric-step wavelet; anything but 'poly'
+    or 'mxu' is unknown."""
     if body == "mxu":
-        mxu_not_ported()
-    if body != "poly":
+        if not mxu_supported(wavelet, dtype):
+            raise ValueError("body='mxu' needs a float32 symmetric wavelet")
+    elif body != "poly":
         raise ValueError(f"unknown kernel body {body!r}")
 
 
-def _resolve_inv_body(body: str) -> str:
-    """Inverse body choice.  The reference resolves ``'auto'`` to its
-    banded-matmul body only where its TPU compiler cannot build the
-    polyphase synthesis (above 6 Mpix, float32), and keeps the exact
-    polyphase body everywhere else.  CUDA has no such limit, so here
-    ``'auto'`` is ``'poly'`` at every size: the port's streamed inverse
-    rounds like poly (~1e-6) where the reference's 4K float32 inverse
-    rounds at ~2e-4..5e-4."""
+def _resolve_inv_body(body: str, wavelet, dtype) -> str:
+    """Inverse body choice.  ``'auto'`` is ``'poly'`` at every size; an
+    explicit 'poly' or 'mxu' is checked and kept.  The reference's own rule
+    keeps its exact polyphase body wherever it compiles and takes the
+    banded body only where its TPU compiler cannot build the polyphase
+    synthesis (above 6 Mpix, float32).  CUDA builds the polyphase body at
+    every size, so the same rule gives 'poly' here, and the port's streamed
+    inverse rounds like poly (about 1e-6) by default.  The banded body
+    (B13) runs where a caller names it: ``body='mxu'`` or
+    ``impl='streamed-mxu'``."""
     if body == "auto":
         return "poly"
-    _check_body(body)
+    _check_body(body, wavelet, dtype)
     return body
 
 
@@ -280,48 +283,83 @@ def streamed_idwt2_level_plain(ll, hl, lh, hh, wavelet="cdf97", ty: int = STRIP_
     return idwt2_level_tiles(ll, hl, lh, hh, wavelet, ty, tx, ext)
 
 
+def _window_lift(wavelet, body: str, inverse: bool):
+    """The strips' 2-D window lift of a plain version: None (the polyphase
+    steps) or the banded body's plain version."""
+    if body != "mxu":
+        return None
+    fn = banded.synthesis2d_packed if inverse else banded.analysis2d_packed
+    return lambda t: fn(t, wavelet)
+
+
 def streamed_dwt2_2level_plain(x, wavelet="cdf97", ty: int = STRIP_TY,
-                               tx: int = STRIP_TX):
+                               tx: int = STRIP_TX, body: str = "poly"):
     """Plain version of B8: the strips of ty x tx samples with their
-    TOP2-row and HALO2-column halos."""
-    return dwt2_2level_tiles(x, wavelet, ty, tx, TOP2)
+    TOP2-row and HALO2-column halos; ``body='mxu'`` lifts them with the
+    banded body (B13)."""
+    return dwt2_2level_tiles(x, wavelet, ty, tx, TOP2, _window_lift(wavelet, body, False))
 
 
 def streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet="cdf97",
-                                ty: int = STRIP_TY, tx: int = STRIP_TX):
-    """Plain version of B10."""
-    return idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty, tx)
+                                ty: int = STRIP_TY, tx: int = STRIP_TX,
+                                body: str = "poly"):
+    """Plain version of B10 (``body`` as in B8's)."""
+    return idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty, tx,
+                              _window_lift(wavelet, body, True))
 
 
 def streamed_wavedec2_deep_plain(x, wavelet="cdf97", level: int = 3,
                                  ty: int = STRIP_TY, tx: int = STRIP_TX,
-                                 tile: int = TILE1):
+                                 tile: int = TILE1, body: str = "poly"):
     """Plain version of B11: B8's strips, then the per-level tiles of the
-    deep levels on LL2."""
-    ll2, b2, b1 = streamed_dwt2_2level_plain(x, wavelet, ty, tx)
+    deep levels on LL2 (polyphase whatever the strips' body)."""
+    ll2, b2, b1 = streamed_dwt2_2level_plain(x, wavelet, ty, tx, body)
     return fused_deep_wavedec2_plain(ll2, wavelet, level - 2, tile) + [b2, b1]
 
 
 def streamed_waverec2_deep_plain(coeffs, wavelet="cdf97", ty: int = STRIP_TY,
-                                 tx: int = STRIP_TX, tile: int = TILE1):
+                                 tx: int = STRIP_TX, tile: int = TILE1,
+                                 body: str = "poly"):
     """Plain version of B12: the deep inverse levels up to LL2, then B10's
     strips."""
     ll2 = fused_deep_waverec2_plain(list(coeffs[:-2]), wavelet, tile)
-    return streamed_idwt2_2level_plain(ll2, coeffs[-2], coeffs[-1], wavelet, ty, tx)
+    return streamed_idwt2_2level_plain(ll2, coeffs[-2], coeffs[-1], wavelet, ty, tx, body)
 
 
 # ------------------------------------------------------------ CUDA launches
 
 
+def _launch_body(kid: str, fn_name: str, dtype, wavelet, inverse, args, device,
+                 body: str, ty: int, tx: int) -> None:
+    """Launch a two-level strip kernel with its body: 'poly', or 'mxu' (the
+    ``_mxu`` entry point with the banded matrices of this wavelet, direction
+    and strip; counted under B13 as well as ``kid``)."""
+    if body != "mxu":
+        _launch(kid, fn_name, dtype, wavelet, inverse, args, device)
+        return
+    mats = banded.kernel_mats(wavelet, inverse, ty, tx, device)
+    _launch(kid, fn_name + "_mxu", dtype, wavelet, inverse, args, device,
+            extra=[ctypes.byref(mats)])
+    KERNELS["B13"].launches += 1
+
+
 def _launch_coop(kid: str, fn_name: str, dtype, wavelet, inverse, first, ptrs,
-                 args, device) -> None:
+                 args, device, body: str, ty: int, tx: int) -> None:
     """A cooperative launch: ``first`` (the frame in or out), then ``ptrs``
     as a host pointer array; the grid it ran and the co-resident limit
     land in LAST_GRID[kid]."""
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     info = (ctypes.c_int * 2)()
-    _launch(kid, fn_name, dtype, wavelet, inverse, [first, arr] + args + [info], device)
+    _launch_body(kid, fn_name, dtype, wavelet, inverse, [first, arr] + args + [info],
+                 device, body, ty, tx)
     LAST_GRID[kid] = (info[0], info[1])
+
+
+def _count(kids, body: str) -> None:
+    """Count a wrapper call on either device (and B13's, for the banded
+    body)."""
+    for kid in kids + (("B13",) if body == "mxu" else ()):
+        KERNELS[kid].calls += 1
 
 
 def _deep_shapes(cy2: int, cx2: int, n: int):
@@ -408,7 +446,9 @@ def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "p
                          ty: int = STRIP_TY, tx: int = STRIP_TX):
     """TWO forward levels in one streamed pass (B8).  Returns (LL2, (HL2,
     LH2, HH2), (HL1, LH1, HH1)); needs h, w divisible by 4.  Ragged last
-    strips are taken, as the reference takes them in interpret mode."""
+    strips are taken, as the reference takes them in interpret mode.
+    ``body='mxu'``: the strips lift with the banded-matmul body (B13;
+    float32, bf16-split, about 1e-5 from the polyphase body)."""
     wavelet = get_wavelet(wavelet)
     _check_fused_supported(wavelet)
     if x.ndim != 2:
@@ -416,18 +456,18 @@ def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "p
     h, w = x.shape
     if h % 4 or w % 4:
         raise ValueError("needs h, w divisible by 4")
-    _check_body(body)
+    _check_body(body, wavelet, x.dtype)
     _fwd2_geometry(h, strip_rows)
     _check_tile(ty, tx)
     _check_inputs("streamed_dwt2_2level", ty, x)
-    KERNELS["B8"].calls += 1
+    _count(("B8",), body)
     if not x.is_cuda:
-        return streamed_dwt2_2level_plain(x, wavelet, ty, tx)
+        return streamed_dwt2_2level_plain(x, wavelet, ty, tx, body)
     x = x.contiguous()
     q = [_empty((h // 4, w // 4), x) for _ in range(4)]
     b = [_empty((h // 2, w // 2), x) for _ in range(3)]
-    _launch("B8", "dwt_sfwd2", x.dtype, wavelet, False,
-            _ptrs(x, *q, *b) + [h, w, ty, tx], x.device)
+    _launch_body("B8", "dwt_sfwd2", x.dtype, wavelet, False,
+                 _ptrs(x, *q, *b) + [h, w, ty, tx], x.device, body, ty, tx)
     return q[0], (q[1], q[2], q[3]), (b[0], b[1], b[2])
 
 
@@ -441,20 +481,20 @@ def streamed_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", strip_rows: int 
     h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
     if h % 4 or w % 4:
         raise ValueError("needs h, w divisible by 4")
-    _resolve_inv_body(body)
+    body = _resolve_inv_body(body, wavelet, ll2.dtype)
     ins = [ll2, *bands2, *bands1]
     if [tuple(a.shape) for a in ins] != [(h // 4, w // 4)] * 4 + [(h // 2, w // 2)] * 3:
         raise ValueError("band shapes do not chain into a two-level pyramid")
     _inv2_geometry(h, strip_rows, deep=False)
     _check_tile(ty, tx)
     _check_inputs("streamed_idwt2_2level", ty, *ins)
-    KERNELS["B10"].calls += 1
+    _count(("B10",), body)
     if not ll2.is_cuda:
-        return streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet, ty, tx)
+        return streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet, ty, tx, body)
     ins = [a.contiguous() for a in ins]
     out = _empty((h, w), ll2)
-    _launch("B10", "dwt_sinv2", ll2.dtype, wavelet, True,
-            _ptrs(*ins, out) + [h, w, ty, tx], ll2.device)
+    _launch_body("B10", "dwt_sinv2", ll2.dtype, wavelet, True,
+                 _ptrs(*ins, out) + [h, w, ty, tx], ll2.device, body, ty, tx)
     return out
 
 
@@ -474,7 +514,7 @@ def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int =
         raise ValueError("use streamed_dwt2_2level for level <= 2")
     if h % 4 or w % 4:
         raise ValueError("needs h, w divisible by 4")
-    _check_body(body)
+    _check_body(body, wavelet, x.dtype)
     _fwd2_geometry(h, strip_rows)
     cy2, cx2 = h // 4, w // 4
     if (cy2 + 8) * (cx2 + 8) * x.element_size() > _DEEP_VMEM_LIMIT:
@@ -484,9 +524,9 @@ def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int =
         raise ValueError("too many levels for this size")
     _check_tile(ty, tx)
     _check_inputs("streamed_wavedec2_deep", tile, x)
-    KERNELS["B11"].calls += 1
+    _count(("B11",), body)
     if not x.is_cuda:
-        return streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx, tile)
+        return streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx, tile, body)
     x = x.contiguous()
     ll2 = _empty((cy2, cx2), x)
     b2 = [_empty((cy2, cx2), x) for _ in range(3)]
@@ -500,7 +540,7 @@ def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int =
         ptrs += _ptrs(*lvl)
         ch, cw = ny_, nx_
     _launch_coop("B11", "dwt_sdeep_fwd", x.dtype, wavelet, False, x.data_ptr(), ptrs,
-                 [n, h, w, ty, tx, tile], x.device)
+                 [n, h, w, ty, tx, tile], x.device, body, ty, tx)
     return [deep[-1][3]] + [lvl[:3] for lvl in deep[::-1]] + [tuple(b2), tuple(b1)]
 
 
@@ -546,21 +586,26 @@ def streamed_waverec2_deep(coeffs, wavelet="cdf97", strip_rows: int = 0,
         if got != want:
             raise ValueError(f"streamed deep inverse: coarse triple shapes {got} do "
                              f"not match the {th}x{tw} level ({want})")
-    _resolve_inv_body(body)
+    body = _resolve_inv_body(body, wavelet, hl1.dtype)
     _inv2_geometry(h, strip_rows, deep=True)
     _check_tile(ty, tx)
     flat = [coeffs[0]] + [b for lvl in coeffs[1:] for b in lvl]
     _check_inputs("streamed_waverec2_deep", tile, *flat)
-    KERNELS["B12"].calls += 1
+    _count(("B12",), body)
     if not hl1.is_cuda:
-        return streamed_waverec2_deep_plain(coeffs, wavelet, ty, tx, tile)
+        return streamed_waverec2_deep_plain(coeffs, wavelet, ty, tx, tile, body)
     flat = [a.contiguous() for a in flat]
+    # the deep levels' reconstructions (the last is the LL2 scratch), held
+    # until the launch is enqueued: a buffer freed before it could be handed
+    # to the next allocation (the banded body's matrices) and overwritten
+    scratch = [_empty(sizes[n - 1 - k], hl1) for k in range(n)]
     ptrs = _ptrs(flat[0])
     for k in range(n):  # coarse first: the level's bands, then its output
-        ptrs += _ptrs(*flat[1 + 3 * k: 4 + 3 * k], _empty(sizes[n - 1 - k], hl1))
+        ptrs += _ptrs(*flat[1 + 3 * k: 4 + 3 * k], scratch[k])
     out = _empty((h, w), hl1)
     _launch_coop("B12", "dwt_sdeep_inv", hl1.dtype, wavelet, True, out.data_ptr(),
-                 ptrs + _ptrs(*flat[-6:]), [n, h, w, ty, tx, tile], hl1.device)
+                 ptrs + _ptrs(*flat[-6:]), [n, h, w, ty, tx, tile], hl1.device, body,
+                 ty, tx)
     return out
 
 

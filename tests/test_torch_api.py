@@ -112,13 +112,16 @@ def test_auto_never_routes_to_unported_kernels():
     api.dwt2(x, "cdf97")
     assert all(s.calls == 0 for s in tf.KERNELS.values())
     # an explicit 'streamed' is honoured; 'streamed-mxu' passes the
-    # reference's float32 gate, and the banded body (B13) itself raises
+    # reference's float32 gate and runs the banded body (B13)
     assert pick(1024, 1024, impl="streamed") == "streamed"
     assert pick(1024, 1024, impl="streamed-mxu") == "streamed-mxu"
     with pytest.raises(ValueError, match="float32 symmetric"):
         pick(1024, 1024, impl="streamed-mxu", dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B13"):
-        api.wavedec2(x, "cdf97", 3, impl="streamed-mxu")
+    xr = np.random.default_rng(4).random((512, 512), dtype=np.float32)
+    tf.reset_counters()
+    got = api.wavedec2(torch.from_numpy(xr), "cdf97", 3, impl="streamed-mxu")
+    assert {k: s.calls for k, s in tf.KERNELS.items() if s.calls} == {"B11": 1, "B13": 1}
+    _close(got, js.wavedec2(xr, "cdf97", 3), 2e-4)
 
 
 def test_numpy_input_without_cuda_raises(monkeypatch):

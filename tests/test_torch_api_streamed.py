@@ -134,20 +134,23 @@ def test_streamed_dispatch_rules():
         pick(2144, 4096, "streamed", wavelet="d4")
     with pytest.raises(ValueError, match="streamed impl needs"):
         pick(64, 64, "streamed-mxu")  # the geometry check comes first
-    # then the reference's float32 gate of the banded body; the body itself
-    # (B13) raises only where a pyramid would run it
+    # then the reference's float32 gate of the banded body, which the
+    # pyramids then run (B13 in B8 / B11, and in B12)
     assert pick(2144, 4096, "streamed-mxu") == "streamed-mxu"
     with pytest.raises(ValueError, match="float32 symmetric"):
         api._pick_impl(2144, 4096, "cdf97", "streamed-mxu", True, torch.int32, 2)
     with pytest.raises(ValueError):
         japi._pick_impl(2144, 4096, "cdf97", "streamed-mxu", np.int32, levels=2)
-    x = torch.zeros(256, 320)
-    for level in (2, 4):  # B8 / B11 would run the body
-        with pytest.raises(NotImplementedError, match="B13"):
-            api.wavedec2(x, "cdf97", level, impl="streamed-mxu")
-    c = ts.streamed_wavedec2(x, "cdf97", 4)
-    with pytest.raises(NotImplementedError, match="B13"):
-        api.waverec2(c, "cdf97", impl="streamed-mxu")
+    x = torch.from_numpy(np.random.default_rng(3).random((256, 320), dtype=np.float32))
+    for level, kid in ((2, "B8"), (4, "B11")):
+        tf.reset_counters()
+        got = api.wavedec2(x, "cdf97", level, impl="streamed-mxu")
+        assert _calls() == {kid: 1, "B13": 1}
+        assert len(got) == level + 1
+    tf.reset_counters()
+    rec = api.waverec2(got, "cdf97", impl="streamed-mxu")
+    assert _calls() == {"B12": 1, "B13": 1}
+    np.testing.assert_allclose(rec.numpy(), x.numpy(), atol=5e-4, rtol=0)
 
 
 def test_single_streamed_levels_not_ported():

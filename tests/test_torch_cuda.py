@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, each held against its plain version
-(B1-B6 2-D, B7-B12 streamed 2-D, B14-B17 3-D).
+(B1-B6 2-D, B7-B12 streamed 2-D, B13 the banded body in B8/B10/B11/B12,
+B14-B17 3-D).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports torch, numpy and the port only (no JAX), so it also runs on a
@@ -9,7 +10,8 @@ GPU machine that has no JAX installed:
 
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
-int32 bit-exactly.  The shapes cover several tiles with short last tiles,
+int32 bit-exactly; the banded body to 2e-5 (the tensor cores sum in
+another order than the plain version's matrix products).  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
 extended-rows contracts of the single levels (4 rows fused, 8 streamed),
 2-D and 3-D tiles whose shared memory exceeds the 48 KB default, streamed
@@ -374,10 +376,17 @@ def test_streamed_pyramid_on_card_matches_oracle(cuda_device):
         for a, b in zip(_leaves(coeffs), _leaves(sep.wavedec2(x, "cdf97", level))):
             assert a.shape == b.shape and float((a - b).abs().max()) <= 5e-4
         assert float((rec - x).abs().max()) <= 1e-3
-    with pytest.raises(NotImplementedError, match="B13"):
-        api.wavedec2(x, "cdf97", 5, impl="streamed-mxu")
-    with pytest.raises(NotImplementedError, match="B13"):
-        api.waverec2(coeffs, "cdf97", impl="streamed-mxu")
+    # the banded body (B13) runs in the same kernels under 'streamed-mxu'
+    for level, kids in ((5, {"B11": 1, "B12": 1, "B13": 2}),
+                        (2, {"B8": 1, "B10": 1, "B13": 2})):
+        tf.reset_counters()
+        coeffs = api.wavedec2(x, "cdf97", level, impl="streamed-mxu")
+        rec = api.waverec2(coeffs, "cdf97", impl="streamed-mxu")
+        torch.cuda.synchronize()
+        assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == kids
+        for a, b in zip(_leaves(coeffs), _leaves(sep.wavedec2(x, "cdf97", level))):
+            assert a.shape == b.shape and float((a - b).abs().max()) <= 5e-4
+        assert float((rec - x).abs().max()) <= 5e-4
 
 
 SINGLE = [
@@ -481,3 +490,82 @@ def test_streamed_levels_and_volume_on_card_match_oracle(cuda_device):
     for got_l, want_l in zip(c3[1:], want[1:]):
         assert max(float((got_l[k] - want_l[k]).abs().max()) for k in want_l) <= 5e-4
     assert float((r3 - v).abs().max()) <= 1e-3
+
+
+def _close_mxu(got, want):
+    """The banded body against its plain version: finite, within 2e-5."""
+    g, w = _leaves(got), _leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_cuda
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 2e-5
+
+
+MXU_STREAMED = [
+    # (h, w, wavelet, ty, tx): ragged last strips (260, 204, 200 rows) and
+    # bands (132, 100 columns), short quarter tails; every window is padded
+    # to 16 (88, 40, 72, 44, ... samples); 64x96 strips take 224 KB
+    (260, 128, "cdf97", 64, 64),
+    (204, 132, "cdf97", 32, 48),
+    (512, 384, "cdf53", 64, 96),
+    (256, 256, "haar", 64, 64),
+    (200, 100, "interp53", 16, 20),
+    (288, 128, "cdf97", 16, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,wavelet,ty,tx", MXU_STREAMED)
+def test_b13_in_b8_b10_matches_plain(cuda_device, h, w, wavelet, ty, tx):
+    x = _img(h, w, torch.float32, cuda_device, seed=20)
+    tf.reset_counters()
+    c2 = ts.streamed_dwt2_2level(x, wavelet, body="mxu", ty=ty, tx=tx)
+    _close_mxu(list(c2), list(ts.streamed_dwt2_2level_plain(x, wavelet, ty, tx, body="mxu")))
+    rec = ts.streamed_idwt2_2level(*c2, wavelet, body="mxu", ty=ty, tx=tx)
+    _close_mxu(rec, ts.streamed_idwt2_2level_plain(*c2, wavelet, ty, tx, body="mxu"))
+    torch.cuda.synchronize()
+    assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
+        "B8": 1, "B10": 1, "B13": 2}
+    assert float((rec - x).abs().max()) <= 5e-4
+
+
+MXU_DEEP = [
+    (256, 320, 4, "cdf97", 64, 64),
+    (512, 384, 5, "cdf97", 32, 32),
+    (1036, 128, 3, "cdf97", 64, 64),  # short quarter tail
+    (260, 256, 3, "cdf53", 64, 48),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,level,wavelet,ty,tx", MXU_DEEP)
+def test_b13_in_b11_b12_matches_plain(cuda_device, h, w, level, wavelet, ty, tx):
+    x = _img(h, w, torch.float32, cuda_device, seed=21)
+    tf.reset_counters()
+    d = ts.streamed_wavedec2_deep(x, wavelet, level, body="mxu", ty=ty, tx=tx)
+    _close_mxu(d, ts.streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx, body="mxu"))
+    rec = ts.streamed_waverec2_deep(d, wavelet, body="mxu", ty=ty, tx=tx)
+    _close_mxu(rec, ts.streamed_waverec2_deep_plain(d, wavelet, ty, tx, body="mxu"))
+    torch.cuda.synchronize()
+    assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
+        "B11": 1, "B12": 1, "B13": 2}
+    for kid in ("B11", "B12"):  # the banded body's cooperative grid fits the card
+        grid, resident = ts.LAST_GRID[kid]
+        assert 1 <= grid <= resident
+
+
+@pytest.mark.cuda
+def test_b13_refuses_int32_on_the_card(cuda_device):
+    xi = _img(256, 320, torch.int32, cuda_device, seed=22)
+    tf.reset_counters()
+    with pytest.raises(ValueError, match="float32"):
+        api.wavedec2(xi, "cdf53", 4, impl="streamed-mxu")
+    with pytest.raises(ValueError, match="float32"):
+        ts.streamed_dwt2_2level(xi, "cdf53", body="mxu")
+    c = ts.streamed_wavedec2_deep(xi, "cdf53", 4)
+    with pytest.raises(ValueError, match="float32"):
+        api.waverec2(c, "cdf53", impl="streamed-mxu")
+    with pytest.raises(ValueError, match="float32"):
+        ts.streamed_waverec2_deep(c, "cdf53", body="mxu")
+    assert tf.KERNELS["B13"].launches == 0

@@ -193,13 +193,18 @@ def test_deep_inverse_rejects_bad_pytree():
 
 
 def test_mxu_body_not_ported():
-    x = torch.zeros(256, 256)
-    with pytest.raises(NotImplementedError, match="B13"):
-        ts.streamed_dwt2_2level(x, body="mxu")
-    c = ts.streamed_dwt2_2level(x)
-    with pytest.raises(NotImplementedError, match="B13"):
-        ts.streamed_idwt2_2level(*c, body="mxu")
-    assert ts._resolve_inv_body("auto") == "poly"
+    """Formerly the refusal of the banded body; it is ported now (B13): an
+    explicit body='mxu' runs it, and 'auto' stays 'poly' in the port where
+    the reference takes its banded body at 4K."""
+    x = torch.from_numpy(_rand(256, 256, seed=9))
+    c = ts.streamed_dwt2_2level(x, body="mxu")
+    rec = ts.streamed_idwt2_2level(*c, body="mxu")
+    assert {k: s.calls for k, s in tf.KERNELS.items() if s.calls} == {
+        "B8": 1, "B10": 1, "B13": 2}
+    _close(c, js.wavedec2(x.numpy(), "cdf97", 2), 2e-4)
+    np.testing.assert_allclose(rec.numpy(), x.numpy(), atol=2e-4, rtol=0)
+    assert ts._resolve_inv_body("auto", "cdf97", torch.float32) == "poly"
+    assert ts._resolve_inv_body("mxu", "cdf97", torch.float32) == "mxu"
     # the reference takes its banded body at this size; the port stays poly
     assert jst._resolve_inv_body("auto", "cdf97", jnp.float32, (2144, 4096)) == "mxu"
 
