@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--reps N]
 
 1. Builds every CUDA kernel of the port from ``libdwt_torch/csrc``.
-2. Drives seven paths through the public API, each with the launch
+2. Drives nine paths through the public API, each with the launch
    counts set to 0 just before it and read just after, on data made from
    a numpy seed (CDF 9/7, float32):
    - the 2-D pyramid: ``api.wavedec2`` / ``waverec2``, J=5,
@@ -24,7 +24,17 @@
      ``impl='streamed'`` on 64x512x512, J=2 (B16, B17, twice each);
    - the banded-matmul pyramid: ``api.wavedec2`` / ``waverec2`` with
      ``impl='streamed-mxu'`` on the 2144x4096 frame, J=5 (B11, B12 with
-     their banded body B13) and J=2 (B8, B10 with B13).
+     their banded body B13) and J=2 (B8, B10 with B13);
+   - the sharded path: ``parallel.sharded_wavedec2`` / ``sharded_waverec2``
+     of a 2048x4096 frame, J=5, on a mesh of eight shards of this card
+     with ``halo_impl='rdma'`` (the halo push B18: once per forward level,
+     once per channel per inverse level), exactly equal to the
+     ``'ppermute'`` exchange; then the same frame with ``kernel='fused'``
+     (B1/B4 on every shard and level) and ``kernel='streamed'`` (B7/B9 at
+     levels 1-2, B1/B4 below);
+   - ``api.wavedec2`` / ``waverec2`` with an explicit ``impl='auto'`` on
+     the 2144x4096 frame, J=5: each level re-dispatches, so level 2
+     (1072x2048) takes B1 and B4 once.
 3. Checks each path against the port's separable oracle on the card
    (pyramids <= 5e-4, single levels <= 3e-5, round trips <= 1e-3), the
    reference's bench gates of B1 (int32 CDF 5/3 at 512x512 exact, f32 at
@@ -33,11 +43,21 @@
    plain versions and the oracle), that 'auto' on the CUDA volume takes
    the 3-D kernels, and that the cooperative grids of B11/B12 fit the
    card at once (with either body).  The banded pyramid is held to 5e-4
-   both ways (the reference's own bound for its banded body).
+   both ways (the reference's own bound for its banded body).  The
+   sharded path is held to the oracle within 1e-4 (its kernel bodies
+   5e-4), round trips 1e-3; beside it run the reference's mesh-of-1 gate
+   (``bench.py`` g_sharded_mesh1), batched int32 CDF 5/3 on a (2, 4) mesh
+   (exact) and ``sharded_wavedec3`` of 64x512x512 J=2 on 4 z shards
+   (1e-4).  Every polyphase kernel is run in float64 and equals its plain
+   version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5), and each banded instantiation of B8/B10/B11/B12 against its
-   plain version (<= 2e-5: the tensor cores sum in another order).
+   <= 3e-5), B1/B4/B7/B9 on every input the sharded kernel bodies and the
+   explicit-'auto' pyramid give them (caught by wrapping the wrappers
+   during an extra run of those paths; <= 3e-5), each banded
+   instantiation of B8/B10/B11/B12 against its plain version (<= 2e-5:
+   the tensor cores sum in another order), and B18 at the sharded path's
+   level-1 shapes (exactly).
 5. Times each kernel and its plain version with CUDA events, beside the
    card's bound for the same work, times and profiles the paths, and
    prints the card's name and power limit, a JSON line of kernels, and
@@ -161,6 +181,46 @@ def profile_path(label: str, run, smi: str) -> None:
           f"device busy {busy:.1f} us ({100 * busy / wall_us:.1f}%)")
     for key, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
         print(f"profile   {us:10.1f} us  x{n:<3d} {key[:90]}")
+
+
+#: the single-level kernel wrappers (B1, B4, B7, B9) that the sharded kernel
+#: bodies and the explicit-'auto' pyramid call
+LEVEL_WRAPPERS = ("fused_dwt2_level", "fused_idwt2_level", "streamed_dwt2_level",
+                  "streamed_idwt2_level")
+
+
+def spy_calls(module, names, run):
+    """Runs ``run()`` with ``module.<name>`` wrapped, for each name in
+    ``names``, so that the first call at each distinct set of argument
+    shapes keeps its bound arguments; returns [(name, arguments)] in call
+    order and puts the wrappers back."""
+    import inspect
+
+    kept, seen = [], set()
+    saved = {n: getattr(module, n) for n in names}
+
+    def spy(name, fn):
+        sig = inspect.signature(fn)
+
+        def wrapper(*a, **k):
+            bound = sig.bind(*a, **k)
+            bound.apply_defaults()
+            key = (name, bound.arguments.get("boundary_rows")) + tuple(
+                tuple(v.shape) for v in bound.arguments.values() if hasattr(v, "shape"))
+            if key not in seen:
+                seen.add(key)
+                kept.append((name, dict(bound.arguments)))
+            return fn(*a, **k)
+        return wrapper
+
+    for n, fn in saved.items():
+        setattr(module, n, spy(n, fn))
+    try:
+        run()
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return kept
 
 
 def require(ok: bool, what: str) -> None:
@@ -639,6 +699,205 @@ def main() -> int:
         require(err <= 3e-5, f"{k} kernel vs plain at level 2 ({'x'.join(map(str, ll3.shape))}) "
                 f"max|diff| {err:.3e} <= 3e-5")
 
+    # ---- the sharded path: 2048x4096 f32 CDF 9/7 J=5 on a mesh of eight
+    # shards of this card, halo_impl='rdma' (B18 once per forward level and
+    # once per channel per inverse level); 2144 = 32*67 does not divide into
+    # 8 shards * 2^5, so the frame keeps the width and takes 2048 rows
+    from libdwt_torch.parallel import (make_mesh_2d, sharded_wavedec2, sharded_wavedec3,
+                                       sharded_waverec2, sharded_waverec3)
+    from libdwt_torch.parallel import remote_halo as RH
+
+    HS, NS = 2048, 8
+    card0 = torch.device("cuda", 0)
+    mesh8 = make_mesh_2d(1, NS, devices=[card0] * NS)
+    xsh = torch.from_numpy(rng.random((HS, W), dtype=np.float32)).to(dev)
+    torch.cuda.synchronize()
+    F.reset_counters()
+    shc = sharded_wavedec2(xsh, WV, J, mesh=mesh8, halo_impl="rdma")
+    shr = sharded_waverec2(shc, WV, mesh=mesh8, halo_impl="rdma")
+    torch.cuda.synchronize()
+    sh_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print(f"sharded rdma J={J} launches: " + json.dumps(sh_launches)
+          + f", cooperative (grid, resident blocks): {json.dumps(RH.LAST_GRID)}", flush=True)
+    require(sh_launches == {"B18": 3 * J},
+            f"sharded_wavedec2/waverec2 halo_impl='rdma' J={J} on {NS} shards launched B18 "
+            f"{J} + 2*{J} times")
+    require(all(1 <= g <= r for g, r in RH.LAST_GRID.values()),
+            "B18 cooperative grid fits the card's co-resident blocks")
+    launches["B18"] = sh_launches["B18"]
+    pp = sharded_wavedec2(xsh, WV, J, mesh=mesh8)
+    ppr = sharded_waverec2(pp, WV, mesh=mesh8)
+    require(max_abs(leaves(shc), leaves(pp)) == 0 and max_abs(shr, ppr) == 0,
+            "sharded 'rdma' pyramid and reconstruction == 'ppermute' exactly")
+    require(all(bool(torch.isfinite(a).all()) for a in leaves(shc) + [shr]),
+            "sharded pyramid and reconstruction are finite")
+    want_sh = sep.wavedec2(xsh, WV, J)
+    err = max_abs(leaves(shc), leaves(want_sh))
+    require(err <= 1e-4, f"sharded {HS}x{W} pyramid vs separable oracle max|diff| "
+            f"{err:.3e} <= 1e-4")
+    err = max_abs(shr, xsh)
+    require(err <= 1e-3, f"sharded round trip max|err| {err:.3e} <= 1e-3")
+    # the per-shard kernel bodies: B1/B4 at every level; B7/B9 where the
+    # local block holds >= 2 strips (256 and 128 rows), B1/B4 below
+    kern_launches = {}
+    for kern, expect in (("fused", {"B1": NS * J, "B4": NS * J}),
+                         ("streamed", {"B7": 2 * NS, "B9": 2 * NS, "B1": (J - 2) * NS,
+                                       "B4": (J - 2) * NS})):
+        F.reset_counters()
+        kc = sharded_wavedec2(xsh, WV, J, mesh=mesh8, kernel=kern)
+        kr = sharded_waverec2(kc, WV, mesh=mesh8, kernel=kern)
+        torch.cuda.synchronize()
+        got_l = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+        print(f"sharded kernel='{kern}' J={J} launches: " + json.dumps(got_l), flush=True)
+        require(got_l == expect, f"sharded kernel='{kern}' launched {json.dumps(expect)}")
+        kern_launches[kern] = got_l
+        err = max_abs(leaves(kc), leaves(want_sh))
+        require(err <= 5e-4, f"sharded kernel='{kern}' pyramid vs separable oracle "
+                f"max|diff| {err:.3e} <= 5e-4")
+        err = max_abs(kr, xsh)
+        require(err <= 1e-3, f"sharded kernel='{kern}' round trip max|err| {err:.3e} <= 1e-3")
+    # the reference's mesh-of-1 gate (bench.py g_sharded_mesh1)
+    mesh1 = make_mesh_2d(1, 1, devices=[card0])
+    xs1 = torch.from_numpy(np.random.RandomState(5).rand(1024, 1024).astype(np.float32)).to(dev)
+    want1 = sep.wavedec2(xs1, WV, 2)
+    for kern in ("streamed", "fused"):
+        got1 = sharded_wavedec2(xs1, WV, 2, mesh=mesh1, kernel=kern)
+        err = max_abs(leaves(got1), leaves(want1))
+        require(err <= 5e-4, f"mesh-of-1 kernel='{kern}' 1024x1024 J=2 vs oracle "
+                f"max|diff| {err:.3e} <= 5e-4")
+        err = max_abs(sharded_waverec2(got1, WV, mesh=mesh1, kernel=kern), xs1)
+        require(err <= 1e-3, f"mesh-of-1 kernel='{kern}' round trip max|err| {err:.3e} <= 1e-3")
+
+    def level_vs_plain(label, calls):
+        """Each kept call of B1/B4/B7/B9 against its plain version on the
+        same arguments (<= 3e-5); the kernel's error row takes the worst."""
+        plain = {
+            "fused_dwt2_level": ("B1", F.fused_dwt2_level, lambda a, e: F.dwt2_level_plain(
+                a["x"], a["wavelet"], a["tile"], e)),
+            "fused_idwt2_level": ("B4", F.fused_idwt2_level, lambda a, e: F.idwt2_level_plain(
+                a["ll"], a["hl"], a["lh"], a["hh"], a["wavelet"], a["tile"], e)),
+            "streamed_dwt2_level": ("B7", S.streamed_dwt2_level,
+                                    lambda a, e: S.streamed_dwt2_level_plain(
+                                        a["x"], a["wavelet"], a["ty"], a["tx"],
+                                        S.TOP if e else 0)),
+            "streamed_idwt2_level": ("B9", S.streamed_idwt2_level,
+                                     lambda a, e: S.streamed_idwt2_level_plain(
+                                         a["ll"], a["hl"], a["lh"], a["hh"], a["wavelet"],
+                                         a["ty"], a["tx"], S.TOP if e else 0)),
+        }
+        require(len(calls) > 0, f"the {label} called the level kernels")
+        for name, a in calls:
+            k, kern, pl = plain[name]
+            ext = a["boundary_rows"] == "extended"
+            err = max_abs(leaves(kern(**a)), leaves(pl(a, ext)))
+            torch.cuda.synchronize()
+            errs[k] = max(errs[k], err)
+            shape = "x".join(map(str, a.get("x", a.get("ll")).shape))
+            require(err <= 3e-5, f"{k} kernel vs plain on {'an extended' if ext else 'a'} "
+                    f"{shape} input of the {label} max|diff| {err:.3e} <= 3e-5")
+
+    # each per-shard kernel vs its plain version on the very blocks the
+    # sharded kernel bodies give it: every level's extended block, the
+    # fused fallback's below the strip walk, and the mesh-of-1 gate's
+    from libdwt_torch.parallel import sharded as SH
+
+    def sharded_bodies():
+        for kern in ("fused", "streamed"):
+            for m, a, levels in ((mesh8, xsh, J), (mesh1, xs1, 2)):
+                sharded_waverec2(sharded_wavedec2(a, WV, levels, mesh=m, kernel=kern), WV,
+                                 mesh=m, kernel=kern)
+    level_vs_plain("sharded kernel bodies", spy_calls(SH, LEVEL_WRAPPERS, sharded_bodies))
+    # batched int32 CDF 5/3 over a (2, 4) mesh: bit-exact
+    mesh24 = make_mesh_2d(2, 4, devices=[card0] * 8)
+    xb = torch.from_numpy(np.stack([test_image(512, 256, dtype=np.int32),
+                                    test_image(512, 256, rand=1, dtype=np.int32)])).to(dev)
+    gotb = sharded_wavedec2(xb, "cdf53", 2, mesh=mesh24)
+    require(max_abs(leaves(gotb), leaves(sep.wavedec2(xb, "cdf53", 2))) == 0
+            and max_abs(sharded_waverec2(gotb, "cdf53", mesh=mesh24), xb) == 0,
+            "batched int32 cdf53 2x512x256 J=2 on a (2, 4) mesh == oracle, round trip exact")
+    # the sharded volume: 64x512x512 J=2 over 4 z shards
+    mesh4 = make_mesh_2d(1, 4, devices=[card0] * 4)
+    vsh = sharded_wavedec3(v, WV, J3, mesh=mesh4)
+    err = max_abs(leaves(vsh), leaves(want3))
+    require(err <= 1e-4, f"sharded_wavedec3 {'x'.join(map(str, VOL))} J={J3} on 4 z shards "
+            f"vs oracle max|diff| {err:.3e} <= 1e-4")
+    err = max_abs(sharded_waverec3(vsh, WV, mesh=mesh4), v)
+    require(err <= 1e-3, f"sharded volume round trip max|err| {err:.3e} <= 1e-3")
+    # B18 vs its plain version at the level-1 shapes (8 blocks of 256x4096,
+    # halo 4) and the inverse's channel rules
+    hb = HS // NS
+    b18_blocks = [xsh[i * hb: (i + 1) * hb] for i in range(NS)]
+    errs["B18"] = max_abs(RH.rdma_extend_rows(b18_blocks, 4),
+                          RH.rdma_extend_rows_plain(b18_blocks, 4))
+    for mode in ("s", "d"):
+        errs["B18"] = max(errs["B18"], max_abs(RH.rdma_extend_rows(b18_blocks, 2, mode),
+                                               RH.rdma_extend_rows_plain(b18_blocks, 2, mode)))
+    torch.cuda.synchronize()
+    require(errs["B18"] == 0, "B18 kernel == plain at the level-1 shapes (8 x 256x4096, "
+            "halo 4; channel halos 2, 's' and 'd')")
+    if torch.cuda.device_count() >= 2 and torch.cuda.can_device_access_peer(0, 1):
+        two = [b18_blocks[i].to(torch.device("cuda", i % 2)) for i in range(4)]
+        err = max_abs([g.cpu() for g in RH.rdma_extend_rows(two, 4)],
+                      [p.cpu() for p in RH.rdma_extend_rows_plain(two, 4)])
+        require(err == 0, "multi-card B18: ran on 4 shards over 2 cards, == plain")
+    else:
+        print(f"multi-card B18: skipped ({torch.cuda.device_count()} card(s) with peer "
+              "access; needs 2)", flush=True)
+    b18_bytes = sum(b.numel() for b in b18_blocks) * 4 + NS * (hb + 8) * W * 4
+    b18_case = {"B18": (lambda: RH.rdma_extend_rows(b18_blocks, 4),
+                        lambda: RH.rdma_extend_rows_plain(b18_blocks, 4), b18_bytes, 0)}
+
+    # ---- float64 through every polyphase kernel: bit for bit == plain
+    x64 = torch.from_numpy(rng.standard_normal((1024, 1024))).to(dev)
+    v64 = torch.from_numpy(rng.standard_normal((32, 128, 128))).to(dev)
+    b64 = F.fused_dwt2_level(x64, WV)
+    c64 = F.fused_dwt2_2level(x64, WV)
+    d64 = F.fused_deep_wavedec2(x64, WV, 3)
+    s64 = S.streamed_dwt2_level(x64, WV)
+    t64 = S.streamed_dwt2_2level(x64, WV)
+    u64 = S.streamed_wavedec2_deep(x64, WV, 4)
+    w64 = F3.fused_dwt3_level(v64, WV)
+    f64_checks = (
+        ("B1", b64, F.dwt2_level_plain(x64, WV)),
+        ("B4", F.fused_idwt2_level(*b64, WV), F.idwt2_level_plain(*b64, WV)),
+        ("B2", c64, F.fused_dwt2_2level_plain(x64, WV)),
+        ("B5", F.fused_idwt2_2level(*c64, WV), F.fused_idwt2_2level_plain(*c64, WV)),
+        ("B3", d64, F.fused_deep_wavedec2_plain(x64, WV, 3)),
+        ("B6", F.fused_deep_waverec2(d64, WV), F.fused_deep_waverec2_plain(d64, WV)),
+        ("B7", s64, S.streamed_dwt2_level_plain(x64, WV)),
+        ("B9", S.streamed_idwt2_level(*s64, WV), S.streamed_idwt2_level_plain(*s64, WV)),
+        ("B8", t64, S.streamed_dwt2_2level_plain(x64, WV)),
+        ("B10", S.streamed_idwt2_2level(*t64, WV), S.streamed_idwt2_2level_plain(*t64, WV)),
+        ("B11", u64, S.streamed_wavedec2_deep_plain(x64, WV, 4)),
+        ("B12", S.streamed_waverec2_deep(u64, WV), S.streamed_waverec2_deep_plain(u64, WV)),
+        ("B14", w64, F3.dwt3_level_plain(v64, WV)),
+        ("B15", F3.fused_idwt3_level(w64, WV), F3.idwt3_level_plain(w64, WV)),
+        ("B16", S3.streamed_dwt3_level(v64, WV), S3.dwt3_level_streamed_plain(v64, WV)),
+        ("B17", S3.streamed_idwt3_level(w64, WV), S3.idwt3_level_streamed_plain(w64, WV)),
+    )
+    torch.cuda.synchronize()
+    for k, got64, plain64 in f64_checks:
+        require(all(a.dtype == torch.float64 for a in leaves(got64))
+                and max_abs(leaves(got64), leaves(plain64)) == 0,
+                f"float64 {k} kernel == plain bit for bit")
+    # an explicit 'auto' pyramid re-dispatches each level: at 2144x4096 J=5
+    # only level 2 (1072x2048) takes the fused level
+    F.reset_counters()
+    ac = api.wavedec2(x, WV, J, impl="auto")
+    ar = api.waverec2(ac, WV, impl="auto")
+    torch.cuda.synchronize()
+    auto_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+    print(f"explicit 'auto' J={J} launches: " + json.dumps(auto_launches), flush=True)
+    require(auto_launches == {"B1": 1, "B4": 1},
+            "explicit impl='auto' wavedec2/waverec2 launched B1 and B4 once each")
+    err = max_abs(leaves(ac), leaves(want))
+    require(err <= 5e-4, f"explicit 'auto' pyramid vs oracle max|diff| {err:.3e} <= 5e-4")
+    err = max_abs(ar, x)
+    require(err <= 1e-3, f"explicit 'auto' round trip max|err| {err:.3e} <= 1e-3")
+    level_vs_plain("explicit 'auto' pyramid", spy_calls(
+        F, LEVEL_WRAPPERS[:2], lambda: api.waverec2(api.wavedec2(x, WV, J, impl="auto"), WV,
+                                                    impl="auto")))
+
     # ---- times at the paths' shapes
     def timed(k, kern, plain, nbytes, ops, tensor_ops=0, tag=""):
         ms = time_ms(kern, args.reps)
@@ -653,7 +912,7 @@ def main() -> int:
         return ms, plain_ms, max(bytes_ms, ops_ms), bound_by
 
     rows = []
-    all_cases = {**cases, **new_cases, **streamed_cases}
+    all_cases = {**cases, **new_cases, **streamed_cases, **b18_case}
     for k in sorted(all_cases, key=lambda kid: int(kid[1:])):
         ms, plain_ms, bound_ms, bound_by = timed(k, *all_cases[k])
         st = F.KERNELS[k]
@@ -723,6 +982,30 @@ def main() -> int:
           f"(J={J}); wavedec2 {fwd2_ms:.4f} ms, waverec2 {inv2_ms:.4f} ms (J=2) "
           f"({H}x{W} f32) [{smi}]", flush=True)
 
+    fwd_ms = time_ms(lambda: sharded_wavedec2(xsh, WV, J, mesh=mesh8, halo_impl="rdma"),
+                     args.reps)
+    inv_ms = time_ms(lambda: sharded_waverec2(shc, WV, mesh=mesh8, halo_impl="rdma"),
+                     args.reps)
+    pfwd_ms = time_ms(lambda: sharded_wavedec2(xsh, WV, J, mesh=mesh8), args.reps)
+    pinv_ms = time_ms(lambda: sharded_waverec2(pp, WV, mesh=mesh8), args.reps)
+    kt = {kern: (time_ms(lambda: sharded_wavedec2(xsh, WV, J, mesh=mesh8, kernel=kern),
+                         args.reps),
+                 time_ms(lambda: sharded_waverec2(pp, WV, mesh=mesh8, kernel=kern), args.reps))
+          for kern in ("fused", "streamed")}
+    print(f"time sharded path ({NS} shards of {HS}x{W} f32 J={J} on one card): rdma "
+          f"wavedec2 {fwd_ms:.4f} ms, waverec2 {inv_ms:.4f} ms; ppermute wavedec2 "
+          f"{pfwd_ms:.4f} ms, waverec2 {pinv_ms:.4f} ms; kernel='fused' wavedec2 "
+          f"{kt['fused'][0]:.4f} ms, waverec2 {kt['fused'][1]:.4f} ms; kernel='streamed' "
+          f"wavedec2 {kt['streamed'][0]:.4f} ms, waverec2 {kt['streamed'][1]:.4f} ms "
+          f"[{smi}]", flush=True)
+
+    profile_path(f"B18 at the level-1 shapes ({NS} x {hb}x{W}, halo 4)",
+                 lambda: RH.rdma_extend_rows(b18_blocks, 4), smi)
+    profile_path(f"sharded rdma path J={J} (sharded_wavedec2 + sharded_waverec2)",
+                 lambda: sharded_waverec2(sharded_wavedec2(xsh, WV, J, mesh=mesh8,
+                                                           halo_impl="rdma"),
+                                          WV, mesh=mesh8, halo_impl="rdma"),
+                 smi)
     profile_path("main path (wavedec2 + waverec2)",
                  lambda: api.waverec2(api.wavedec2(x, WV, J, impl="fused"), WV, impl="fused"),
                  smi)

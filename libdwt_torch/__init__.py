@@ -5,9 +5,10 @@ the separable oracle (1/2/3-D, f32/f64/int32), the 2-D and 3-D API, the
 fused 2-D levels and pyramid on hand-written CUDA kernels (single level,
 two-level and deep forward and inverse), the streamed 2-D kernels
 (``impl='streamed'``: single levels, two levels per streamed pass, or the
-whole pyramid in one launch) and the fused and streamed 3-D levels,
-forward and inverse.  Entry points run on the card unless given a CPU
-tensor or ``device='cpu'``.
+whole pyramid in one launch), the fused and streamed 3-D levels,
+forward and inverse, and the sharded transforms on a device mesh
+(:mod:`libdwt_torch.parallel`, with the halo push kernel).  Entry points
+run on the card unless given a CPU tensor or ``device='cpu'``.
 
 Top-level names follow ``libdwt_tpu``: ``wavedec2`` & co. are the
 separable oracle, ``wavedec2_fast`` & co. the dispatching API

@@ -17,13 +17,16 @@ Strategies:
                        never picks a streamed kernel, as the reference
                        without a tuned table
 
-An explicit ``impl`` is honoured or raises.  In 2-D 'auto' picks 'fused'
-on a CUDA tensor with 1024 <= min(h, w) < 2048, as the reference does
-for an untuned device.  In 3-D 'auto' picks 'fused' on a CUDA tensor
-wherever the level's geometry allows it (even dims > 4), as the
-reference does on its accelerator with no table.  'auto' picks 'fused'
-only for a dtype that has a kernel (float32, int32): float64 stays on
-the separable path.
+An explicit ``impl`` is honoured or raises; a per-call name outside
+these is taken as 'auto', as in the reference (``set_impl`` refuses it).
+In 2-D 'auto' picks 'fused' on a CUDA tensor with 1024 <= min(h, w) <
+2048, as the reference does for an untuned device; a pyramid whose top
+level stays separable under an explicit 'auto' re-dispatches each level
+(with impl=None it locks separable for every level).  In 3-D 'auto' picks
+'fused' on a CUDA tensor wherever the level's geometry allows it (even
+dims > 4), as the reference does on its accelerator with no table.
+'auto' picks 'fused' only for a dtype that has a kernel (float32,
+float64, int32).
 
 Devices: a torch tensor stays on its own device; anything else goes to
 ``device`` (default: the card; without CUDA that raises — pass
@@ -97,10 +100,10 @@ def _auto_fused_ok(on_cuda: bool, dtype) -> bool:
 def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
                dtype, levels: int = 1) -> str:
     """'separable' | 'fused' | 'streamed' | 'streamed-mxu'.  Explicit
-    requests are honoured or raise; 'auto' uses the built-in thresholds."""
+    requests are honoured or raise; 'auto' uses the built-in thresholds,
+    and so does a name outside ``_IMPLS``, as in the reference (only
+    :func:`set_impl` checks the name)."""
     impl = impl or _default_impl
-    if impl not in _IMPLS:
-        raise ValueError(f"impl must be one of {_IMPLS}")
     if impl == "separable":
         return impl
     if impl in ("streamed", "streamed-mxu"):
@@ -202,11 +205,14 @@ def wavedec2(x, wavelet="cdf97", level: Optional[int] = None,
             out.append(tuple(_unframe([p[lvl][k] for p in per], batch)
                              for k in range(3)))
         return out
-    # 'separable': lock it for every level (no per-level re-dispatch)
+    # 'separable' at the top level: with impl=None lock it for every level;
+    # an explicit impl ('auto', or a name outside _IMPLS) re-dispatches per
+    # level through dwt2, as the reference does
+    level_impl = impl if impl is not None else "separable"
     coeffs = []
     ll = x
     for _ in range(j):
-        ll, hl, lh, hh = _sep.dwt2_level(ll, wavelet)
+        ll, hl, lh, hh = dwt2(ll, wavelet, impl=level_impl)
         coeffs.append((hl, lh, hh))
     return [ll] + coeffs[::-1]
 
@@ -239,8 +245,11 @@ def waverec2(coeffs, wavelet="cdf97", impl: Optional[str] = None,
                 [flat[0][i]] + [tuple(b[i] for b in lvl) for lvl in flat[1:]],
                 wavelet) for i in range(flat[0].shape[0])]
             return _unframe(per, batch)
+        # 'separable' at the top level: locked for impl=None, else each
+        # level re-dispatches through idwt2 (see wavedec2)
+        impl = impl if impl is not None else "separable"
     for hl, lh, hh in coeffs[1:]:
-        ll = _sep.idwt2_level(ll, hl, lh, hh, wavelet, border=border)
+        ll = idwt2(ll, hl, lh, hh, wavelet, impl=impl, border=border)
     return ll
 
 
@@ -251,11 +260,10 @@ def _log_fallback(fn: str, choice: str, err: Exception) -> None:
 
 
 def _resolve_impl3(impl: Optional[str]):
-    """The call's impl (the global default if None), checked, and whether
-    it names a 3-D kernel explicitly."""
+    """The call's impl (the global default if None) and whether it names a
+    3-D kernel explicitly; a name outside ``_IMPLS`` is taken as 'auto', as
+    in the reference."""
     impl = impl or _default_impl
-    if impl not in _IMPLS:
-        raise ValueError(f"impl must be one of {_IMPLS}")
     return impl, impl in ("fused", "streamed")
 
 

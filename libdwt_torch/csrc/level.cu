@@ -33,7 +33,8 @@
 // scale -> the tile's T x T samples of each band.  Inverse: the interleaved coefficient image read
 // through the mirror (exactly the channel rules of _pad_ch_static: the
 // high channel of an odd length gets its missing ceil-grid sample) ->
-// scale, inverse columns, rows -> the tile's 2T x 2T outputs.
+// scale, inverse columns, rows -> the tile's 2T x 2T outputs.  float64
+// (f64) doubles the tile's shared memory (41 KB at T=32).
 #include "tiles.cuh"
 
 namespace {
@@ -113,3 +114,4 @@ int launch_inv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int 
 
 LIBDWT_LEVEL(f32, float)
 LIBDWT_LEVEL(i32, int)
+LIBDWT_LEVEL(f64, double)

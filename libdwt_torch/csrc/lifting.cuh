@@ -16,7 +16,8 @@
 // Arithmetic matches the plain PyTorch versions in ops/fused.py bit for
 // bit: float steps are t + w*(l + r) (or t + (wl*l + wr*r) for one-sided
 // steps) with explicit round-to-nearest intrinsics, so nvcc cannot fuse
-// them into FMAs; integer steps run in 32-bit two's-complement wrap
+// them into FMAs (float32 with float weights, float64 with the double
+// weights the plain version multiplies by); integer steps run in 32-bit two's-complement wrap
 // (multiply-add in uint32) followed by an arithmetic right shift of the
 // int32 result, like XLA and torch on int32.
 #pragma once
@@ -29,9 +30,10 @@
 // Lifting steps of one direction (already reversed and negated for the
 // inverse by the caller), plus the four parity-product scale factors
 // (even/even, even/odd, odd/even, odd/odd) = (LL, HL, LH, HH), then the
-// per-axis low/high factors of the 3-D kernels (appended last, so the 2-D
-// layout does not move).  The same layout is declared on the Python side
-// as a ctypes.Structure.
+// per-axis low/high factors of the 3-D kernels, then the same weights and
+// factors in double for the float64 kernels (each group appended last, so
+// the earlier layout does not move).  The same layout is declared on the
+// Python side as a ctypes.Structure.
 struct LiftParams {
     int n;
     int is_d[LIBDWT_MAX_STEPS];
@@ -46,6 +48,11 @@ struct LiftParams {
     float scale[4];
     float scale_lo;
     float scale_hi;
+    double dwl[LIBDWT_MAX_STEPS];
+    double dwr[LIBDWT_MAX_STEPS];
+    double dscale[4];
+    double dscale_lo;
+    double dscale_hi;
 };
 
 // Whole-point symmetric reflection of any integer position into [0, n).
@@ -75,6 +82,24 @@ __device__ __forceinline__ float lift_one(float t, float l, float r,
     return __fadd_rn(t, upd);
 }
 
+__device__ __forceinline__ double lift_one(double t, double l, double r,
+                                           const LiftParams& P, int s) {
+    const double wl = P.dwl[s], wr = P.dwr[s];
+    double upd;
+    if (wl == wr) {
+        upd = __dmul_rn(wl, __dadd_rn(l, r));
+    } else {
+        upd = 0.0;
+        bool have = false;
+        if (wl != 0.0) { upd = __dmul_rn(wl, l); have = true; }
+        if (wr != 0.0) {
+            const double term = __dmul_rn(wr, r);
+            upd = have ? __dadd_rn(upd, term) : term;
+        }
+    }
+    return __dadd_rn(t, upd);
+}
+
 __device__ __forceinline__ int lift_one(int t, int l, int r,
                                         const LiftParams& P, int s) {
     const uint32_t acc = (uint32_t)P.iwl[s] * (uint32_t)l
@@ -83,8 +108,15 @@ __device__ __forceinline__ int lift_one(int t, int l, int r,
     return (int)((uint32_t)t + (uint32_t)P.sign[s] * (uint32_t)v);
 }
 
-__device__ __forceinline__ float scale_one(float t, float f) { return __fmul_rn(t, f); }
-__device__ __forceinline__ int scale_one(int t, float) { return t; }
+// Scale factor ``i`` of P (0..3: the parity products; 4, 5: the per-axis
+// low and high factors) applied to one value, in the value's type.
+__device__ __forceinline__ float scale_one(float t, const LiftParams& P, int i) {
+    return __fmul_rn(t, i < 4 ? P.scale[i] : (i == 4 ? P.scale_lo : P.scale_hi));
+}
+__device__ __forceinline__ double scale_one(double t, const LiftParams& P, int i) {
+    return __dmul_rn(t, i < 4 ? P.dscale[i] : (i == 4 ? P.dscale_lo : P.dscale_hi));
+}
+__device__ __forceinline__ int scale_one(int t, const LiftParams&, int) { return t; }
 
 // All steps of P along one axis of a rows x cols tile (row stride
 // ``stride``).  along_rows: lift within each row (the x direction).
@@ -121,7 +153,7 @@ __device__ void scale_tile(T* t, int rows, int cols, int stride,
     for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
         const int r = idx / cols, c = idx % cols;
         T& v = t[r * stride + c];
-        v = scale_one(v, P.scale[((r & 1) << 1) | (c & 1)]);
+        v = scale_one(v, P, ((r & 1) << 1) | (c & 1));
     }
     __syncthreads();
 }
@@ -180,7 +212,7 @@ __device__ void lift_lines(T* t, int len, int lines, int stride, int inner,
 template <typename T>
 __device__ __forceinline__ T scale3(T v, int z, int y, int x, const LiftParams& P) {
     if (!P.has_scale) return v;
-    v = scale_one(v, (z & 1) ? P.scale_hi : P.scale_lo);
-    v = scale_one(v, (y & 1) ? P.scale_hi : P.scale_lo);
-    return scale_one(v, (x & 1) ? P.scale_hi : P.scale_lo);
+    v = scale_one(v, P, 4 + (z & 1));
+    v = scale_one(v, P, 4 + (y & 1));
+    return scale_one(v, P, 4 + (x & 1));
 }

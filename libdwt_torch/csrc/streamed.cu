@@ -22,7 +22,7 @@
 // tx samples, each band into segments of strips of ty rows, and one work
 // item is a (band, segment).  A persistent block walks down its item strip
 // by strip: before it lifts strip i it issues the cp.async loads of strip
-// i+1's halo'd window into the other buffer (one 4-byte copy per element,
+// i+1's halo'd window into the other buffer (one copy per element,
 // so the border mirror is just the source index), and it waits for strip
 // i+1 only after strip i's outputs are written.  Halos: forward TOP2 = 16
 // rows (streamed.py:400) and HALO2 = 12 columns; inverse 8 LL1 samples at
@@ -61,6 +61,12 @@
 // stay polyphase, as in the reference (streamed.py:1167-1169).  At the
 // default 64x64 strip a forward block then holds 177 KB and an inverse
 // block 145 KB, one block per SM.
+//
+// The float64 (f64) instantiations double every buffer: at the default
+// 64x64 strip a two-level forward block holds 148 KB and an inverse one
+// 120 KB (one block per SM, no tile halved); shared memory and the
+// cooperative grids are sized with sizeof(T), so the occupancy calculator
+// sees the real footprint.
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -581,6 +587,7 @@ int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int
 
 LIBDWT_STREAMED(f32, float)
 LIBDWT_STREAMED(i32, int)
+LIBDWT_STREAMED(f64, double)
 
 // The banded body (B13), float32 only: the same arguments, then the
 // matrices (ops/banded.py kernel_mats).

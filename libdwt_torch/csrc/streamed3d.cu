@@ -15,7 +15,7 @@
 // x), each column into segments of tz-slab tiles, and one work item is a
 // (column, segment).  A persistent block walks its item down z: before it
 // lifts tile i it issues the cp.async loads of tile i+1's halo'd window
-// (one 4-byte copy per element through the mirror index, so the border
+// (one copy per element through the mirror index, so the border
 // rules need no fix-up pass) into the other buffer, and it waits for tile
 // i+1 only after tile i's outputs are written.  The tile body is B14/B15's
 // (tiles3.cuh), with a halo of 4 on every axis, so a tile's values are bit
@@ -23,7 +23,9 @@
 // segments per column as fill the co-resident blocks; neighbouring items
 // take neighbouring x columns.  No grid sync is needed, so the launch is an
 // ordinary one.  The tile (tz, ty, tx) is the caller's; ops/streamed3d.py
-// holds the default and its shared memory.
+// holds the default and its shared memory.  float64 (f64) doubles the
+// buffers, so its default tile halves x (16x16x16, two buffers of 216 KB
+// where the f32 16x16x32 takes 184 KB).
 #include <algorithm>
 
 #include "tiles3.cuh"
@@ -170,3 +172,4 @@ int launch_sinv3(Bands8<const T> in, T* out, int Z, int Y, int X, int tz, int ty
 
 LIBDWT_SVOLUME(f32, float)
 LIBDWT_SVOLUME(i32, int)
+LIBDWT_SVOLUME(f64, double)

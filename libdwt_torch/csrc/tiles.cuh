@@ -6,8 +6,8 @@
 // arithmetic serves a kernel that loads a tile and lifts it at once (one
 // tile per block) and a kernel that streams strips through two buffers and
 // loads strip i+1 with cp.async while it lifts strip i.  ``ASYNC`` picks
-// the copy: a plain load and store, or a 4-byte cp.async into shared memory
-// that the caller commits and waits for.
+// the copy: a plain load and store, or a cp.async of one element (4 or 8
+// bytes) into shared memory that the caller commits and waits for.
 //
 // Tiles start at even global rows and columns (see lifting.cuh).  Reads go
 // through whole-point mirror indices, which equal the reference's signal

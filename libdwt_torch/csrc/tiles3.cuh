@@ -4,8 +4,8 @@
 // A tile is tz x ty x tx core samples of the interleaved volume with a
 // halo of HALO3 = 4 on every axis, (tz+8) x (ty+8) x (tx+8) elements, at
 // even starts, so local parity is global parity.  As in tiles.cuh each
-// body is a load (a plain copy, or a 4-byte cp.async the caller commits
-// and waits for) and a compute step.
+// body is a load (a plain copy, or a one-element cp.async the caller
+// commits and waits for) and a compute step.
 //
 // Forward: the tile is read at whole-point mirrored positions (for even
 // dims these equal the reference's mirror fills, fused3d.py:15-18), lifted

@@ -20,7 +20,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu", "streamed3d.cu")
+SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu", "streamed3d.cu",
+           "remote_halo.cu")
 HEADERS = ("lifting.cuh", "tiles.cuh", "tiles3.cuh", "banded.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +50,12 @@ class LiftParams(ctypes.Structure):
         ("scale", ctypes.c_float * 4),
         ("scale_lo", ctypes.c_float),
         ("scale_hi", ctypes.c_float),
+        # the float64 kernels' weights and factors, in double
+        ("dwl", ctypes.c_double * _MAX_STEPS),
+        ("dwr", ctypes.c_double * _MAX_STEPS),
+        ("dscale", ctypes.c_double * 4),
+        ("dscale_lo", ctypes.c_double),
+        ("dscale_hi", ctypes.c_double),
     ]
 
 
@@ -176,8 +183,15 @@ _SIGS = {
     "dwt_sinv2_mxu": [_P] * 8 + [_I] * 4 + [_PP, _PM, _P],
     "dwt_sdeep_fwd_mxu": [_P, _P] + [_I] * 6 + [_P, _PP, _PM, _P],
     "dwt_sdeep_inv_mxu": [_P, _P] + [_I] * 6 + [_P, _PP, _PM, _P],
+    # the halo push (B18), typed by element size, so one entry point: host
+    # arrays of the line's inputs, outputs and flags, n, host int[] of this
+    # launch's shards, count, h, w, halo, t_off, b_off, elem, epoch, host
+    # int[2] <- (grid, resident blocks), stream
+    "halo_extend_rows": [_P, _P, _P, _I, _P] + [_I] * 7 + [ctypes.c_uint, _P, _P],
+    "halo_enable_peer": [_I, _I],
 }
 _F32_ONLY = ("dwt_sfwd2_mxu", "dwt_sinv2_mxu", "dwt_sdeep_fwd_mxu", "dwt_sdeep_inv_mxu")
+_UNTYPED = ("halo_extend_rows", "halo_enable_peer")
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
               "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu",
@@ -185,24 +199,32 @@ _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_sfwd1": "streamed.cu", "dwt_sinv1": "streamed.cu",
               "dwt_sfwd2": "streamed.cu", "dwt_sinv2": "streamed.cu",
               "dwt_sdeep_fwd": "streamed.cu", "dwt_sdeep_inv": "streamed.cu",
-              **{base: "streamed.cu" for base in _F32_ONLY}}
+              **{base: "streamed.cu" for base in _F32_ONLY},
+              **{base: "remote_halo.cu" for base in _UNTYPED}}
 _fns: dict = {}
 
 
-def kernel_fn(name: str, suffix: str):
-    """The C entry point ``<name>_<suffix>`` (suffix 'f32' or 'i32'; the
-    banded body's only 'f32'), building and loading the libraries on
-    first use."""
-    key = f"{name}_{suffix}"
+def _suffixes(base: str):
+    if base in _UNTYPED:
+        return ("",)
+    return ("f32",) if base in _F32_ONLY else ("f32", "i32", "f64")
+
+
+def kernel_fn(name: str, suffix: str = ""):
+    """The C entry point ``<name>_<suffix>`` (suffix 'f32', 'f64' or 'i32';
+    the banded body's only 'f32'; none for the halo push, which is typed by
+    element size), building and loading the libraries on first use."""
+    key = f"{name}_{suffix}" if suffix else name
     if key not in _fns:
         paths = build_all()
         libs = {src: ctypes.CDLL(str(p)) for src, p in paths.items()}
         for base, argtypes in _SIGS.items():
-            for suf in ("f32",) if base in _F32_ONLY else ("f32", "i32"):
-                fn = getattr(libs[_SOURCE_OF[base]], f"{base}_{suf}")
+            for suf in _suffixes(base):
+                sym = f"{base}_{suf}" if suf else base
+                fn = getattr(libs[_SOURCE_OF[base]], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-                _fns[f"{base}_{suf}"] = fn
+                _fns[sym] = fn
     return _fns[key]
 
 

@@ -204,10 +204,12 @@ def _lift_params(wavelet: Wavelet, is_int: bool, inverse: bool):
                 p.sign[i], p.k[i], p.shift[i] = st.sign, st.k, st.shift
             else:
                 p.fwl[i], p.fwr[i] = st.wl, st.wr
+                p.dwl[i], p.dwr[i] = st.wl, st.wr
         p.has_scale = int(scales is not None)
         for i, f in enumerate(scales or ()):
-            p.scale[i] = f
-        p.scale_lo, p.scale_hi = _axis_scales(wavelet, is_int, inverse) or (1.0, 1.0)
+            p.scale[i] = p.dscale[i] = f
+        lo, hi = _axis_scales(wavelet, is_int, inverse) or (1.0, 1.0)
+        p.scale_lo, p.scale_hi = p.dscale_lo, p.dscale_hi = lo, hi
         _params_cache[key] = p
     return _params_cache[key]
 
@@ -507,21 +509,15 @@ def fused_deep_waverec2_plain(coeffs, wavelet="cdf97", tile: int = TILE1):
 # ------------------------------------------------------------ CUDA launches
 
 
-#: the dtypes that have a CUDA kernel (float64 is queued in ROADMAP.md)
-KERNEL_DTYPES = (torch.float32, torch.int32)
+#: the dtypes that have a CUDA kernel, and their entry points' suffixes
+_SUFFIXES = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32"}
+KERNEL_DTYPES = tuple(_SUFFIXES)
 
 
 def _suffix(dtype) -> str:
-    if dtype == torch.float32:
-        return "f32"
-    if dtype == torch.int32:
-        return "i32"
-    if dtype == torch.float64:
-        raise TypeError(
-            "float64 has no CUDA kernel yet (queued in ROADMAP.md); use "
-            "float32, int32, impl='separable' or a CPU tensor"
-        )
-    raise TypeError(f"the CUDA kernels take float32 or int32, got {dtype}")
+    if dtype not in _SUFFIXES:
+        raise TypeError(f"the CUDA kernels take float32, float64 or int32, got {dtype}")
+    return _SUFFIXES[dtype]
 
 
 def _launch(kid: str, fn_name: str, dtype, wavelet, inverse, args, device, extra=()):

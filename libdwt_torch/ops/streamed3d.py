@@ -34,7 +34,8 @@ from libdwt_torch.ops.fused3d import (BANDS, CZ, HZ, TILE3, _band_ptrs,
                                       idwt3_level_plain)
 
 __all__ = ["streamed3d_supported", "streamed_dwt3_level", "streamed_idwt3_level",
-           "dwt3_level_streamed_plain", "idwt3_level_streamed_plain", "STILE3"]
+           "dwt3_level_streamed_plain", "idwt3_level_streamed_plain", "STILE3",
+           "STILE3_F64"]
 
 #: the reference's buffer halos (z and y, signal domain; channel domain).
 TZH = 4   # == HZ
@@ -52,9 +53,17 @@ _VMEM_BUDGET_3D = 8 * 1024 * 1024
 #: 16x16x16 (108 KB, two blocks per SM) times the same at level 1 and 5%
 #: slower at level 2; cores of 8 slabs or rows read too much halo (PERF.md).
 STILE3 = TILE3
-#: the kernels' element size (float32, int32): their shared memory; other
-#: dtypes run the plain versions on the CPU and raise TypeError on the card.
-_KERNEL_ITEMSIZE = 4
+#: the float64 default: x halved, so that its two 24x24x24 buffers of
+#: 8-byte samples (216 KB) fit the 227 KB a block may use (two 24x24x40
+#: would take 369 KB).
+STILE3_F64 = (16, 16, 16)
+
+
+def _default_tile(tile, itemsize: int):
+    """``tile``, or the default core tile for samples of ``itemsize`` bytes."""
+    if tile is not None:
+        return tile
+    return STILE3_F64 if itemsize > 4 else STILE3
 
 KERNELS["B16"] = KernelStat("B16", "streamed_dwt3_level",
                             "libdwt_torch/csrc/streamed3d.cu",
@@ -133,24 +142,27 @@ def _check_reference_tiles(z, y, x, itemsize, strip_z, strip_y) -> None:
 # ------------------------------------------------------ plain kernel versions
 
 
-def dwt3_level_streamed_plain(x, wavelet="cdf97", tile=STILE3) -> Dict:
+def dwt3_level_streamed_plain(x, wavelet="cdf97", tile=None) -> Dict:
     """Plain version of B16: the CUDA tiles' decomposition (the fused
-    tile algebra of B14 on ``tile``)."""
-    return dwt3_level_plain(x, wavelet, tile)
+    tile algebra of B14 on ``tile``, default by the dtype's size)."""
+    return dwt3_level_plain(x, wavelet, _default_tile(tile, x.element_size()))
 
 
-def idwt3_level_streamed_plain(bands: Dict, wavelet="cdf97", tile=STILE3):
+def idwt3_level_streamed_plain(bands: Dict, wavelet="cdf97", tile=None):
     """Plain version of B17."""
-    return idwt3_level_plain(bands, wavelet, tile)
+    return idwt3_level_plain(bands, wavelet,
+                             _default_tile(tile, bands["LLL"].element_size()))
 
 
 # ------------------------------------------------------------ kernel wrappers
 
 
 def streamed_dwt3_level(x, wavelet="cdf97", strip_z: int = 0, strip_y: int = 0,
-                        approach: str = "interleaved", tile=STILE3):
+                        approach: str = "interleaved", tile=None):
     """Single-level streamed 3-D forward DWT (B16) -> dict of 8 subbands
     keyed 'LLL'..'HHH', the values of the separable ``dwt3_level``.
+    ``tile``: the CUDA core tile (default :data:`STILE3`, for float64
+    :data:`STILE3_F64`).
 
     Raises :class:`UnsupportedGeometry` for odd dims, a dim <= HZ or a
     tile count outside 2..32, and ValueError for ``strip_y`` not a
@@ -167,7 +179,8 @@ def streamed_dwt3_level(x, wavelet="cdf97", strip_z: int = 0, strip_y: int = 0,
         raise UnsupportedGeometry("volume too small for the streamed kernel; "
                                   "use the oracle")
     _check_reference_tiles(z, y, w, x.element_size(), strip_z, strip_y)
-    _check_tile(tile, _KERNEL_ITEMSIZE, buffers=2)
+    tile = _default_tile(tile, x.element_size())
+    _check_tile(tile, x.element_size(), buffers=2)
     _check_inputs("streamed_dwt3_level", min(tile), x)
     KERNELS["B16"].calls += 1
     if not x.is_cuda:
@@ -181,7 +194,7 @@ def streamed_dwt3_level(x, wavelet="cdf97", strip_z: int = 0, strip_y: int = 0,
 
 def streamed_idwt3_level(bands: Dict, wavelet="cdf97", strip_z: int = 0,
                          strip_y: int = 0, approach: str = "interleaved",
-                         tile=STILE3):
+                         tile=None):
     """Single-level streamed 3-D inverse (B17), the inverse of
     :func:`streamed_dwt3_level`.  All 8 bands must share one shape (else
     ValueError); bands of <= CZ samples on an axis, or a tile count
@@ -202,7 +215,8 @@ def streamed_idwt3_level(bands: Dict, wavelet="cdf97", strip_z: int = 0,
         raise UnsupportedGeometry("volume too small for the streamed inverse; "
                                   "use the oracle")
     _check_reference_tiles(2 * cz, 2 * cy, 2 * cx, lll.element_size(), strip_z, strip_y)
-    _check_tile(tile, _KERNEL_ITEMSIZE, buffers=2)
+    tile = _default_tile(tile, lll.element_size())
+    _check_tile(tile, lll.element_size(), buffers=2)
     ins = [bands[n] for n in BANDS]
     _check_inputs("streamed_idwt3_level", min(tile), *ins)
     KERNELS["B17"].calls += 1

@@ -104,10 +104,10 @@ def test_auto_never_routes_to_unported_kernels():
     assert pick(2144, 4096) == "separable"
     assert pick(1024, 1024, on_cuda=False) == "separable"
     assert pick(1024, 1024, "d4", "auto") == "separable"
-    # float64 has no kernel: 'auto' keeps it on the oracle, 'fused' is
-    # honoured (and its wrapper raises TypeError on the card)
-    assert pick(1024, 1030, dtype=torch.float64) == "separable"
+    # float64 has kernels too: 'auto' takes them as for float32
+    assert pick(1024, 1030, dtype=torch.float64) == "fused"
     assert pick(1024, 1030, impl="fused", dtype=torch.float64) == "fused"
+    assert pick(1024, 1030, dtype=torch.int16) == "separable"
     tf.reset_counters()
     api.dwt2(x, "cdf97")
     assert all(s.calls == 0 for s in tf.KERNELS.values())
@@ -147,8 +147,10 @@ def test_impl_setting_and_errors():
     assert api.get_impl() == "separable"
     with pytest.raises(ValueError):
         api.set_impl("nope")
-    with pytest.raises(ValueError, match="impl"):
-        api.wavedec2(torch.zeros(64, 64), "cdf97", 2, impl="nope")
+    # an unknown per-call impl falls through to 'auto', as in the reference
+    xn = np.random.default_rng(12).random((64, 64), dtype=np.float32)
+    _close(api.wavedec2(torch.from_numpy(xn), "cdf97", 2, impl="nope"),
+           japi.wavedec2(xn, "cdf97", 2, impl="nope"), 1e-5)
     with pytest.raises(ValueError, match="multi-level"):
         api.dwt2(torch.zeros(64, 64), impl="streamed-mxu")
     with pytest.raises(ValueError, match="min"):

@@ -159,7 +159,8 @@ def test_3d_dispatch_rules():
     assert pick((64, 512, 512)) == "fused"
     assert pick((64, 512, 512), dtype=torch.int32) == "fused"
     assert pick((64, 512, 512), on_cuda=False) == "separable"
-    assert pick((64, 512, 512), dtype=torch.float64) == "separable"
+    assert pick((64, 512, 512), dtype=torch.float64) == "fused"
+    assert pick((64, 512, 512), dtype=torch.int16) == "separable"
     assert pick((64, 512, 512), impl="fused", dtype=torch.float64) == "fused"
     assert pick((63, 512, 512), impl="auto") == "separable"
     assert pick((4, 512, 512)) == "separable"
@@ -170,8 +171,12 @@ def test_3d_dispatch_rules():
     assert pick((64, 512, 512), impl="streamed") == "streamed"
     with pytest.raises(ValueError, match="2..32"):
         pick((63, 512, 512), impl="streamed")
-    with pytest.raises(ValueError, match="impl"):
-        pick((64, 512, 512), impl="nope")
+    # an unknown per-call impl is 'auto', as in the reference
+    assert pick((64, 512, 512), impl="nope") == pick((64, 512, 512)) == "fused"
+    assert pick((64, 512, 512), impl="nope", on_cuda=False) == "separable"
+    x = np.random.default_rng(13).random((64, 64), dtype=np.float32)
+    _close(api.dwt2(torch.from_numpy(x), "cdf97", impl="nope"),
+           japi.dwt2(x, "cdf97", impl="nope"), 1e-5)
 
 
 def test_3d_explicit_impl_is_honoured_or_raises():
@@ -179,10 +184,13 @@ def test_3d_explicit_impl_is_honoured_or_raises():
         api.wavedec3(torch.zeros(15, 16, 16), "cdf97", 1, impl="fused")
     with pytest.raises(ValueError, match="unbatched"):
         api.wavedec3(torch.zeros(2, 16, 16, 16), "cdf97", 1, impl="fused")
-    with pytest.raises(ValueError, match="impl must be"):
-        api.wavedec3(torch.zeros(16, 16, 16), "cdf97", 1, impl="nope")
-    with pytest.raises(ValueError, match="impl must be"):
-        api.waverec3(api.wavedec3(torch.zeros(16, 16, 16), "cdf97", 1), "cdf97", impl="nope")
+    # an unknown per-call impl is 'auto' (the reference's outcome), not an error
+    v = np.random.default_rng(14).random((16, 16, 16), dtype=np.float32)
+    got = api.wavedec3(torch.from_numpy(v), "cdf97", 1, impl="nope")
+    _close(got, japi.wavedec3(v, "cdf97", 1, impl="nope"), 1e-5)
+    np.testing.assert_allclose(api.waverec3(got, "cdf97", impl="nope").numpy(), v,
+                               atol=1e-4, rtol=0)
+    assert _calls() == {}
     api.set_impl("fused")
     with pytest.raises(ValueError, match="unbatched"):
         api.waverec3(api.wavedec3(torch.zeros(2, 16, 16, 16), "cdf97", 1,

@@ -137,20 +137,24 @@ def test_fused_pyramid_on_card_matches_oracle(cuda_device):
 
 @pytest.mark.cuda
 def test_float64_on_card_raises(cuda_device):
+    """float64 on the card runs B1, B2 and B3, bit for bit equal to their
+    plain versions (the name dates from when it raised); a dtype with no
+    kernel (int16) still raises TypeError."""
     x = torch.zeros(128, 128, dtype=torch.float64, device=cuda_device)
-    with pytest.raises(TypeError, match="float64"):
-        tf.fused_dwt2_2level(x)
-    with pytest.raises(TypeError, match="float64"):
-        tf.fused_deep_wavedec2(x, "cdf97", 2)
-    with pytest.raises(TypeError, match="float64"):
-        tf.fused_dwt2_level(x)
-    with pytest.raises(TypeError, match="float64"):
-        t3.fused_dwt3_level(x[:16, :16].reshape(16, 16, 1).expand(16, 16, 16).contiguous())
-    with pytest.raises(TypeError, match="float64"):
-        ts.streamed_dwt2_level(torch.zeros(256, 256, dtype=torch.float64, device=cuda_device),
+    tf.reset_counters()
+    _close(list(tf.fused_dwt2_2level(x)), list(tf.fused_dwt2_2level_plain(x)), True)
+    _close(tf.fused_deep_wavedec2(x, "cdf97", 2), tf.fused_deep_wavedec2_plain(x, "cdf97", 2),
+           True)
+    _close(list(tf.fused_dwt2_level(x)), list(tf.dwt2_level_plain(x)), True)
+    torch.cuda.synchronize()
+    assert all(tf.KERNELS[k].launches for k in ("B1", "B2", "B3"))
+    with pytest.raises(TypeError, match="int16"):
+        tf.fused_dwt2_level(x.to(torch.int16))
+    with pytest.raises(TypeError, match="int16"):
+        ts.streamed_dwt2_level(torch.zeros(256, 256, dtype=torch.int16, device=cuda_device),
                                strip_rows=64)
-    with pytest.raises(TypeError, match="float64"):
-        ts3.streamed_dwt3_level(torch.zeros(16, 16, 16, dtype=torch.float64,
+    with pytest.raises(TypeError, match="int16"):
+        ts3.streamed_dwt3_level(torch.zeros(16, 16, 16, dtype=torch.int16,
                                             device=cuda_device))
 
 
@@ -280,28 +284,26 @@ def test_single_levels_reach_the_kernels_through_the_api(cuda_device):
 
 @pytest.mark.cuda
 def test_auto_keeps_float64_on_the_oracle(cuda_device):
-    # float64 has no kernel: 'auto' on the card gives the separable result
+    """'auto' on a float64 CUDA tensor takes the kernels (B1/B4, B14/B15),
+    as for float32, bit for bit equal to their plain versions (the name
+    dates from when 'auto' kept float64 on the separable oracle)."""
     x = _img(1024, 1030, torch.float32, cuda_device, seed=9).double()
     v = _vol((16, 32, 32), torch.float32, cuda_device, seed=10).double()
     tf.reset_counters()
-    got2 = [api.dwt2(x, "cdf97"), api.wavedec2(x, "cdf97", 3)]
-    rec2 = api.idwt2(*got2[0], "cdf97")
-    got3 = api.wavedec3(v, "cdf97", 2)
+    got2 = api.dwt2(x, "cdf97")
+    rec2 = api.idwt2(*got2, "cdf97")
+    got3 = api.wavedec3(v, "cdf97", 1)
     rec3 = api.waverec3(got3, "cdf97")
     torch.cuda.synchronize()
-    assert all(s.launches == 0 for s in tf.KERNELS.values())
-    assert all(torch.equal(a, b) for a, b in zip(
-        _leaves(got2), _leaves([sep.dwt2_level(x, "cdf97"), sep.wavedec2(x, "cdf97", 3)])))
-    assert torch.equal(rec2, sep.idwt2_level(*got2[0], "cdf97"))
-    want3 = sep.wavedec3(v, "cdf97", 2)
-    assert torch.equal(got3[0], want3[0])
-    for g, w in zip(got3[1:], want3[1:]):
-        assert all(torch.equal(g[k], w[k]) for k in w)
+    assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
+        "B1": 1, "B4": 1, "B14": 1, "B15": 1}
+    _close(list(got2), list(tf.dwt2_level_plain(x, "cdf97")), True)
+    _close(rec2, tf.idwt2_level_plain(*got2, "cdf97"), True)
+    assert float((rec2 - x).abs().max()) <= 1e-9
+    want3 = t3.dwt3_level_plain(v, "cdf97")
+    assert torch.equal(got3[0], want3["LLL"])
+    assert all(torch.equal(got3[1][k], want3[k]) for k in got3[1])
     assert float((rec3 - v).abs().max()) <= 1e-9
-    with pytest.raises(TypeError, match="float64"):
-        api.wavedec3(v, "cdf97", 2, impl="fused")
-    with pytest.raises(TypeError, match="float64"):
-        api.dwt2(x, "cdf97", impl="fused")
 
 
 STREAMED = [

@@ -10,6 +10,7 @@ and short last tiles, out of these small images.  The CUDA kernels
 themselves are held against these plain versions on the card by
 tests/test_torch_cuda.py.
 """
+import ctypes
 import functools
 
 import jax
@@ -23,6 +24,7 @@ import libdwt_tpu.ops.separable as js
 from libdwt_tpu.utils.testimg import test_image as make_image
 from libdwt_torch.ops import _cuda, fused3d, streamed, streamed3d
 from libdwt_torch.ops import fused as tf
+from libdwt_torch.parallel import remote_halo
 
 
 def _leaves(t):
@@ -166,9 +168,10 @@ def test_wrappers_count_calls_not_launches_on_cpu():
                                   strip_rows=64)
     streamed.streamed_idwt2_2level(*streamed.streamed_dwt2_2level(xs), body="mxu")
     streamed.streamed_waverec2_deep(streamed.streamed_wavedec2_deep(xs, "cdf97", 3))
+    remote_halo.rdma_extend_rows([xs[:128], xs[128:]], 4)
     assert {k: (s.calls, s.launches) for k, s in tf.KERNELS.items()} == {
         k: (1, 0) for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "B10",
-                            "B11", "B12", "B13", "B14", "B15", "B16", "B17")}
+                            "B11", "B12", "B13", "B14", "B15", "B16", "B17", "B18")}
     tf.reset_counters()
     assert all(s.calls == 0 for s in tf.KERNELS.values())
 
@@ -221,9 +224,9 @@ def test_single_fused_levels_raise_not_ported():
 def test_cuda_dtypes():
     assert tf._suffix(torch.float32) == "f32"
     assert tf._suffix(torch.int32) == "i32"
+    assert tf._suffix(torch.float64) == "f64"
+    assert torch.float64 in tf.KERNEL_DTYPES
     with pytest.raises(TypeError, match="float64"):
-        tf._suffix(torch.float64)
-    with pytest.raises(TypeError):
         tf._suffix(torch.int16)
 
 
@@ -246,12 +249,20 @@ def test_lift_params_struct(wavelet, is_int, inverse):
                 st.wl, st.wr, st.sign, st.k, st.shift)
         else:
             assert p.fwl[i] == pytest.approx(st.wl) and p.fwr[i] == pytest.approx(st.wr)
+            # the float64 kernels multiply by the plain version's own doubles
+            assert (p.dwl[i], p.dwr[i]) == (st.wl, st.wr)
     assert p.has_scale == int(scales is not None)
     if scales:
         assert list(p.scale) == pytest.approx(list(scales))
         lo, hi = tf._axis_scales(w, is_int, inverse)
         assert (p.scale_lo, p.scale_hi) == pytest.approx((lo, hi))
         assert list(p.scale) == pytest.approx([lo * lo, lo * hi, hi * lo, hi * hi])
+        assert list(p.dscale) == list(scales)
+        assert (p.dscale_lo, p.dscale_hi) == (lo, hi)
+    # the double fields follow the float layout at C's 8-byte alignment
+    end = _cuda.LiftParams.scale_hi.offset + 4
+    assert _cuda.LiftParams.dwl.offset == -(-end // 8) * 8 == 160
+    assert _cuda.LiftParams.dscale_hi.offset + 8 == ctypes.sizeof(_cuda.LiftParams)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -263,7 +274,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         _cuda.build_all()
     assert _cuda.build_dir() == tmp_path / "b"
     assert set(_cuda.SOURCES) == {"fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu",
-                                  "streamed3d.cu"}
+                                  "streamed3d.cu", "remote_halo.cu"}
+    assert set(_cuda._SOURCE_OF) == set(_cuda._SIGS)
     assert all((_cuda.CSRC / s).exists() for s in _cuda.SOURCES + _cuda.HEADERS)
 
 
