@@ -12,17 +12,50 @@
 // LL never goes to device memory (the point of the TPU kernel), and takes
 // 2-D tiles with a halo on both axes: the TPU's full-width strips relied
 // on a lane axis that needed no halo, and a 4096-wide f32 row is 16 KB of
-// the 227 KB a block may hold.  The halo re-read (88x88 loaded per 64x64
-// tile) and one thread-loop per lifting step keep this simple kernel well
-// above the bound; see PERF.md for its measured time.
+// the 227 KB a block may hold.
 //
-// Forward tile (T x T signal samples, T % 4 == 0, halo 12 = HALO2):
-//   load with whole-point mirror reads -> lift rows, columns, scale ->
-//   write HL1/LH1/HH1 -> LL1 with halo 4 -> rewrite the LL1 halo past the
-//   bottom/right image edge whole-point (the signal-domain mirror induces a
-//   HALF-point mirror on LL1 there; the oracle extends LL1 whole-point
-//   around its own last sample; the top/left need no fix) -> lift LL1 ->
-//   write the four level-2 bands.
+// Forward tile (T x T signal samples, T % 4 == 0, halo 12 = HALO2 on both
+// axes): load with whole-point mirror reads -> lift rows, columns, scale ->
+// write HL1/LH1/HH1 -> LL1 with halo 4 -> rewrite the LL1 halo past the
+// bottom/right image edge whole-point (the signal-domain mirror induces a
+// HALF-point mirror on LL1 there; the oracle extends LL1 whole-point
+// around its own last sample; the top/left need no fix) -> lift LL1 ->
+// write the four level-2 bands.
+//
+// The forward kernel (B2) has its own body (namespace fwd2 below): the
+// same operations as tiles.cuh fwd2_* (lift_one's arithmetic, rows then
+// columns then scale per level, the LL1 re-mirror, even tile starts and
+// whole-point mirror reads), so its output equals the plain version bit
+// for bit.  What held the shared body back (0.37 ms at 2144x4096 f32 on an
+// H100, 18x the bound), and what this one does about it (PERF.md has the
+// measurements of each step):
+//   * lift_tile's column steps put neighbouring threads two rows apart
+//     (2 x 88 words at T=64): 16-way bank conflicts.  Not here: a column's
+//     lanes are neighbouring columns.
+//   * Every update paid divisions for its index, a runtime step index into
+//     the weights, and a barrier per step; lift_one's wl == wr test and
+//     one-sided cases branched per update.  The phases ran latency-bound
+//     with few threads busy.  Here each line (a row, then a column) is
+//     walked once by one thread with all the steps pipelined in registers
+//     (see walk), cut into segments of at least MIN_SEG pairs so that ~200
+//     threads walk at once; symmetric steps (the launcher checks on the
+//     host) update with t + w * (l + r) and no branch; one barrier pair per
+//     pass instead of one barrier per step.  The window's row stride is 2
+//     mod 4, so lanes walking 32 rows read distinct banks.
+//   * Loads: each thread keeps one 16-byte chunk of window columns and
+//     walks the rows with cp.async, every row in flight; a chunk inside the
+//     image is copied whole (16 bytes for float64, two 8-byte copies for
+//     the 4-byte types, whose padded rows are 8-byte aligned) when x is
+//     16-byte aligned and w % 4 == 0, else through column indices mirrored
+//     once per thread.  Rows are mirrored once per row, only in tiles that
+//     cross an edge.  No per-element division or modulo.
+//   * The scale is applied as each value is stored (the same multiply,
+//     after the columns), and the LL1 re-mirror is folded into the source
+//     index of the LL1 copy.  Band rows are written 16 bytes at a time
+//     where the band width and the tile keep the runs aligned.
+//   * The default tile (64) is a compile-time constant; other tiles run the
+//     same body with the tile read at run time.
+//
 // Inverse tile (T x T output samples): level-2 coefficients in the LL1
 //   domain with halo 8 -> scale, inverse columns, rows -> LL1 with halo 2;
 //   rewrite the LL1 rows/columns past the bottom/right edge with the
@@ -30,27 +63,335 @@
 //   level-1 bands (halo 4) -> scale, inverse columns, rows -> write.
 // Axis order: forward rows then columns, inverse columns then rows, for
 // floats and ints alike (the integer order the oracle needs bit-exactly).
-// The tile bodies are in tiles.cuh (fwd2_*, inv2_*), shared with the strip
-// kernels of streamed.cu.  float64 (f64) doubles the shared memory: 75 KB
-// forward and 60 KB inverse at the default 64x64 tile.
+// The inverse body is in tiles.cuh (inv2_*), shared with the strip kernels
+// of streamed.cu.  float64 (f64) doubles the shared memory: 75 KB forward
+// and 60 KB inverse at the default 64x64 tile.
+#include <type_traits>
+
 #include "tiles.cuh"
 
 namespace {
 
 constexpr int HALO2 = tiles::HALO2;
+constexpr int THREADS = 256;
+
+namespace fwd2 {
+
+// 16 bytes of T, and one (even, odd) sample pair.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<int> { using type = int4; };
+template <> struct Vec16<double> { using type = double2; };
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<int> { using type = int2; };
+template <> struct Pair<double> { using type = double2; };
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Row stride of a window n samples wide (n even): n or n + 2, whichever is
+// 2 mod 4, so that 16 lanes walking 16 rows read 16 distinct bank pairs.
+__host__ __device__ __forceinline__ int stride(int n) { return n % 4 ? n : n + 2; }
 
 template <typename T>
-__global__ void fwd2_kernel(const T* __restrict__ x, T* ll2, T* hl2, T* lh2, T* hh2,
-                            T* hl1, T* lh1, T* hh1, int h, int w, int tile,
-                            LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
-    T* s1 = reinterpret_cast<T*>(smem_raw);
-    T* s2 = s1 + tiles::fwd2_elems(tile, tile, HALO2);
-    const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
-    tiles::fwd2_load<false>(x, s1, h, w, y0, x0, tile, tile, HALO2);
+__device__ __forceinline__ T scaled(T v, const LiftParams& P, int i) {
+    return P.has_scale ? scale_one(v, P, i) : v;
+}
+
+// Copy the E x E window at (y0 - HALO2, x0 - HALO2) into s (row stride
+// RS) with cp.async, every row in flight at once: each thread keeps one
+// chunk of V = 16 / sizeof(T) columns and walks the rows.  A chunk inside
+// the image is one 16-byte copy for float64 and two 8-byte copies for the
+// 4-byte types (RS is 2 mod 4, so their rows are 8-byte aligned) when
+// ``vec``, else V copies through column indices mirrored once; rows are
+// mirrored once per row, only in tiles whose window crosses an edge.
+template <typename T>
+__device__ __forceinline__ void load(const T* __restrict__ x, T* s, int RS, int h, int w,
+                                     int y0, int x0, int E, bool vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int cpr = E / V, groups = blockDim.x / cpr;  // E % 4 == 0
+    if ((int)threadIdx.x >= groups * cpr) return;
+    const int m = threadIdx.x % cpr, gx = x0 - HALO2 + m * V;
+    const bool in_x = vec && gx >= 0 && gx + V <= w;
+    int cx[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) cx[u] = mirror_idx(gx + u, w);
+    const bool in_y = y0 - HALO2 >= 0 && y0 - HALO2 + E <= h;
+    for (int r = threadIdx.x / cpr; r < E; r += groups) {
+        const int gy = in_y ? y0 - HALO2 + r : mirror_idx(y0 - HALO2 + r, h);
+        const T* row = x + (size_t)gy * w;
+        T* dst = s + r * RS + m * V;
+        if (in_x) {
+#pragma unroll
+            for (int u = 0; u < V; u += 2)
+                __pipeline_memcpy_async(dst + u, row + gx + u, 2 * sizeof(T));
+        } else {
+#pragma unroll
+            for (int u = 0; u < V; ++u) __pipeline_memcpy_async(dst + u, row + cx[u], sizeof(T));
+        }
+    }
+}
+
+// A window line of L (even, odd) sample pairs: a row (pairs adjacent) or
+// a column (samples RS apart).
+template <typename T>
+struct RowLine {
+    using value_type = T;
+    T* p;
+    __device__ __forceinline__ void get(int k, T& e, T& o) const {
+        const typename Pair<T>::type v = reinterpret_cast<const typename Pair<T>::type*>(p)[k];
+        e = v.x;
+        o = v.y;
+    }
+    __device__ __forceinline__ void put(int k, T e, T o) const {
+        reinterpret_cast<typename Pair<T>::type*>(p)[k] = {e, o};
+    }
+};
+template <typename T>
+struct ColLine {
+    using value_type = T;
+    T* p;
+    int rs;
+    __device__ __forceinline__ void get(int k, T& e, T& o) const {
+        e = p[2 * k * rs];
+        o = p[(2 * k + 1) * rs];
+    }
+    __device__ __forceinline__ void put(int k, T e, T o) const {
+        p[2 * k * rs] = e;
+        p[(2 * k + 1) * rs] = o;
+    }
+};
+
+// The pairs of a walk that belong to the neighbouring segments of its line
+// ([f, a) and [b, e), at most two each): read before a barrier, since
+// their owners write them back.
+template <typename T>
+struct Warm {
+    T pe[2], po[2], qe[2], qo[2];
+    template <typename Line>
+    __device__ __forceinline__ void read(const Line& line, int f, int a, int b, int e) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            if (f + i < a) line.get(f + i, pe[i], po[i]);
+            if (b + i < e) line.get(b + i, qe[i], qo[i]);
+        }
+    }
+};
+
+// Lifting step J of P on one sample.  SYM: every step has wl == wr, so the
+// update is lift_one's t + w * (l + r) with no branch on the weights.
+template <typename T, bool SYM>
+struct Lifter {
+    const LiftParams& P;
+    template <int J>
+    __device__ __forceinline__ T step(T t, T l, T r) const {
+        if constexpr (SYM && std::is_same<T, float>::value)
+            return __fadd_rn(t, __fmul_rn(P.fwl[J], __fadd_rn(l, r)));
+        else if constexpr (SYM && std::is_same<T, double>::value)
+            return __dadd_rn(t, __dmul_rn(P.dwl[J], __dadd_rn(l, r)));
+        else
+            return lift_one(t, l, r, P, J);
+    }
+};
+
+// Every lifting step of P along pairs [f, e) of a line, walked once by one
+// thread with the steps pipelined in registers: NST (1, 2 or 4) steps
+// alternating d, s from d.  Reading pair k, step 2m (d) updates odd
+// 2(k-1-m)+1 and step 2m+1 (s) even 2(k-1-m), each from the values its
+// neighbours have after the step before; pair k - D (D = ceil(NST/2)) is
+// then final and is written back in place if it lies in [a, b).  The
+// positions of each step are those of lift_tile on [f, e): odd 2q+1 for q
+// <= e - 2, even 2q for q >= f + 1.  On a whole line (f = a = 0, e = b = L)
+// this is lift_tile's pass; on a segment, the staleness of the cut ends
+// (two pairs for four steps) stays in the warm-up pairs.
+template <int NST, bool SYM, typename Line, typename T = typename Line::value_type>
+__device__ __forceinline__ void walk(const Line& line, int f, int e, int a, int b,
+                                     const Warm<T>& wm, const LiftParams& P) {
+    constexpr int D = (NST + 1) / 2;
+    const Lifter<T, SYM> lift{P};
+    // e0..e2 = even of pairs k, k-1, k-2; o0..o3 = odd of pairs k .. k-3
+    T e0 = T(0), e1 = T(0), e2 = T(0), o0 = T(0), o1 = T(0), o2 = T(0), o3 = T(0);
+    // one step of the walk at pair k; ALL: every step and the write-back
+    // are known to apply (the steady middle of the walk)
+    auto iter = [&](int k, auto all) {
+        constexpr bool A = decltype(all)::value;
+        if (A || (k - 1 >= f && k - 1 <= e - 2)) o1 = lift.template step<0>(o1, e1, e0);
+        if constexpr (NST > 1)
+            if (A || (k - 1 >= f + 1 && k - 1 <= e - 1)) e1 = lift.template step<1>(e1, o2, o1);
+        if constexpr (NST > 2)
+            if (A || (k - 2 >= f && k - 2 <= e - 2)) o2 = lift.template step<2>(o2, e2, e1);
+        if constexpr (NST > 3)
+            if (A || (k - 2 >= f + 1 && k - 2 <= e - 1)) e2 = lift.template step<3>(e2, o3, o2);
+        if (A || (k - D >= a && k - D < b)) {
+            if constexpr (D == 1) line.put(k - 1, e1, o1);
+            else line.put(k - 2, e2, o2);
+        }
+        o3 = o2;
+        o2 = o1;
+        o1 = o0;
+        e2 = e1;
+        e1 = e0;
+    };
+    auto read = [&](int k) {
+        if (k < a) {
+            e0 = k == f ? wm.pe[0] : wm.pe[1];
+            o0 = k == f ? wm.po[0] : wm.po[1];
+        } else if (k >= b) {
+            e0 = k == b ? wm.qe[0] : wm.qe[1];
+            o0 = k == b ? wm.qo[0] : wm.qo[1];
+        } else {
+            line.get(k, e0, o0);
+        }
+    };
+    // [f, m): the head, with its checks; [m, b): every step applies and pair
+    // k - D is written, the next pair read ahead; [max(m, b), e + D): the tail
+    const int m = min(max(f + 3, a + D), e + D);
+    for (int k = f; k < m; ++k) {
+        if (k < e) read(k);
+        iter(k, std::false_type{});
+    }
+    T ne = T(0), no = T(0);
+    if (m < b) line.get(m, ne, no);
+    for (int k = m; k < b; ++k) {
+        e0 = ne;
+        o0 = no;
+        if (k + 1 < b) line.get(k + 1, ne, no);
+        iter(k, std::true_type{});
+    }
+    for (int k = max(m, b); k < e + D; ++k) {
+        if (k < e) read(k);
+        iter(k, std::false_type{});
+    }
+}
+
+// One lifting pass over the n lines of a window: line t % n, cut into S
+// segments of at least MIN_SEG pairs so that n * S threads walk at once.
+constexpr int MIN_SEG = 12;
+
+template <int NST, bool SYM, typename Line, typename T = typename Line::value_type>
+__device__ __forceinline__ void pass(const Line& line, int n, const LiftParams& P) {
+    const int L = n / 2, S = max(1, min((int)blockDim.x / n, L / MIN_SEG));
+    const int seg = threadIdx.x / n;
+    const int a = seg * L / S, b = (seg + 1) * L / S;
+    const int f = max(a - 2, 0), e = min(b + 2, L);
+    Warm<T> wm;
+    if (seg < S) wm.read(line, f, a, b, e);
     __syncthreads();
-    tiles::fwd2_compute(s1, s2, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, y0, x0,
-                        tile, tile, HALO2, P);
+    if (seg < S) walk<NST, SYM>(line, f, e, a, b, wm, P);
+    __syncthreads();
+}
+
+// Every lifting step along the rows, then the columns, of an n x n window
+// (row stride RS).
+template <int NST, bool SYM, typename T>
+__device__ __forceinline__ void lift2d(T* s, int n, int RS, const LiftParams& P) {
+    const int line = threadIdx.x % n;
+    pass<NST, SYM>(RowLine<T>{s + line * RS}, n, P);
+    pass<NST, SYM>(ColLine<T>{s + line, RS}, n, P);
+}
+
+// n (<= V) samples two apart at ``src`` to ``dst``, each times scale
+// factor si: one 16-byte store when ``vec`` and n == V.
+template <typename T>
+__device__ __forceinline__ void put(T* dst, const T* src, int n, bool vec,
+                                    const LiftParams& P, int si) {
+    constexpr int V = 16 / sizeof(T);
+    using VT = typename Vec16<T>::type;
+    if (vec && n == V) {
+        VT v;
+        T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int u = 0; u < V; ++u) e[u] = scaled(src[2 * u], P, si);
+        *reinterpret_cast<VT*>(dst) = v;
+    } else {
+        for (int u = 0; u < n; ++u) dst[u] = scaled(src[2 * u], P, si);
+    }
+}
+
+// The core of a lifted window (row stride RS, core from row and column
+// ``core``) -> NB band rows: the last NB of (LL, HL, LH, HH) = k 0..3 in
+// ``bands`` (band b is k = b + 4 - NB).  Band k's row i is window row core
+// + 2i + (k >> 1), columns core + (k & 1) + 2j; seg samples to band row gr0
+// + i (< rows_out) from column gc0 (< cols_out), times scale factor k.
+// Each thread keeps one chunk of V band columns and walks the (row, band)
+// pairs.
+template <int NB, typename T>
+__device__ __forceinline__ void store_bands(const T* s, int RS, int core,
+                                            T* const (&bands)[NB], int seg, int gr0,
+                                            int gc0, int rows_out, int cols_out,
+                                            const LiftParams& P) {
+    constexpr int V = 16 / sizeof(T);
+    bool vec = cols_out % V == 0 && seg % V == 0;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) vec = vec && aligned16(bands[b]);
+    const int cps = (seg + V - 1) / V, groups = blockDim.x / cps;
+    if ((int)threadIdx.x >= groups * cps) return;
+    const int c = threadIdx.x % cps, gc = gc0 + c * V;
+    const int n = min(min(V, seg - c * V), cols_out - gc);
+    if (n <= 0) return;
+#pragma unroll 4
+    for (int q = threadIdx.x / cps; q < NB * seg; q += groups) {
+        const int i = q / NB, b = q - NB * i, k = b + 4 - NB;
+        if (gr0 + i >= rows_out) break;
+        T* band = bands[0];
+#pragma unroll
+        for (int j = 1; j < NB; ++j) band = b == j ? bands[j] : band;
+        const T* src = s + (core + 2 * i + (k >> 1)) * RS + core + (k & 1) + 2 * c * V;
+        put(band + (size_t)(gr0 + i) * cols_out + gc, src, n, vec, P, k);
+    }
+}
+
+// LL1 with halo 4 (E1 x E1 samples, row stride RS1) from the lifted
+// level-1 window (row stride RS), times the LL scale, with the whole-point
+// re-mirror past the bottom/right edge in the source index: the values
+// tiles::fwd2_lifted copies and then rewrites.
+template <typename T>
+__device__ __forceinline__ void ll1_window(const T* s1, int RS, T* s2, int RS1, int h,
+                                           int w, int y0, int x0, int E1,
+                                           const LiftParams& P) {
+    const int N = h / 2, M = w / 2, by = y0 / 2 - 4, bx = x0 / 2 - 4;
+    const int groups = blockDim.x / E1;
+    if ((int)threadIdx.x >= groups * E1) return;
+    const int c = threadIdx.x % E1;
+    const int cc = bx + c >= M ? max(2 * M - 2 - (bx + c) - bx, 0) : c;
+    // LL1 (r, c) is window sample (HALO2 - 8 + 2r, HALO2 - 8 + 2c)
+    const T* src = s1 + (HALO2 - 8) * (RS + 1) + 2 * cc;
+#pragma unroll 4
+    for (int r = threadIdx.x / E1; r < E1; r += groups) {
+        const int rr = by + r >= N ? max(2 * N - 2 - (by + r) - by, 0) : r;
+        s2[r * RS1 + c] = scaled(src[2 * rr * RS], P, 0);
+    }
+}
+
+}  // namespace fwd2
+
+// TILE: the tile edge at compile time, or 0 to take ``tile``.  NST: the
+// lifting steps (1, 2 or 4, alternating d, s from d); SYM: all symmetric.
+template <typename T, int TILE, int NST, bool SYM>
+__global__ void fwd2_kernel(const T* __restrict__ x, T* ll2, T* hl2, T* lh2, T* hh2,
+                            T* hl1, T* lh1, T* hh1, int h, int w, int tile_arg,
+                            LiftParams P) {
+    extern __shared__ __align__(16) unsigned char fwd2_smem[];
+    const int tile = TILE ? TILE : tile_arg;
+    const int E = tile + 2 * HALO2, E1 = tile / 2 + 8;
+    const int RS = fwd2::stride(E), RS1 = fwd2::stride(E1);
+    T* s1 = reinterpret_cast<T*>(fwd2_smem);
+    T* s2 = s1 + E * RS;  // E % 4 == 0, RS even: 16-byte aligned
+    const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
+    fwd2::load(x, s1, RS, h, w, y0, x0, E, fwd2::aligned16(x) && w % 4 == 0);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    fwd2::lift2d<NST, SYM>(s1, E, RS, P);
+    T* const b1[3] = {hl1, lh1, hh1};
+    fwd2::store_bands(s1, RS, HALO2, b1, tile / 2, y0 / 2, x0 / 2, h / 2, w / 2, P);
+    fwd2::ll1_window(s1, RS, s2, RS1, h, w, y0, x0, E1, P);
+    __syncthreads();
+    fwd2::lift2d<NST, SYM>(s2, E1, RS1, P);
+    T* const b2[4] = {ll2, hl2, lh2, hh2};
+    fwd2::store_bands(s2, RS1, 4, b2, tile / 4, y0 / 4, x0 / 4, h / 4, w / 4, P);
 }
 
 template <typename T>
@@ -69,21 +410,66 @@ __global__ void inv2_kernel(const T* __restrict__ ll2, const T* __restrict__ hl2
     tiles::inv2_compute(s2, s1, out, h, w, y0, x0, tile, tile, P);
 }
 
-constexpr int THREADS = 256;
+template <typename T, int TILE, int NST, bool SYM>
+int launch_fwd2_as(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
+                   T* hh1, int h, int w, int tile, const LiftParams* P,
+                   cudaStream_t stream) {
+    const int E = tile + 2 * HALO2, E1 = tile / 2 + 8;
+    const size_t smem = sizeof(T) * (size_t)(E * fwd2::stride(E) + E1 * fwd2::stride(E1));
+    if (smem > 48 * 1024)
+        cudaFuncSetAttribute(fwd2_kernel<T, TILE, NST, SYM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
+    fwd2_kernel<T, TILE, NST, SYM><<<grid, THREADS, smem, stream>>>(
+        x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, tile, *P);
+    return (int)cudaGetLastError();
+}
 
+template <typename T, int NST, bool SYM>
+int launch_fwd2_tile(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
+                     T* hh1, int h, int w, int tile, const LiftParams* P,
+                     cudaStream_t stream) {
+#define LIBDWT_FWD2_AS(TILE)                                                      \
+    return launch_fwd2_as<T, TILE, NST, SYM>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, \
+                                             h, w, tile, P, stream)
+    if (tile == 64) LIBDWT_FWD2_AS(64);  // the default tile, at compile time
+    LIBDWT_FWD2_AS(0);
+#undef LIBDWT_FWD2_AS
+}
+
+template <typename T, int NST>
+int launch_fwd2_nst(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
+                    T* hh1, int h, int w, int tile, const LiftParams* P,
+                    cudaStream_t stream) {
+    bool sym = !std::is_same<T, int>::value;
+    for (int s = 0; s < NST; ++s) sym = sym && P->fwl[s] == P->fwr[s] && P->dwl[s] == P->dwr[s];
+    if constexpr (!std::is_same<T, int>::value)
+        if (sym)
+            return launch_fwd2_tile<T, NST, true>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w,
+                                                  tile, P, stream);
+    return launch_fwd2_tile<T, NST, false>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w,
+                                           tile, P, stream);
+}
+
+// The walk takes 1, 2 or 4 steps alternating d, s from d: every wavelet
+// the fused kernels accept.
 template <typename T>
 int launch_fwd2(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
                 T* hh1, int h, int w, int tile, const LiftParams* P,
                 cudaStream_t stream) {
-    const size_t smem = sizeof(T) * (size_t)(tiles::fwd2_elems(tile, tile, HALO2)
-                                             + tiles::fwd2_ll1_elems(tile, tile));
-    if (smem > 48 * 1024)
-        cudaFuncSetAttribute(fwd2_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
-    fwd2_kernel<T><<<grid, THREADS, smem, stream>>>(x, ll2, hl2, lh2, hh2, hl1,
-                                                    lh1, hh1, h, w, tile, *P);
-    return (int)cudaGetLastError();
+    if (tile + 2 * HALO2 > THREADS) return (int)cudaErrorInvalidValue;  // a line a thread
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (s % 2 == 0)) return (int)cudaErrorInvalidValue;
+#define LIBDWT_FWD2_NST(N)                                                        \
+    return launch_fwd2_nst<T, N>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, tile, P, \
+                                 stream)
+    switch (P->n) {
+        case 1: LIBDWT_FWD2_NST(1);
+        case 2: LIBDWT_FWD2_NST(2);
+        case 4: LIBDWT_FWD2_NST(4);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef LIBDWT_FWD2_NST
 }
 
 template <typename T>

@@ -10,7 +10,8 @@ GPU machine that has no JAX installed:
 
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
-int32 bit-exactly; the banded body to 2e-5 (the tensor cores sum in
+int32 bit-exactly, B2 bit for bit in every dtype (main-path frame,
+border-only and mixed tiles, a misaligned input, tiles 32-128); the banded body to 2e-5 (the tensor cores sum in
 another order than the plain version's matrix products).  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
 extended-rows contracts of the single levels (4 rows fused, 8 streamed),
@@ -91,6 +92,49 @@ def test_b2_b5_kernels_match_plain(cuda_device, h, w, dtype, wavelet, tile):
     if exact:
         assert torch.equal(rec, x)
         _close(list(c2), sep.wavedec2(x, wavelet, 2), True)
+
+
+def _b2_exact(x, wavelet, tile=None):
+    """B2 on ``x`` equals its plain version bit for bit, in one launch."""
+    kw = {} if tile is None else {"tile": tile}
+    tf.reset_counters()
+    got = tf.fused_dwt2_2level(x, wavelet, **kw)
+    torch.cuda.synchronize()
+    assert tf.KERNELS["B2"].launches == 1
+    _close(list(got), list(tf.fused_dwt2_2level_plain(x, wavelet, **kw)), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [
+    (2144, 4096),  # the main path's frame
+    (24, 24), (24, 4096),  # every tile a border tile
+    (4100, 132), (1056, 548),  # interior and border tiles, ragged last tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b2_equals_plain_bit_for_bit(cuda_device, h, w, dtype):
+    _b2_exact(_img(h, w, dtype, cuda_device, seed=3).to(dtype),
+              "cdf53" if dtype == torch.int32 else "cdf97")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b2_misaligned_input_takes_the_scalar_loads(cuda_device, dtype):
+    """A contiguous view at storage offset 1 is not 16-byte aligned."""
+    h, w = 1056, 548
+    buf = _img(1, h * w + 1, dtype, cuda_device, seed=4).to(dtype).reshape(-1)
+    x = buf[1:1 + h * w].view(h, w)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _b2_exact(x, "cdf53" if dtype == torch.int32 else "cdf97")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 64, 96, 128])
+@pytest.mark.parametrize("dtype,wavelet", [
+    (dt, wv) for dt in (torch.float32, torch.float64)
+    for wv in ("cdf97", "cdf53", "interp53", "haar")
+] + [(torch.int32, wv) for wv in ("cdf97", "cdf53", "haar")])
+def test_b2_tiles_and_wavelets_equal_plain(cuda_device, tile, dtype, wavelet):
+    _b2_exact(_img(1056, 548, dtype, cuda_device, seed=5).to(dtype), wavelet, tile)
 
 
 DEEP = [

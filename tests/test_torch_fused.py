@@ -83,6 +83,25 @@ def test_b2_plain_int_bitexact(h, w, wavelet):
     _close(list(got), list(want), exact=True)
 
 
+@pytest.mark.parametrize("h,w,dtype,wavelet", [
+    (248, 260, np.float32, "cdf97"), (248, 260, np.int32, "cdf53"),
+    (132, 196, np.int32, "cdf97"), (248, 260, np.float64, "cdf97"),
+    (96, 100, np.float32, "interp53"), (24, 24, np.float32, "cdf97")])
+def test_b2_plain_is_tile_invariant(h, w, dtype, wavelet):
+    """Every output of B2 depends only on its own neighbourhood, so any tile
+    gives the same bits: the CUDA kernel may pick its tile and must still
+    equal the plain version exactly."""
+    rng = np.random.default_rng(h * w)
+    if dtype == np.int32:
+        x = torch.from_numpy(rng.integers(-255, 256, (h, w)).astype(np.int32))
+    else:
+        x = torch.from_numpy(rng.standard_normal((h, w)).astype(dtype))
+    base = _leaves(tf.fused_dwt2_2level_plain(x, wavelet, 16))
+    for tile in (32, 64, 128):
+        got = _leaves(tf.fused_dwt2_2level_plain(x, wavelet, tile))
+        assert all(torch.equal(a, b) for a, b in zip(got, base))
+
+
 # ------------------------------------------------------------------- B5
 
 
