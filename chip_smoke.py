@@ -52,7 +52,7 @@
    version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5; B2 exactly, bit for bit), B1/B4/B7/B9 on every input the sharded kernel bodies and the
+   <= 3e-5; B2 and B5 exactly, bit for bit), B1/B4/B7/B9 on every input the sharded kernel bodies and the
    explicit-'auto' pyramid give them (caught by wrapping the wrappers
    during an extra run of those paths; <= 3e-5), each banded
    instantiation of B8/B10/B11/B12 against its plain version (<= 2e-5:
@@ -153,26 +153,35 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int = 5):
+def device_ms(fn, reps: int = 5, tries: int = 3):
     """Device time per call of ``fn`` (torch.profiler, CUPTI): the kernels'
     own time without the host's cost of issuing them, which event times
     over back-to-back calls include once a kernel is faster than its
-    wrapper; None if the profiler records no device time."""
+    wrapper.  A profiled pass whose device records are not a whole number
+    per call has lost some (the trace can drop them in a process's first
+    passes) and is said so and taken again, up to ``tries`` passes; None
+    if no pass records every call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us += getattr(e, "self_device_time_total", None) or getattr(
-                e, "self_cuda_time_total", 0)
-    return us / 1e3 / reps if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us += getattr(e, "self_device_time_total", None) or getattr(
+                    e, "self_cuda_time_total", 0)
+                n += e.count
+        if us > 0 and n % reps == 0:
+            return us / 1e3 / reps
+        print(f"device time: a profiled pass recorded {n} device records for {reps} "
+              f"calls; taken again", flush=True)
+    return None
 
 
 def profile_path(label: str, run, smi: str) -> None:
@@ -347,7 +356,7 @@ def main() -> int:
     for k, (kern, plain, _, _) in cases.items():
         errs[k] = max_abs(leaves(kern()), leaves(plain()))
         torch.cuda.synchronize()
-        if k == "B2":  # its own body, the plain arithmetic in the plain order
+        if k in ("B2", "B5"):  # own bodies, the plain arithmetic in the plain order
             require(errs[k] == 0, f"{k} kernel == plain bit for bit at main-path shapes")
         else:
             require(errs[k] <= 3e-5, f"{k} kernel vs plain at main-path shapes "

@@ -22,50 +22,58 @@
 // around its own last sample; the top/left need no fix) -> lift LL1 ->
 // write the four level-2 bands.
 //
-// The forward kernel (B2) has its own body (namespace fwd2 below): the
-// same operations as tiles.cuh fwd2_* (lift_one's arithmetic, rows then
-// columns then scale per level, the LL1 re-mirror, even tile starts and
-// whole-point mirror reads), so its output equals the plain version bit
-// for bit.  What held the shared body back (0.37 ms at 2144x4096 f32 on an
-// H100, 18x the bound), and what this one does about it (PERF.md has the
-// measurements of each step):
+// Inverse tile (T x T output samples): level-2 coefficients in the LL1
+// domain with halo 8 (IH2) -> scale, inverse columns, rows -> LL1 with
+// halo 2; rewrite the LL1 rows/columns past the bottom/right edge with the
+// level-1 channel rule s[N+m] = s[N-1-m] (half-point) -> interleave with
+// the level-1 bands mirrored whole-point (halo 4 = IH1) -> scale, inverse
+// columns, rows -> write.
+// Axis order: forward rows then columns, inverse columns then rows, for
+// floats and ints alike (the integer order the oracle needs bit-exactly).
+//
+// Each kernel has its own body (namespaces fwd2 and inv2, on the line
+// walks of namespace lines): the same operations as tiles.cuh fwd2_* and
+// inv2_* (lift_one's arithmetic, the axis order and the scale, the LL1
+// re-mirror or channel rule, even tile starts and whole-point mirror
+// reads), so their outputs equal the plain versions bit for bit.  What
+// held the shared bodies back (B2 0.37 ms and B5 0.34 ms at 2144x4096 f32
+// on an H100, 16-18x the bound), and what these do about it (PERF.md has
+// the measurements of each step):
 //   * lift_tile's column steps put neighbouring threads two rows apart
-//     (2 x 88 words at T=64): 16-way bank conflicts.  Not here: a column's
-//     lanes are neighbouring columns.
+//     (2 x 88 words for B2 at T=64, 2 x 48 and 2 x 72 for B5): 16- and
+//     32-way bank conflicts.  Not here: a column's lanes are neighbouring
+//     columns.
 //   * Every update paid divisions for its index, a runtime step index into
 //     the weights, and a barrier per step; lift_one's wl == wr test and
 //     one-sided cases branched per update.  The phases ran latency-bound
-//     with few threads busy.  Here each line (a row, then a column) is
-//     walked once by one thread with all the steps pipelined in registers
-//     (see walk), cut into segments of at least MIN_SEG pairs so that ~200
-//     threads walk at once; symmetric steps (the launcher checks on the
-//     host) update with t + w * (l + r) and no branch; one barrier pair per
-//     pass instead of one barrier per step.  The window's row stride is 2
-//     mod 4, so lanes walking 32 rows read distinct banks.
-//   * Loads: each thread keeps one 16-byte chunk of window columns and
-//     walks the rows with cp.async, every row in flight; a chunk inside the
-//     image is copied whole (16 bytes for float64, two 8-byte copies for
-//     the 4-byte types, whose padded rows are 8-byte aligned) when x is
-//     16-byte aligned and w % 4 == 0, else through column indices mirrored
-//     once per thread.  Rows are mirrored once per row, only in tiles that
-//     cross an edge.  No per-element division or modulo.
-//   * The scale is applied as each value is stored (the same multiply,
-//     after the columns), and the LL1 re-mirror is folded into the source
-//     index of the LL1 copy.  Band rows are written 16 bytes at a time
-//     where the band width and the tile keep the runs aligned.
+//     with few threads busy.  Here each line (a row or a column) is walked
+//     once by one thread with all the steps pipelined in registers (see
+//     lines::walk), cut into segments of at least MIN_SEG pairs so that
+//     more threads walk at once (176 and 216 in the level-1 windows of B2
+//     and B5 at T=64); symmetric steps (the launcher checks on the host)
+//     update with t + w * (l + r) and no branch; one barrier pair per pass
+//     instead of one barrier per step.  A window's row stride is 2 mod 4,
+//     so lanes walking 32 rows read distinct banks.
+//   * Loads by cp.async with every row in flight: each thread keeps one
+//     chunk of window columns (B2) or one window column (B5) and walks the
+//     rows; column indices are mirrored once per thread, rows once per row
+//     and only in tiles that cross an edge.  No per-element division or
+//     modulo.  B2 copies 16 bytes a chunk inside the image where x is
+//     aligned; B5 copies element by element, since its interleaved window
+//     takes each band at every second column, but a warp's copies of
+//     neighbouring columns read two bands 64 contiguous bytes each, whole
+//     sectors.  B5's level-1 details are in flight while level 2 lifts.
+//   * The scale: B2 applies it as each value is stored (the same multiply,
+//     after the columns); B5 as each value is first read, by its column
+//     walk (the same multiply, before any step).  B2's LL1 re-mirror and
+//     B5's channel rule and interleave are folded into the source index of
+//     the LL1 copy.  Band rows (B2) and output rows (B5) are written 16
+//     bytes at a time where the widths and the tile keep the runs aligned.
 //   * The default tile (64) is a compile-time constant; other tiles run the
 //     same body with the tile read at run time.
-//
-// Inverse tile (T x T output samples): level-2 coefficients in the LL1
-//   domain with halo 8 -> scale, inverse columns, rows -> LL1 with halo 2;
-//   rewrite the LL1 rows/columns past the bottom/right edge with the
-//   level-1 channel rule s[N+m] = s[N-1-m] -> interleave with the mirrored
-//   level-1 bands (halo 4) -> scale, inverse columns, rows -> write.
-// Axis order: forward rows then columns, inverse columns then rows, for
-// floats and ints alike (the integer order the oracle needs bit-exactly).
-// The inverse body is in tiles.cuh (inv2_*), shared with the strip kernels
-// of streamed.cu.  float64 (f64) doubles the shared memory: 75 KB forward
-// and 60 KB inverse at the default 64x64 tile.
+// float64 (f64) doubles the shared memory: 75 KB forward and 62 KB inverse
+// at the default 64x64 tile.
+#include <cstdint>
 #include <type_traits>
 
 #include "tiles.cuh"
@@ -73,9 +81,13 @@
 namespace {
 
 constexpr int HALO2 = tiles::HALO2;
+constexpr int IH2 = tiles::IH2;
+constexpr int IH1 = tiles::IH1;
 constexpr int THREADS = 256;
 
-namespace fwd2 {
+// Lines of a window in shared memory, walked by one thread each with every
+// lifting step pipelined in registers: the lifting core of B2 and B5.
+namespace lines {
 
 // 16 bytes of T, and one (even, odd) sample pair.
 template <typename T> struct Vec16;
@@ -94,45 +106,6 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // Row stride of a window n samples wide (n even): n or n + 2, whichever is
 // 2 mod 4, so that 16 lanes walking 16 rows read 16 distinct bank pairs.
 __host__ __device__ __forceinline__ int stride(int n) { return n % 4 ? n : n + 2; }
-
-template <typename T>
-__device__ __forceinline__ T scaled(T v, const LiftParams& P, int i) {
-    return P.has_scale ? scale_one(v, P, i) : v;
-}
-
-// Copy the E x E window at (y0 - HALO2, x0 - HALO2) into s (row stride
-// RS) with cp.async, every row in flight at once: each thread keeps one
-// chunk of V = 16 / sizeof(T) columns and walks the rows.  A chunk inside
-// the image is one 16-byte copy for float64 and two 8-byte copies for the
-// 4-byte types (RS is 2 mod 4, so their rows are 8-byte aligned) when
-// ``vec``, else V copies through column indices mirrored once; rows are
-// mirrored once per row, only in tiles whose window crosses an edge.
-template <typename T>
-__device__ __forceinline__ void load(const T* __restrict__ x, T* s, int RS, int h, int w,
-                                     int y0, int x0, int E, bool vec) {
-    constexpr int V = 16 / sizeof(T);
-    const int cpr = E / V, groups = blockDim.x / cpr;  // E % 4 == 0
-    if ((int)threadIdx.x >= groups * cpr) return;
-    const int m = threadIdx.x % cpr, gx = x0 - HALO2 + m * V;
-    const bool in_x = vec && gx >= 0 && gx + V <= w;
-    int cx[V];
-#pragma unroll
-    for (int u = 0; u < V; ++u) cx[u] = mirror_idx(gx + u, w);
-    const bool in_y = y0 - HALO2 >= 0 && y0 - HALO2 + E <= h;
-    for (int r = threadIdx.x / cpr; r < E; r += groups) {
-        const int gy = in_y ? y0 - HALO2 + r : mirror_idx(y0 - HALO2 + r, h);
-        const T* row = x + (size_t)gy * w;
-        T* dst = s + r * RS + m * V;
-        if (in_x) {
-#pragma unroll
-            for (int u = 0; u < V; u += 2)
-                __pipeline_memcpy_async(dst + u, row + gx + u, 2 * sizeof(T));
-        } else {
-#pragma unroll
-            for (int u = 0; u < V; ++u) __pipeline_memcpy_async(dst + u, row + cx[u], sizeof(T));
-        }
-    }
-}
 
 // A window line of L (even, odd) sample pairs: a row (pairs adjacent) or
 // a column (samples RS apart).
@@ -198,17 +171,22 @@ struct Lifter {
 
 // Every lifting step of P along pairs [f, e) of a line, walked once by one
 // thread with the steps pipelined in registers: NST (1, 2 or 4) steps
-// alternating d, s from d.  Reading pair k, step 2m (d) updates odd
-// 2(k-1-m)+1 and step 2m+1 (s) even 2(k-1-m), each from the values its
-// neighbours have after the step before; pair k - D (D = ceil(NST/2)) is
-// then final and is written back in place if it lies in [a, b).  The
-// positions of each step are those of lift_tile on [f, e): odd 2q+1 for q
-// <= e - 2, even 2q for q >= f + 1.  On a whole line (f = a = 0, e = b = L)
-// this is lift_tile's pass; on a segment, the staleness of the cut ends
-// (two pairs for four steps) stays in the warm-up pairs.
-template <int NST, bool SYM, typename Line, typename T = typename Line::value_type>
+// alternating d, s from d (the forward's), or, SF, alternating s, d from s
+// (the inverse's; NST 2 or 4).  Each step updates a sample from the values
+// its neighbours have after the step before.  Reading pair k, from d: step
+// 2m (d) updates odd 2(k-1-m)+1 and step 2m+1 (s) even 2(k-1-m); from s:
+// step 2m (s) updates even 2(k-m) and step 2m+1 (d) odd 2(k-1-m)+1.  Pair
+// k - D (D = ceil(NST/2)) is then final and is written back in place if it
+// lies in [a, b).  The positions of each step are those of lift_tile on
+// [f, e): odd 2q+1 for q <= e - 2, even 2q for q >= f + 1.  On a whole
+// line (f = a = 0, e = b = L) this is lift_tile's pass; on a segment, the
+// staleness of the cut ends (two pairs for four steps) stays in the
+// warm-up pairs.
+template <int NST, bool SYM, bool SF = false, typename Line,
+          typename T = typename Line::value_type>
 __device__ __forceinline__ void walk(const Line& line, int f, int e, int a, int b,
                                      const Warm<T>& wm, const LiftParams& P) {
+    static_assert(!SF || NST > 1, "an s-first walk has an s and a d step");
     constexpr int D = (NST + 1) / 2;
     const Lifter<T, SYM> lift{P};
     // e0..e2 = even of pairs k, k-1, k-2; o0..o3 = odd of pairs k .. k-3
@@ -217,13 +195,25 @@ __device__ __forceinline__ void walk(const Line& line, int f, int e, int a, int 
     // are known to apply (the steady middle of the walk)
     auto iter = [&](int k, auto all) {
         constexpr bool A = decltype(all)::value;
-        if (A || (k - 1 >= f && k - 1 <= e - 2)) o1 = lift.template step<0>(o1, e1, e0);
-        if constexpr (NST > 1)
-            if (A || (k - 1 >= f + 1 && k - 1 <= e - 1)) e1 = lift.template step<1>(e1, o2, o1);
-        if constexpr (NST > 2)
-            if (A || (k - 2 >= f && k - 2 <= e - 2)) o2 = lift.template step<2>(o2, e2, e1);
-        if constexpr (NST > 3)
-            if (A || (k - 2 >= f + 1 && k - 2 <= e - 1)) e2 = lift.template step<3>(e2, o3, o2);
+        if constexpr (SF) {
+            if (A || (k >= f + 1 && k <= e - 1)) e0 = lift.template step<0>(e0, o1, o0);
+            if (A || (k - 1 >= f && k - 1 <= e - 2)) o1 = lift.template step<1>(o1, e1, e0);
+            if constexpr (NST > 2) {
+                if (A || (k - 1 >= f + 1 && k - 1 <= e - 1))
+                    e1 = lift.template step<2>(e1, o2, o1);
+                if (A || (k - 2 >= f && k - 2 <= e - 2)) o2 = lift.template step<3>(o2, e2, e1);
+            }
+        } else {
+            if (A || (k - 1 >= f && k - 1 <= e - 2)) o1 = lift.template step<0>(o1, e1, e0);
+            if constexpr (NST > 1)
+                if (A || (k - 1 >= f + 1 && k - 1 <= e - 1))
+                    e1 = lift.template step<1>(e1, o2, o1);
+            if constexpr (NST > 2)
+                if (A || (k - 2 >= f && k - 2 <= e - 2)) o2 = lift.template step<2>(o2, e2, e1);
+            if constexpr (NST > 3)
+                if (A || (k - 2 >= f + 1 && k - 2 <= e - 1))
+                    e2 = lift.template step<3>(e2, o3, o2);
+        }
         if (A || (k - D >= a && k - D < b)) {
             if constexpr (D == 1) line.put(k - 1, e1, o1);
             else line.put(k - 2, e2, o2);
@@ -270,7 +260,8 @@ __device__ __forceinline__ void walk(const Line& line, int f, int e, int a, int 
 // segments of at least MIN_SEG pairs so that n * S threads walk at once.
 constexpr int MIN_SEG = 12;
 
-template <int NST, bool SYM, typename Line, typename T = typename Line::value_type>
+template <int NST, bool SYM, bool SF = false, typename Line,
+          typename T = typename Line::value_type>
 __device__ __forceinline__ void pass(const Line& line, int n, const LiftParams& P) {
     const int L = n / 2, S = max(1, min((int)blockDim.x / n, L / MIN_SEG));
     const int seg = threadIdx.x / n;
@@ -279,8 +270,53 @@ __device__ __forceinline__ void pass(const Line& line, int n, const LiftParams& 
     Warm<T> wm;
     if (seg < S) wm.read(line, f, a, b, e);
     __syncthreads();
-    if (seg < S) walk<NST, SYM>(line, f, e, a, b, wm, P);
+    if (seg < S) walk<NST, SYM, SF>(line, f, e, a, b, wm, P);
     __syncthreads();
+}
+
+}  // namespace lines
+
+namespace fwd2 {
+
+using lines::Vec16;
+
+template <typename T>
+__device__ __forceinline__ T scaled(T v, const LiftParams& P, int i) {
+    return P.has_scale ? scale_one(v, P, i) : v;
+}
+
+// Copy the E x E window at (y0 - HALO2, x0 - HALO2) into s (row stride
+// RS) with cp.async, every row in flight at once: each thread keeps one
+// chunk of V = 16 / sizeof(T) columns and walks the rows.  A chunk inside
+// the image is one 16-byte copy for float64 and two 8-byte copies for the
+// 4-byte types (RS is 2 mod 4, so their rows are 8-byte aligned) when
+// ``vec``, else V copies through column indices mirrored once; rows are
+// mirrored once per row, only in tiles whose window crosses an edge.
+template <typename T>
+__device__ __forceinline__ void load(const T* __restrict__ x, T* s, int RS, int h, int w,
+                                     int y0, int x0, int E, bool vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int cpr = E / V, groups = blockDim.x / cpr;  // E % 4 == 0
+    if ((int)threadIdx.x >= groups * cpr) return;
+    const int m = threadIdx.x % cpr, gx = x0 - HALO2 + m * V;
+    const bool in_x = vec && gx >= 0 && gx + V <= w;
+    int cx[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) cx[u] = mirror_idx(gx + u, w);
+    const bool in_y = y0 - HALO2 >= 0 && y0 - HALO2 + E <= h;
+    for (int r = threadIdx.x / cpr; r < E; r += groups) {
+        const int gy = in_y ? y0 - HALO2 + r : mirror_idx(y0 - HALO2 + r, h);
+        const T* row = x + (size_t)gy * w;
+        T* dst = s + r * RS + m * V;
+        if (in_x) {
+#pragma unroll
+            for (int u = 0; u < V; u += 2)
+                __pipeline_memcpy_async(dst + u, row + gx + u, 2 * sizeof(T));
+        } else {
+#pragma unroll
+            for (int u = 0; u < V; ++u) __pipeline_memcpy_async(dst + u, row + cx[u], sizeof(T));
+        }
+    }
 }
 
 // Every lifting step along the rows, then the columns, of an n x n window
@@ -288,8 +324,8 @@ __device__ __forceinline__ void pass(const Line& line, int n, const LiftParams& 
 template <int NST, bool SYM, typename T>
 __device__ __forceinline__ void lift2d(T* s, int n, int RS, const LiftParams& P) {
     const int line = threadIdx.x % n;
-    pass<NST, SYM>(RowLine<T>{s + line * RS}, n, P);
-    pass<NST, SYM>(ColLine<T>{s + line, RS}, n, P);
+    lines::pass<NST, SYM>(lines::RowLine<T>{s + line * RS}, n, P);
+    lines::pass<NST, SYM>(lines::ColLine<T>{s + line, RS}, n, P);
 }
 
 // n (<= V) samples two apart at ``src`` to ``dst``, each times scale
@@ -325,7 +361,7 @@ __device__ __forceinline__ void store_bands(const T* s, int RS, int core,
     constexpr int V = 16 / sizeof(T);
     bool vec = cols_out % V == 0 && seg % V == 0;
 #pragma unroll
-    for (int b = 0; b < NB; ++b) vec = vec && aligned16(bands[b]);
+    for (int b = 0; b < NB; ++b) vec = vec && lines::aligned16(bands[b]);
     const int cps = (seg + V - 1) / V, groups = blockDim.x / cps;
     if ((int)threadIdx.x >= groups * cps) return;
     const int c = threadIdx.x % cps, gc = gc0 + c * V;
@@ -367,6 +403,135 @@ __device__ __forceinline__ void ll1_window(const T* s1, int RS, T* s2, int RS1, 
 
 }  // namespace fwd2
 
+namespace inv2 {
+
+// Scale factor i of P (0..3: LL, HL, LH, HH) as a multiplier in T: 1
+// where P has no scale, and for the integer types, which have none.
+template <typename T>
+__device__ __forceinline__ T factor(const LiftParams& P, int i) {
+    if constexpr (std::is_same<T, float>::value) return P.has_scale ? P.scale[i] : 1.0f;
+    else if constexpr (std::is_same<T, double>::value) return P.has_scale ? P.dscale[i] : 1.0;
+    else return T(1);
+}
+template <typename T>
+__device__ __forceinline__ T mul(T v, T s) {
+    if constexpr (std::is_same<T, float>::value) return __fmul_rn(v, s);
+    else if constexpr (std::is_same<T, double>::value) return __dmul_rn(v, s);
+    else return v;
+}
+
+// A window column whose samples are multiplied by their parity's scale
+// factor as the walk reads them (``se`` at even rows, ``so`` at odd): the
+// inverse's scale, one multiply before any lifting step, so the bits are
+// those of a separate scale pass.  x * 1 is x, so an unscaled wavelet
+// takes factors of 1.
+template <typename T>
+struct ScaledColLine {
+    using value_type = T;
+    T* p;
+    int rs;
+    T se, so;
+    __device__ __forceinline__ void get(int k, T& e, T& o) const {
+        e = mul(p[2 * k * rs], se);
+        o = mul(p[(2 * k + 1) * rs], so);
+    }
+    __device__ __forceinline__ void put(int k, T e, T o) const {
+        p[2 * k * rs] = e;
+        p[(2 * k + 1) * rs] = o;
+    }
+};
+
+// cp.async the samples (r, c) of an E x E window, r = r0, r0 + 2, ... and
+// c = c0, c0 + cs, ... (cs 1 or 2), into s (row stride RS).  The window
+// starts at (oy, ox) (both even) of an interleaved level nr x nc whose rows
+// of parity r0 hold band ``even`` at even columns and ``odd`` at odd ones
+// (band rows bw wide).  Each thread keeps one window column, mirrored once,
+// and walks the rows, mirrored once per row and only when ``in_y`` is
+// false.  The whole-point mirror keeps parity (p -> -p, p -> 2(n-1) - p),
+// so a mirrored sample stays in its band.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* s, int RS, int E, int r0, int c0, int cs,
+                                          const T* even, const T* odd, int bw, int oy,
+                                          int ox, int nr, int nc, bool in_y) {
+    const int ncol = (E - c0 + cs - 1) / cs, groups = blockDim.x / ncol;
+    if ((int)threadIdx.x >= groups * ncol) return;
+    const int c = c0 + cs * (threadIdx.x % ncol);
+    const T* band = ((c & 1) ? odd : even) + (mirror_idx(ox + c, nc) >> 1);
+    for (int r = r0 + 2 * (threadIdx.x / ncol); r < E; r += 2 * groups) {
+        const int gr = in_y ? oy + r : mirror_idx(oy + r, nr);
+        __pipeline_memcpy_async(s + r * RS + c, band + (size_t)(gr >> 1) * bw, sizeof(T));
+    }
+}
+
+// Scale, then every lifting step along the columns, then the rows, of an
+// n x n window (row stride RS): the inverse's steps alternate s, d from s,
+// or are one d step.
+template <int NST, bool SYM, typename T>
+__device__ __forceinline__ void lift2d(T* s, int n, int RS, const LiftParams& P) {
+    constexpr bool SF = NST > 1;
+    const int line = threadIdx.x % n;
+    const ScaledColLine<T> col{s + line, RS, factor<T>(P, line & 1),
+                               factor<T>(P, 2 | (line & 1))};
+    lines::pass<NST, SYM, SF>(col, n, P);
+    lines::pass<NST, SYM, SF>(lines::RowLine<T>{s + line * RS}, n, P);
+}
+
+// LL1 from the lifted level-2 window (row stride RS2) into the even/even
+// samples of the level-1 window (row stride RS1, n1 samples of each parity
+// a side), with the level-1 channel rule s[N+m] = s[N-1-m] past the
+// bottom/right edge in the source index: the values tiles::inv2_lifted
+// rewrites in two passes and then interleaves.  Level-1 sample (2i, 2j) is
+// LL1 (y0/2 - IH1/2 + i, x0/2 - IH1/2 + j), level-2 sample (c + i, c + j)
+// with c = IH2 - IH1/2.
+template <typename T>
+__device__ __forceinline__ void ll1_window(const T* s2, int RS2, T* s1, int RS1, int h,
+                                           int w, int y0, int x0, int n1) {
+    constexpr int C = IH2 - IH1 / 2;
+    const int N = h / 2, M = w / 2, by = y0 / 2 - IH2, bx = x0 / 2 - IH2;
+    const int groups = blockDim.x / n1;
+    if ((int)threadIdx.x >= groups * n1) return;
+    const int j = threadIdx.x % n1, c = C + j;
+    const T* src = s2 + (bx + c >= M ? max(2 * M - 1 - (bx + c) - bx, 0) : c);
+    T* dst = s1 + 2 * j;
+#pragma unroll 4
+    for (int i = threadIdx.x / n1; i < n1; i += groups) {
+        const int r = C + i;
+        const int rr = by + r >= N ? max(2 * N - 1 - (by + r) - by, 0) : r;
+        dst[2 * i * RS1] = src[rr * RS2];
+    }
+}
+
+// The tile x tile core of the lifted level-1 window (from row and column
+// IH1, row stride RS1) -> out from (y0, x0), cut at h x w.  Each thread
+// keeps one chunk of V = 16 / sizeof(T) columns and walks the rows: one
+// 16-byte store a chunk (out 16-byte aligned, checked by launch_inv2;
+// w % 4 == 0 and x0 % 4 == 0 keep every chunk whole or wholly outside).
+template <typename T>
+__device__ __forceinline__ void store(const T* s1, int RS1, T* out, int h, int w, int y0,
+                                      int x0, int tile) {
+    constexpr int V = 16 / sizeof(T);
+    using PT = typename lines::Pair<T>::type;
+    using VT = typename lines::Vec16<T>::type;
+    const int cpr = tile / V, groups = blockDim.x / cpr;  // tile % 4 == 0
+    if ((int)threadIdx.x >= groups * cpr) return;
+    const int c = threadIdx.x % cpr, gx = x0 + c * V;
+    const int rows = min(tile, h - y0);
+    if (gx >= w) return;
+    const T* src = s1 + IH1 * RS1 + IH1 + c * V;  // even: Pair-aligned
+#pragma unroll 4
+    for (int r = threadIdx.x / cpr; r < rows; r += groups) {
+        T* dst = out + (size_t)(y0 + r) * w + gx;
+        const T* sr = src + r * RS1;
+        VT v;
+#pragma unroll
+        for (int u = 0; u < V / 2; ++u)
+            reinterpret_cast<PT*>(&v)[u] = reinterpret_cast<const PT*>(sr)[u];
+        *reinterpret_cast<VT*>(dst) = v;
+    }
+}
+
+}  // namespace inv2
+
 // TILE: the tile edge at compile time, or 0 to take ``tile``.  NST: the
 // lifting steps (1, 2 or 4, alternating d, s from d); SYM: all symmetric.
 template <typename T, int TILE, int NST, bool SYM>
@@ -376,11 +541,11 @@ __global__ void fwd2_kernel(const T* __restrict__ x, T* ll2, T* hl2, T* lh2, T* 
     extern __shared__ __align__(16) unsigned char fwd2_smem[];
     const int tile = TILE ? TILE : tile_arg;
     const int E = tile + 2 * HALO2, E1 = tile / 2 + 8;
-    const int RS = fwd2::stride(E), RS1 = fwd2::stride(E1);
+    const int RS = lines::stride(E), RS1 = lines::stride(E1);
     T* s1 = reinterpret_cast<T*>(fwd2_smem);
     T* s2 = s1 + E * RS;  // E % 4 == 0, RS even: 16-byte aligned
     const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
-    fwd2::load(x, s1, RS, h, w, y0, x0, E, fwd2::aligned16(x) && w % 4 == 0);
+    fwd2::load(x, s1, RS, h, w, y0, x0, E, lines::aligned16(x) && w % 4 == 0);
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
@@ -394,61 +559,83 @@ __global__ void fwd2_kernel(const T* __restrict__ x, T* ll2, T* hl2, T* lh2, T* 
     fwd2::store_bands(s2, RS1, 4, b2, tile / 4, y0 / 4, x0 / 4, h / 4, w / 4, P);
 }
 
-template <typename T>
+// TILE, SYM as for fwd2_kernel; NST: the lifting steps (2 or 4,
+// alternating s, d from s; or 1, a d step).
+template <typename T, int TILE, int NST, bool SYM>
 __global__ void inv2_kernel(const T* __restrict__ ll2, const T* __restrict__ hl2,
                             const T* __restrict__ lh2, const T* __restrict__ hh2,
                             const T* __restrict__ hl1, const T* __restrict__ lh1,
-                            const T* __restrict__ hh1, T* out, int h, int w,
-                            int tile, LiftParams P) {
-    extern __shared__ unsigned char smem_raw[];
-    T* s2 = reinterpret_cast<T*>(smem_raw);
-    T* s1 = s2 + tiles::inv2_l2_elems(tile, tile);
+                            const T* __restrict__ hh1, T* out, int h, int w, int tile_arg,
+                            LiftParams P) {
+    extern __shared__ __align__(16) unsigned char inv2_smem[];
+    const int tile = TILE ? TILE : tile_arg;
+    const int E2 = tile / 2 + 2 * IH2, E1 = tile + 2 * IH1;
+    const int RS2 = lines::stride(E2), RS1 = lines::stride(E1);
+    T* s2 = reinterpret_cast<T*>(inv2_smem);
+    T* s1 = s2 + E2 * RS2;  // E2 and RS2 even: 16-byte aligned
     const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
-    tiles::inv2_load<false>(ll2, hl2, lh2, hh2, hl1, lh1, hh1, s2, s1, h, w, y0, x0,
-                            tile, tile);
+    const int N = h / 2, M = w / 2;
+    // level 2 in the LL1 domain (N x M), window from (y0/2 - IH2, x0/2 - IH2)
+    const int by = y0 / 2 - IH2, bx = x0 / 2 - IH2;
+    const bool in2 = by >= 0 && by + E2 <= N;
+    inv2::load_rows(s2, RS2, E2, 0, 0, 1, ll2, hl2, M / 2, by, bx, N, M, in2);
+    inv2::load_rows(s2, RS2, E2, 1, 0, 1, lh2, hh2, M / 2, by, bx, N, M, in2);
+    __pipeline_commit();
+    // level-1 details (h x w), window from (y0 - IH1, x0 - IH1): LH1/HH1 at
+    // the odd rows, HL1 at the odd columns of the even rows; in flight while
+    // level 2 lifts
+    const int py = y0 - IH1, px = x0 - IH1;
+    const bool in1 = py >= 0 && py + E1 <= h;
+    inv2::load_rows(s1, RS1, E1, 1, 0, 1, lh1, hh1, M, py, px, h, w, in1);
+    inv2::load_rows<T>(s1, RS1, E1, 0, 1, 2, nullptr, hl1, M, py, px, h, w, in1);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
     __syncthreads();
-    tiles::inv2_compute(s2, s1, out, h, w, y0, x0, tile, tile, P);
+    inv2::lift2d<NST, SYM>(s2, E2, RS2, P);
+    inv2::ll1_window(s2, RS2, s1, RS1, h, w, y0, x0, E1 / 2);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    inv2::lift2d<NST, SYM>(s1, E1, RS1, P);
+    inv2::store(s1, RS1, out, h, w, y0, x0, tile);
 }
 
-template <typename T, int TILE, int NST, bool SYM>
-int launch_fwd2_as(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
-                   T* hh1, int h, int w, int tile, const LiftParams* P,
-                   cudaStream_t stream) {
-    const int E = tile + 2 * HALO2, E1 = tile / 2 + 8;
-    const size_t smem = sizeof(T) * (size_t)(E * fwd2::stride(E) + E1 * fwd2::stride(E1));
-    if (smem > 48 * 1024)
-        cudaFuncSetAttribute(fwd2_kernel<T, TILE, NST, SYM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
-    fwd2_kernel<T, TILE, NST, SYM><<<grid, THREADS, smem, stream>>>(
-        x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, tile, *P);
-    return (int)cudaGetLastError();
-}
+template <int N>
+using Int = std::integral_constant<int, N>;
 
-template <typename T, int NST, bool SYM>
-int launch_fwd2_tile(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
-                     T* hh1, int h, int w, int tile, const LiftParams* P,
-                     cudaStream_t stream) {
-#define LIBDWT_FWD2_AS(TILE)                                                      \
-    return launch_fwd2_as<T, TILE, NST, SYM>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, \
-                                             h, w, tile, P, stream)
-    if (tile == 64) LIBDWT_FWD2_AS(64);  // the default tile, at compile time
-    LIBDWT_FWD2_AS(0);
-#undef LIBDWT_FWD2_AS
-}
-
-template <typename T, int NST>
-int launch_fwd2_nst(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
-                    T* hh1, int h, int w, int tile, const LiftParams* P,
-                    cudaStream_t stream) {
+// Calls go(TILE, NST, SYM), each a std::integral_constant, for ``tile`` and
+// the steps of P: TILE 64 (the default tile, at compile time) or 0 (read
+// at run time); NST 1, 2 or 4; SYM when every step is symmetric (floats
+// only, checked here on the host).
+template <typename T, typename Go>
+int dispatch(int tile, const LiftParams* P, Go go) {
     bool sym = !std::is_same<T, int>::value;
-    for (int s = 0; s < NST; ++s) sym = sym && P->fwl[s] == P->fwr[s] && P->dwl[s] == P->dwr[s];
-    if constexpr (!std::is_same<T, int>::value)
-        if (sym)
-            return launch_fwd2_tile<T, NST, true>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w,
-                                                  tile, P, stream);
-    return launch_fwd2_tile<T, NST, false>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w,
-                                           tile, P, stream);
+    for (int s = 0; s < P->n; ++s) sym = sym && P->fwl[s] == P->fwr[s] && P->dwl[s] == P->dwr[s];
+    auto with_tile = [&](auto nst, auto sy) {
+        if (tile == 64) return go(Int<64>{}, nst, sy);
+        return go(Int<0>{}, nst, sy);
+    };
+    auto with_sym = [&](auto nst) {
+        if constexpr (!std::is_same<T, int>::value)
+            if (sym) return with_tile(nst, std::true_type{});
+        return with_tile(nst, std::false_type{});
+    };
+    switch (P->n) {
+        case 1: return with_sym(Int<1>{});
+        case 2: return with_sym(Int<2>{});
+        case 4: return with_sym(Int<4>{});
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Launch ``kernel`` on the tiles of an h x w frame with ``smem`` bytes.
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, size_t smem, int h, int w, int tile, cudaStream_t stream,
+                 Args... args) {
+    if (smem > 48 * 1024)
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
+    kernel<<<grid, THREADS, smem, stream>>>(args...);
+    return (int)cudaGetLastError();
 }
 
 // The walk takes 1, 2 or 4 steps alternating d, s from d: every wavelet
@@ -460,31 +647,35 @@ int launch_fwd2(const T* x, T* ll2, T* hl2, T* lh2, T* hh2, T* hl1, T* lh1,
     if (tile + 2 * HALO2 > THREADS) return (int)cudaErrorInvalidValue;  // a line a thread
     for (int s = 0; s < P->n; ++s)
         if (P->is_d[s] != (s % 2 == 0)) return (int)cudaErrorInvalidValue;
-#define LIBDWT_FWD2_NST(N)                                                        \
-    return launch_fwd2_nst<T, N>(x, ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, tile, P, \
-                                 stream)
-    switch (P->n) {
-        case 1: LIBDWT_FWD2_NST(1);
-        case 2: LIBDWT_FWD2_NST(2);
-        case 4: LIBDWT_FWD2_NST(4);
-        default: return (int)cudaErrorInvalidValue;
-    }
-#undef LIBDWT_FWD2_NST
+    const int E = tile + 2 * HALO2, E1 = tile / 2 + 8;
+    const size_t smem =
+        sizeof(T) * (size_t)(E * lines::stride(E) + E1 * lines::stride(E1));
+    return dispatch<T>(tile, P, [&](auto tc, auto nst, auto sym) {
+        return launch_tiles(fwd2_kernel<T, decltype(tc)::value, decltype(nst)::value,
+                                        decltype(sym)::value>, smem, h, w, tile, stream, x,
+                            ll2, hl2, lh2, hh2, hl1, lh1, hh1, h, w, tile, *P);
+    });
 }
 
+// The inverse's steps (already reversed and negated) alternate s, d from
+// s (2 or 4 of them), or are one d step: every wavelet the fused kernels
+// accept.  ``out`` must be 16-byte aligned (the stores are 16 bytes wide).
 template <typename T>
 int launch_inv2(const T* ll2, const T* hl2, const T* lh2, const T* hh2,
                 const T* hl1, const T* lh1, const T* hh1, T* out, int h, int w,
                 int tile, const LiftParams* P, cudaStream_t stream) {
-    const size_t smem = sizeof(T) * (size_t)(tiles::inv2_l2_elems(tile, tile)
-                                             + tiles::inv2_l1_elems(tile, tile));
-    if (smem > 48 * 1024)
-        cudaFuncSetAttribute(inv2_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
-    inv2_kernel<T><<<grid, THREADS, smem, stream>>>(ll2, hl2, lh2, hh2, hl1, lh1,
-                                                    hh1, out, h, w, tile, *P);
-    return (int)cudaGetLastError();
+    if (tile + 2 * IH1 > THREADS) return (int)cudaErrorInvalidValue;  // a line a thread
+    if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (P->n == 1 || s % 2 == 1)) return (int)cudaErrorInvalidValue;
+    const int E2 = tile / 2 + 2 * IH2, E1 = tile + 2 * IH1;
+    const size_t smem =
+        sizeof(T) * (size_t)(E2 * lines::stride(E2) + E1 * lines::stride(E1));
+    return dispatch<T>(tile, P, [&](auto tc, auto nst, auto sym) {
+        return launch_tiles(inv2_kernel<T, decltype(tc)::value, decltype(nst)::value,
+                                        decltype(sym)::value>, smem, h, w, tile, stream,
+                            ll2, hl2, lh2, hh2, hl1, lh1, hh1, out, h, w, tile, *P);
+    });
 }
 
 }  // namespace

@@ -10,8 +10,9 @@ GPU machine that has no JAX installed:
 
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
-int32 bit-exactly, B2 bit for bit in every dtype (main-path frame,
-border-only and mixed tiles, a misaligned input, tiles 32-128); the banded body to 2e-5 (the tensor cores sum in
+int32 bit-exactly, B2 and B5 bit for bit in every dtype (main-path frame,
+border-only and mixed tiles, a misaligned input, tiles 32-128; B5 refuses
+a misaligned output); the banded body to 2e-5 (the tensor cores sum in
 another order than the plain version's matrix products).  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
 extended-rows contracts of the single levels (4 rows fused, 8 streamed),
@@ -19,6 +20,8 @@ extended-rows contracts of the single levels (4 rows fused, 8 streamed),
 strips with ragged last strips and bands and short tails, and streamed
 volume tiles with ragged z, y and x tails.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -135,6 +138,82 @@ def test_b2_misaligned_input_takes_the_scalar_loads(cuda_device, dtype):
 ] + [(torch.int32, wv) for wv in ("cdf97", "cdf53", "haar")])
 def test_b2_tiles_and_wavelets_equal_plain(cuda_device, tile, dtype, wavelet):
     _b2_exact(_img(1056, 548, dtype, cuda_device, seed=5).to(dtype), wavelet, tile)
+
+
+def _b5_exact(x, wavelet, tile=None, offset=0):
+    """B5 on the two-level separable forward of ``x`` (each band a
+    contiguous view at storage offset ``offset``) equals its plain version
+    bit for bit, in one launch."""
+    kw = {} if tile is None else {"tile": tile}
+    c = sep.wavedec2(x, wavelet, 2)
+    bands = [c[0], *c[1], *c[2]]
+    if offset:
+        bands = [torch.cat([b.new_zeros(offset), b.reshape(-1)])[offset:].view(b.shape)
+                 for b in bands]
+        assert all(b.is_contiguous() and b.data_ptr() % 16 for b in bands)
+    ll2, bands2, bands1 = bands[0], tuple(bands[1:4]), tuple(bands[4:])
+    tf.reset_counters()
+    got = tf.fused_idwt2_2level(ll2, bands2, bands1, wavelet, **kw)
+    torch.cuda.synchronize()
+    assert tf.KERNELS["B5"].launches == 1
+    _close(got, tf.fused_idwt2_2level_plain(ll2, bands2, bands1, wavelet, **kw), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [
+    (2144, 4096),  # the main path's frame
+    (28, 28), (28, 4096),  # every tile a border tile (the wrapper's minimum is 28)
+    (4100, 132), (1056, 548),  # interior and border tiles, ragged last tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b5_equals_plain_bit_for_bit(cuda_device, h, w, dtype):
+    _b5_exact(_img(h, w, dtype, cuda_device, seed=6).to(dtype),
+              "cdf53" if dtype == torch.int32 else "cdf97")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b5_misaligned_input_takes_the_scalar_loads(cuda_device, dtype):
+    """Band views at storage offset 1 are not 16-byte aligned."""
+    _b5_exact(_img(1056, 548, dtype, cuda_device, seed=7).to(dtype),
+              "cdf53" if dtype == torch.int32 else "cdf97", offset=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b5_misaligned_output_is_refused(cuda_device, dtype):
+    """B5 stores 16 bytes at a time: its C entry point refuses an output
+    that is not 16-byte aligned (cudaErrorInvalidValue, nothing written)
+    and takes one that is, at an offset of 16 bytes into the same buffer."""
+    from libdwt_torch.ops import _cuda
+
+    h, w, wavelet = 56, 64, "cdf53" if dtype == torch.int32 else "cdf97"
+    c = sep.wavedec2(_img(h, w, dtype, cuda_device, seed=9).to(dtype), wavelet, 2)
+    bands = [b.contiguous() for b in (c[0], *c[1], *c[2])]
+    fn = _cuda.kernel_fn("dwt_inv2", tf._suffix(dtype))
+    P = tf._lift_params(tf.get_wavelet(wavelet), dtype == torch.int32, True)
+    buf = torch.zeros(h * w + 16, dtype=dtype, device=cuda_device)
+    v = 16 // buf.element_size()
+    for off, rc in ((1, 1), (v, 0)):  # 1 == cudaErrorInvalidValue
+        out = buf[off:off + h * w].view(h, w)
+        err = fn(*[t.data_ptr() for t in bands + [out]], h, w, 64, ctypes.byref(P),
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == rc
+        if rc:
+            assert not buf.any()
+    _close(out, tf.fused_idwt2_2level_plain(bands[0], tuple(bands[1:4]),
+                                            tuple(bands[4:]), wavelet), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 64, 96, 128])
+@pytest.mark.parametrize("dtype,wavelet", [
+    (dt, wv) for dt in (torch.float32, torch.float64)
+    for wv in ("cdf97", "cdf53", "interp53", "haar")
+] + [(torch.int32, wv) for wv in ("cdf97", "cdf53", "haar")])
+def test_b5_tiles_and_wavelets_equal_plain(cuda_device, tile, dtype, wavelet):
+    _b5_exact(_img(1056, 548, dtype, cuda_device, seed=8).to(dtype), wavelet, tile)
 
 
 DEEP = [

@@ -127,6 +127,29 @@ def test_b5_plain_int_bitexact(h, w, wavelet):
     np.testing.assert_array_equal(got.numpy(), x)
 
 
+@pytest.mark.parametrize("h,w,dtype,wavelet", [
+    (248, 260, np.float32, "cdf97"), (248, 260, np.int32, "cdf53"),
+    (132, 196, np.int32, "cdf97"), (248, 260, np.float64, "cdf97"),
+    (96, 100, np.float32, "haar"), (28, 28, np.float32, "cdf97"),
+    (28, 28, np.int32, "cdf53")])
+def test_b5_plain_is_tile_invariant(h, w, dtype, wavelet):
+    """Every output of B5 depends only on its own neighbourhood (the level-2
+    window, the channel rule and the level-1 window are read at global
+    positions), so any tile gives the same bits: the CUDA kernel may pick
+    its tile and must still equal the plain version exactly.  28x28 is the
+    wrapper's smallest frame: every tile is a border tile."""
+    rng = np.random.default_rng(h * w + 1)
+    if dtype == np.int32:
+        x = torch.from_numpy(rng.integers(-255, 256, (h, w)).astype(np.int32))
+    else:
+        x = torch.from_numpy(rng.standard_normal((h, w)).astype(dtype))
+    ll2, bands2, bands1 = tf.fused_dwt2_2level_plain(x, wavelet)
+    base = tf.fused_idwt2_2level_plain(ll2, bands2, bands1, wavelet, 16)
+    for tile in (32, 64, 128):
+        got = tf.fused_idwt2_2level_plain(ll2, bands2, bands1, wavelet, tile)
+        assert got.dtype == x.dtype and torch.equal(got, base)
+
+
 # ------------------------------------------------------------------- B3 / B6
 
 
