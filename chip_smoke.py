@@ -9,10 +9,11 @@
    a numpy seed (CDF 9/7, float32):
    - the 2-D pyramid: ``api.wavedec2`` / ``waverec2``, J=5,
      ``impl='fused'`` on a 2144x4096 frame (two-level kernels B2/B5,
-     deep tails B3/B6);
+     deep tails B3/B6: one cooperative launch each for levels 3-5);
    - the single fused levels: ``api.dwt2`` / ``idwt2`` with
      ``impl='fused'`` on the same frame (B1/B4), and ``api.wavedec2`` of
-     a 2161x4097 frame, J=5, whose plan is B1, B1, then B3;
+     a 2161x4097 frame, J=5, whose plan is B1, B1, then B3 (three levels,
+     one launch);
    - the 3-D volume: ``api.wavedec3`` / ``waverec3``, J=2,
      ``impl='fused'`` on 64x512x512 (B14/B15, twice each);
    - the streamed pyramid: ``api.wavedec2`` / ``waverec2`` with
@@ -52,7 +53,9 @@
    version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5; B2 and B5 exactly, bit for bit), B1/B4/B7/B9 on every input the sharded kernel bodies and the
+   <= 3e-5; B2, B3, B5 and B6 exactly, bit for bit, B3 also on the odd
+   pyramid's 541x1025 chain), B1/B4/B7/B9 on every input the sharded
+   kernel bodies and the
    explicit-'auto' pyramid give them (caught by wrapping the wrappers
    during an extra run of those paths; <= 3e-5), each banded
    instantiation of B8/B10/B11/B12 against its plain version (<= 2e-5:
@@ -60,10 +63,13 @@
    level-1 shapes (exactly).
 5. Times each kernel and its plain version with CUDA events (and the
    kernel's device time with the profiler, which leaves out the host's
-   cost of issuing it), beside the card's bound for the same work, times
-   and profiles the paths, and
-   prints the card's name and power limit, a JSON line of kernels, and
-   last the contract line.
+   cost of issuing it), beside the card's bound for the same work; B3 and
+   B6 also beside the route they replace (one launch of level.cu's
+   kernel per level); the library yardstick of a forward level (reflect
+   padding by 4 and a stride-2 conv2d with the level's four 9x9 analysis
+   filters, TF32 off) at B3's level shapes and B1's frame; times and
+   profiles the paths, and prints the card's name and power limit, a
+   JSON line of kernels, and last the contract line.
 
 Exits non-zero, printing no result line, when there is no CUDA device
 or any check fails.  Needs one card.
@@ -338,16 +344,18 @@ def main() -> int:
     deep_in = [coeffs[0]] + list(coeffs[1:4])  # LL5 + levels 5..3
     ll2_rec = F.fused_deep_waverec2(deep_in, WV)
     b5_in = (ll2_rec, coeffs[4], coeffs[5])
+    # B3/B6 move their input once and every band of every level once (5.8 MB
+    # with the intermediate LLs, which the function need not move)
+    tail_bytes = 4 * (ll2.numel() + sum(a.numel() for a in leaves(coeffs[:4])))
+    tail_ops = ll2.numel() * (1 + 1 / 4 + 1 / 16) * OPS_PER_PIXEL_LEVEL
     cases = {
         "B2": (lambda: F.fused_dwt2_2level(x, WV),
                lambda: F.fused_dwt2_2level_plain(x, WV),
                x.numel() * 4 * 2, x.numel() * 1.25 * OPS_PER_PIXEL_LEVEL),
         "B3": (lambda: F.fused_deep_wavedec2(ll2, WV, 3),
-               lambda: F.fused_deep_wavedec2_plain(ll2, WV, 3),
-               ll2.numel() * 4 * 2, ll2.numel() * (1 + 1 / 4 + 1 / 16) * OPS_PER_PIXEL_LEVEL),
+               lambda: F.fused_deep_wavedec2_plain(ll2, WV, 3), tail_bytes, tail_ops),
         "B6": (lambda: F.fused_deep_waverec2(deep_in, WV),
-               lambda: F.fused_deep_waverec2_plain(deep_in, WV),
-               ll2.numel() * 4 * 2, ll2.numel() * (1 + 1 / 4 + 1 / 16) * OPS_PER_PIXEL_LEVEL),
+               lambda: F.fused_deep_waverec2_plain(deep_in, WV), tail_bytes, tail_ops),
         "B5": (lambda: F.fused_idwt2_2level(*b5_in, WV),
                lambda: F.fused_idwt2_2level_plain(*b5_in, WV),
                x.numel() * 4 * 2, x.numel() * 1.25 * OPS_PER_PIXEL_LEVEL),
@@ -356,11 +364,11 @@ def main() -> int:
     for k, (kern, plain, _, _) in cases.items():
         errs[k] = max_abs(leaves(kern()), leaves(plain()))
         torch.cuda.synchronize()
-        if k in ("B2", "B5"):  # own bodies, the plain arithmetic in the plain order
-            require(errs[k] == 0, f"{k} kernel == plain bit for bit at main-path shapes")
-        else:
-            require(errs[k] <= 3e-5, f"{k} kernel vs plain at main-path shapes "
-                    f"max|diff| {errs[k]:.3e} <= 3e-5")
+        # own bodies on lines.cuh's walks: the plain arithmetic in the plain order
+        require(errs[k] == 0, f"{k} kernel == plain bit for bit at main-path shapes")
+    require(all(1 <= g <= r for g, r in F.LAST_GRID.values()),
+            "B3/B6 cooperative grids fit the card's co-resident blocks "
+            + json.dumps(F.LAST_GRID))
 
     # ---- int32 CDF 5/3 at 512x512 through each kernel: exact
     xi = torch.from_numpy(test_image(512, 512, dtype=np.int32)).to(dev)
@@ -405,8 +413,8 @@ def main() -> int:
     torch.cuda.synchronize()
     odd_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
     print(f"{HO}x{WO} pyramid launches: " + json.dumps(odd_launches), flush=True)
-    require(odd_launches == {"B1": 2, "B3": 3},
-            f"{HO}x{WO} J={J} pyramid ran B1, B1, then B3 for 3 levels")
+    require(odd_launches == {"B1": 2, "B3": 1},
+            f"{HO}x{WO} J={J} pyramid ran B1, B1, then B3 once for 3 levels")
     err = max_abs(leaves(odd), leaves(sep.wavedec2(xo, WV, J)))
     require(err <= 5e-4, f"{HO}x{WO} pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
     launches["B1"] = level_launches["B1"] + odd_launches["B1"]
@@ -424,8 +432,12 @@ def main() -> int:
              lambda a: F.fused_deep_wavedec2_plain(a, WV, 3))):
         err = max_abs(leaves(kern(arg)), leaves(plain(arg)))
         torch.cuda.synchronize()
-        require(err <= 3e-5, f"{k} kernel vs plain at {'x'.join(map(str, arg.shape))} "
-                f"({HO}x{WO} pyramid) max|diff| {err:.3e} <= 3e-5")
+        if k == "B3":
+            require(err == 0, f"B3 kernel == plain bit for bit at "
+                    f"{'x'.join(map(str, arg.shape))} ({HO}x{WO} pyramid)")
+        else:
+            require(err <= 3e-5, f"{k} kernel vs plain at {'x'.join(map(str, arg.shape))} "
+                    f"({HO}x{WO} pyramid) max|diff| {err:.3e} <= 3e-5")
 
     # ---- the bench gates of B1, and the extended-rows contract
     xs = torch.from_numpy(rng.standard_normal((513, 511)).astype(np.float32)).to(dev)
@@ -949,6 +961,83 @@ def main() -> int:
               f"{nbytes / 1e6:.1f} MB moved{tc}) [{smi}]", flush=True)
         return ms, plain_ms, max(bytes_ms, ops_ms), bound_by
 
+    # ---- B3/B6 per call beside the route they replace: one launch of
+    # level.cu's kernel per level, through B1/B4's wrappers
+    def level_route_fwd():
+        a = ll2
+        for _ in range(3):
+            a = F.fused_dwt2_level(a, WV)[0]
+
+    def level_route_inv():
+        a = deep_in[0]
+        for lvl in deep_in[1:]:
+            a = F.fused_idwt2_level(a, *lvl, WV)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    for k, one, per_level in (("B3", cases["B3"][0], level_route_fwd),
+                              ("B6", cases["B6"][0], level_route_inv)):
+        print(f"time {k} per call (levels 3-5 of {H}x{W} f32): device {fmt(device_ms(one))} "
+              f"(one cooperative launch, csrc/deep.cu); one level.cu launch per level: "
+              f"device {fmt(device_ms(per_level))} [{smi}]", flush=True)
+
+    # ---- the library yardstick of a forward level (never on the port's
+    # path): reflect padding by 4 (whole-point, as the kernels' mirror) and
+    # a stride-2 conv2d with the level's four 9x9 analysis filters, read off
+    # the plain level's response to unit impulses; TF32 off.  The inverse
+    # has none: its border rule on the bands is not a padding.
+    import torch.nn.functional as nnf
+
+    def analysis_filters():
+        n, p = 32, 16
+        wts = torch.zeros(4, 1, 9, 9, dtype=torch.float64)
+        for dp in (0, 1):
+            for dq in (0, 1):
+                imp = torch.zeros(n, n, dtype=torch.float64)
+                imp[p + dp, p + dq] = 1
+                for k, b in enumerate(F.dwt2_level_plain(imp, WV)):
+                    for i in range(b.shape[0]):
+                        for j in range(b.shape[1]):
+                            u, v = p + dp - 2 * i + 4, p + dq - 2 * j + 4
+                            if 0 <= u < 9 and 0 <= v < 9:
+                                wts[k, 0, u, v] = b[i, j]
+        return wts.to(dev, torch.float32)
+
+    conv_w = analysis_filters()
+
+    def conv_level(a):
+        return nnf.conv2d(nnf.pad(a[None, None], (4, 4, 4, 4), mode="reflect"), conv_w,
+                          stride=2)[0]
+
+    def conv_tail(a):
+        out = []
+        for _ in range(3):
+            a, *details = conv_level(a)
+            out.append(details)
+        return [a] + out[::-1]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib_inputs = [ll2] + [F.fused_deep_wavedec2_plain(ll2, WV, n)[0] for n in (1, 2)]
+        for a in lib_inputs + [x]:
+            err = max_abs(list(conv_level(a)), list(F.dwt2_level_plain(a, WV)))
+            shape = "x".join(map(str, a.shape))
+            require(err <= 3e-5, f"pad + conv2d level vs plain at {shape} max|diff| "
+                    f"{err:.3e} <= 3e-5")
+            print(f"time pad + conv2d level {shape}: {time_ms(lambda: conv_level(a), args.reps):.4f} "
+                  f"ms (device {fmt(device_ms(lambda: conv_level(a)))}) [{smi}]", flush=True)
+        err = max_abs(leaves(conv_tail(ll2)), leaves(F.fused_deep_wavedec2_plain(ll2, WV, 3)))
+        require(err <= 3e-5, f"pad + conv2d levels 3-5 vs B3's plain version max|diff| "
+                f"{err:.3e} <= 3e-5")
+        library = {"B1": time_ms(lambda: conv_level(x), args.reps),
+                   "B3": time_ms(lambda: conv_tail(ll2), args.reps)}
+        print(f"time pad + conv2d levels 3-5 (B3's work): {library['B3']:.4f} ms (device "
+              f"{fmt(device_ms(lambda: conv_tail(ll2)))}) [{smi}]", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
     rows = []
     all_cases = {**cases, **new_cases, **streamed_cases, **b18_case}
     for k in sorted(all_cases, key=lambda kid: int(kid[1:])):
@@ -958,7 +1047,7 @@ def main() -> int:
             "name": f"{k} {st.name}", "route": "cuda", "source": st.source,
             "replaces": st.replaces, "launches": launches[k],
             "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library.get(k),
         })
     for k, case in level2.items():
         timed(k, *case, tag=f" level 2 ({'x'.join(map(str, ll3.shape))})")

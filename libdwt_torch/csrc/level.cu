@@ -1,15 +1,12 @@
-// One-level 2-D DWT tile kernels for Hopper (sm_90a), any h, w >= 1.
-//
-// The deep pyramid tail launches them once per level over device-memory
-// intermediates (each level's LL is the next level's input):
-//   dwt_fwd1_*  per level of libdwt_tpu/ops/fused.py fused_deep_wavedec2
-//               (:1381, body _deep_kernel :1353; TPU kernel id B3);
-//   dwt_inv1_*  per level of fused_deep_waverec2 (:1486, body
-//               _deep_inv_kernel :1466; TPU kernel id B6).
-// The same pair is the single fused level, under its own launch counts:
-//   dwt_fwd1_*  fused_dwt2_level (:548, bodies _fwd_kernel_pf :510 and
-//               _fwd_kernel :492; TPU kernel id B1);
-//   dwt_inv1_*  fused_idwt2_level (:984, body _inv_kernel :948; B4).
+// One-level 2-D DWT tile kernels for Hopper (sm_90a), any h, w >= 1:
+// the single fused level.
+//   dwt_fwd1_*  replaces libdwt_tpu/ops/fused.py fused_dwt2_level (:548,
+//               bodies _fwd_kernel_pf :510 and _fwd_kernel :492; TPU
+//               kernel id B1);
+//   dwt_inv1_*  replaces fused_idwt2_level (:984, body _inv_kernel :948;
+//               B4).
+// The deep pyramid tails (B3/B6) run all their levels in one cooperative
+// launch of deep.cu instead.
 // ``ext_rows`` is B1/B4's boundary_rows='extended': the caller supplies
 // HALO = 4 rows above and below the image (forward: x has h + 8 rows) or
 // CH = 4 channel rows above and below every band (inverse), and rows are
@@ -17,24 +14,21 @@
 // mirror.  Rows past the extension read as 0; they reach only outputs
 // past the image, which are not stored.
 //
-// Bound on an H100: bytes, but the deep levels are small (536x1024 f32 in,
-// ~2.1 MB each way, ~1.3 us at 3.35 TB/s) and stay in the 50 MB L2, so
-// launch latency dominates: one launch per level instead of the TPU's one
-// VMEM-resident launch for all levels (a ~2.2 MB image does not fit one
-// SM's 227 KB).  A single-launch cooperative or cluster design is later
-// work.  As B1/B4 on a 2144x4096 f32 frame the level moves 70.3 MB (21 us
-// at 3.35 TB/s); the (2T+8)^2 halo re-read (1.56x the core at T=32) hits
-// L2, and instruction issue in the lifting passes is what holds it.
+// Bound on an H100: bytes.  On a 2144x4096 f32 frame the level moves
+// 70.3 MB (21 us at 3.35 TB/s); the (2T+8)^2 halo re-read (1.56x the core
+// at T=32) hits L2, and instruction issue in the lifting passes is what
+// holds it.
 //
 // The tile bodies are in tiles.cuh (fwd1_tile, inv1_tile), shared with the
 // deep phases of streamed.cu.  Forward: a (2T+8)^2 tile of the image read
 // with whole-point mirror indices (_mirror_ext2's extension by 4, which
 // also gives odd sizes their ceil/floor bands) -> lift rows, columns,
-// scale -> the tile's T x T samples of each band.  Inverse: the interleaved coefficient image read
-// through the mirror (exactly the channel rules of _pad_ch_static: the
-// high channel of an odd length gets its missing ceil-grid sample) ->
-// scale, inverse columns, rows -> the tile's 2T x 2T outputs.  float64
-// (f64) doubles the tile's shared memory (41 KB at T=32).
+// scale -> the tile's T x T samples of each band.  Inverse: the
+// interleaved coefficient image read through the mirror (exactly the
+// channel rules of _pad_ch_static: the high channel of an odd length gets
+// its missing ceil-grid sample) -> scale, inverse columns, rows -> the
+// tile's 2T x 2T outputs.  float64 (f64) doubles the tile's shared memory
+// (41 KB at T=32).
 #include "tiles.cuh"
 
 namespace {

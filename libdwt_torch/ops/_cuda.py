@@ -20,9 +20,9 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu", "streamed3d.cu",
-           "remote_halo.cu")
-HEADERS = ("lifting.cuh", "tiles.cuh", "tiles3.cuh", "banded.cuh")
+SOURCES = ("fused2l.cu", "deep.cu", "level.cu", "fused3d.cu", "streamed.cu",
+           "streamed3d.cu", "remote_halo.cu")
+HEADERS = ("lifting.cuh", "lines.cuh", "tiles.cuh", "tiles3.cuh", "banded.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -159,6 +159,11 @@ _SIGS = {
     "dwt_fwd2": [_P] * 8 + [_I, _I, _I, _PP, _P],
     "dwt_inv2": [_P] * 8 + [_I, _I, _I, _PP, _P],
     "dwt_fwd1": [_P] * 5 + [_I] * 4 + [_PP, _P],
+    # host array of 4n + 1 pointers (image or LL, then per level three bands
+    # and what the level makes), levels, h, w, tile, host int[2] <- (grid,
+    # resident blocks)
+    "dwt_deep_fwd": [_P] + [_I] * 4 + [_P, _PP, _P],
+    "dwt_deep_inv": [_P] + [_I] * 4 + [_P, _PP, _P],
     "dwt_inv1": [_P] * 5 + [_I] * 4 + [_PP, _P],
     # input, host array of the 8 band pointers, Z, Y, X, tz, ty, tx
     "dwt3_fwd": [_P, _P] + [_I] * 6 + [_PP, _P],
@@ -193,6 +198,7 @@ _SIGS = {
 _F32_ONLY = ("dwt_sfwd2_mxu", "dwt_sinv2_mxu", "dwt_sdeep_fwd_mxu", "dwt_sdeep_inv_mxu")
 _UNTYPED = ("halo_extend_rows", "halo_enable_peer")
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
+              "dwt_deep_fwd": "deep.cu", "dwt_deep_inv": "deep.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
               "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu",
               "dwt3_sfwd": "streamed3d.cu", "dwt3_sinv": "streamed3d.cu",

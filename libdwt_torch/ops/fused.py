@@ -29,11 +29,11 @@ Ported kernels (TPU kernel ids of ROADMAP section B):
   B4 fused_idwt2_level     -> csrc/level.cu dwt_inv1_*
   B2 fused_dwt2_2level     -> csrc/fused2l.cu dwt_fwd2_*
   B5 fused_idwt2_2level    -> csrc/fused2l.cu dwt_inv2_*
-  B3 fused_deep_wavedec2   -> csrc/level.cu dwt_fwd1_*, one launch per level
-  B6 fused_deep_waverec2   -> csrc/level.cu dwt_inv1_*, one launch per level
-B1/B3 and B4/B6 share one CUDA kernel each and count their launches
-apart.  The 3-D kernels B14/B15 are in :mod:`libdwt_torch.ops.fused3d`
-and count in the same ``KERNELS`` table.
+  B3 fused_deep_wavedec2   -> csrc/deep.cu dwt_deep_fwd_*, one cooperative
+                              launch for all levels
+  B6 fused_deep_waverec2   -> csrc/deep.cu dwt_deep_inv_*, the same
+The 3-D kernels B14/B15 are in :mod:`libdwt_torch.ops.fused3d` and count
+in the same ``KERNELS`` table.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ __all__ = [
     "fused_supported", "fused_dwt2_level", "fused_idwt2_level",
     "fused_dwt2_2level", "fused_idwt2_2level", "fused_deep_wavedec2",
     "fused_deep_waverec2", "fused_wavedec2", "fused_waverec2",
-    "fused_wavedec2_plan", "KERNELS", "reset_counters", "HALO",
+    "fused_wavedec2_plan", "KERNELS", "LAST_GRID", "reset_counters", "HALO",
 ]
 
 #: one-sided halo (signal samples) sufficient for up to 4 lifting steps.
@@ -99,15 +99,20 @@ KERNELS = {
                      "libdwt_tpu/ops/fused.py:548"),
     "B2": KernelStat("B2", "fused_dwt2_2level", "libdwt_torch/csrc/fused2l.cu",
                      "libdwt_tpu/ops/fused.py:784"),
-    "B3": KernelStat("B3", "fused_deep_wavedec2", "libdwt_torch/csrc/level.cu",
+    "B3": KernelStat("B3", "fused_deep_wavedec2", "libdwt_torch/csrc/deep.cu",
                      "libdwt_tpu/ops/fused.py:1381"),
     "B4": KernelStat("B4", "fused_idwt2_level", "libdwt_torch/csrc/level.cu",
                      "libdwt_tpu/ops/fused.py:984"),
     "B5": KernelStat("B5", "fused_idwt2_2level", "libdwt_torch/csrc/fused2l.cu",
                      "libdwt_tpu/ops/fused.py:1173"),
-    "B6": KernelStat("B6", "fused_deep_waverec2", "libdwt_torch/csrc/level.cu",
+    "B6": KernelStat("B6", "fused_deep_waverec2", "libdwt_torch/csrc/deep.cu",
                      "libdwt_tpu/ops/fused.py:1486"),
 }
+
+
+#: the cooperative launches of B3 and B6: (grid, co-resident blocks) of
+#: the last launch, by kernel id
+LAST_GRID: dict = {}
 
 
 def reset_counters() -> None:
@@ -548,27 +553,28 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def _level_fwd_cuda(kid, x, wavelet, tile, ext=False):
-    x = x.contiguous()
-    h, w = x.shape
-    if ext:
-        h -= 2 * HALO
-    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
-    out = (_empty((cy, cx), x), _empty((cy, fx), x), _empty((fy, cx), x), _empty((fy, fx), x))
-    _launch(kid, "dwt_fwd1", x.dtype, wavelet, False,
-            _ptrs(x, *out) + [h, w, tile, int(ext)], x.device)
-    return out
+def _carve(shapes, like):
+    """One allocation of ``like``'s dtype and device holding a tensor of
+    each 2-D shape: contiguous, non-overlapping views, each starting on a
+    16-byte boundary (the kernels' 16-byte stores)."""
+    align = max(1, 16 // like.element_size())
+    offs, n = [], 0
+    for r, c in shapes:
+        offs.append(n)
+        n += _cdiv(r * c, align) * align
+    buf = torch.empty(n, dtype=like.dtype, device=like.device)
+    # one as_strided a view: a third of the host time of a slice and a view
+    return [buf.as_strided((r, c), (c, 1), o) for o, (r, c) in zip(offs, shapes)]
 
 
-def _level_inv_cuda(kid, ll, hl, lh, hh, wavelet, tile, ext=False):
-    ll, hl, lh, hh = (b.contiguous() for b in (ll, hl, lh, hh))
-    h, w = ll.shape[0] + lh.shape[0], ll.shape[1] + hl.shape[1]
-    if ext:
-        h -= 4 * CH
-    out = _empty((h, w), ll)
-    _launch(kid, "dwt_inv1", ll.dtype, wavelet, True,
-            _ptrs(ll, hl, lh, hh, out) + [h, w, tile, int(ext)], ll.device)
-    return out
+def _launch_deep(kid, fn_name, dtype, wavelet, inverse, ptrs, levels, h, w, tile, device):
+    """One cooperative launch of B3 or B6 over all ``levels``: ``ptrs`` as a
+    host pointer array; the grid and the co-resident limit land in
+    LAST_GRID[kid]."""
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    info = (ctypes.c_int * 2)()
+    _launch(kid, fn_name, dtype, wavelet, inverse, [arr, levels, h, w, tile, info], device)
+    LAST_GRID[kid] = (info[0], info[1])
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -614,7 +620,12 @@ def fused_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
     KERNELS["B1"].calls += 1
     if not x.is_cuda:
         return dwt2_level_plain(x, wavelet, tile, ext)
-    return _level_fwd_cuda("B1", x, wavelet, tile, ext)
+    x = x.contiguous()
+    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
+    out = (_empty((cy, cx), x), _empty((cy, fx), x), _empty((fy, cx), x), _empty((fy, fx), x))
+    _launch("B1", "dwt_fwd1", x.dtype, wavelet, False,
+            _ptrs(x, *out) + [h, w, tile, int(ext)], x.device)
+    return out
 
 
 def fused_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
@@ -645,7 +656,11 @@ def fused_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
     KERNELS["B4"].calls += 1
     if not ll.is_cuda:
         return idwt2_level_plain(ll, hl, lh, hh, wavelet, tile, ext)
-    return _level_inv_cuda("B4", ll, hl, lh, hh, wavelet, tile, ext)
+    ll, hl, lh, hh = (b.contiguous() for b in (ll, hl, lh, hh))
+    out = _empty((h, w), ll)
+    _launch("B4", "dwt_inv1", ll.dtype, wavelet, True,
+            _ptrs(ll, hl, lh, hh, out) + [h, w, tile, int(ext)], ll.device)
+    return out
 
 
 def fused_dwt2_2level(x, wavelet="cdf97", tile: int = TILE2):
@@ -707,9 +722,11 @@ def fused_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", tile: int = TILE2):
 
 
 def fused_deep_wavedec2(x, wavelet="cdf97", levels: int = 1, tile: int = TILE1):
-    """ALL remaining pyramid levels (B3): one launch of the per-level
-    tile kernel per level over device-memory intermediates.  Returns the
-    wavedec2 pytree."""
+    """ALL remaining pyramid levels (B3) in one cooperative launch over
+    device-memory intermediates; ``tile`` is the first level's (the
+    kernel halves it on levels with fewer tiles than the card has SMs:
+    the plain version gives the same bits at any tile).  Returns the
+    wavedec2 pytree; its arrays are views of one allocation."""
     wavelet = get_wavelet(wavelet)
     _check_fused_supported(wavelet)
     if x.ndim != 2:
@@ -721,18 +738,24 @@ def fused_deep_wavedec2(x, wavelet="cdf97", levels: int = 1, tile: int = TILE1):
     if not x.is_cuda:
         return fused_deep_wavedec2_plain(x, wavelet, levels, tile)
     _suffix(x.dtype)
-    coeffs = []
-    ll = x
+    x = x.contiguous()
+    shapes = []
+    h, w = x.shape
     for _ in range(levels):
-        ll, hl, lh, hh = _level_fwd_cuda("B3", ll, wavelet, tile)
-        coeffs.append((hl, lh, hh))
-    return [ll] + coeffs[::-1]
+        cy, cx, fy, fx = _cdiv(h, 2), _cdiv(w, 2), h // 2, w // 2
+        shapes += [(cy, fx), (fy, cx), (fy, fx), (cy, cx)]  # HL, LH, HH, LL
+        h, w = cy, cx
+    out = _carve(shapes, x)
+    _launch_deep("B3", "dwt_deep_fwd", x.dtype, wavelet, False, _ptrs(x, *out), levels,
+                 x.shape[0], x.shape[1], tile, x.device)
+    return [out[-1]] + [tuple(out[4 * k: 4 * k + 3]) for k in reversed(range(levels))]
 
 
 def fused_deep_waverec2(coeffs, wavelet="cdf97", tile: int = TILE1):
-    """Inverse of :func:`fused_deep_wavedec2` (B6): ``coeffs`` is a
-    wavedec2 prefix [LLn, (hl_n, lh_n, hh_n), ..., (hl_1, lh_1, hh_1)];
-    returns the image at the finest provided level."""
+    """Inverse of :func:`fused_deep_wavedec2` (B6), one cooperative launch:
+    ``coeffs`` is a wavedec2 prefix [LLn, (hl_n, lh_n, hh_n), ..., (hl_1,
+    lh_1, hh_1)]; returns the image at the finest provided level (a view
+    of one allocation that also holds the coarser reconstructions)."""
     wavelet = get_wavelet(wavelet)
     _check_fused_supported(wavelet)
     ll = coeffs[0]
@@ -744,12 +767,14 @@ def fused_deep_waverec2(coeffs, wavelet="cdf97", tile: int = TILE1):
             f"channel mirrors (needs > {CH} samples per axis)"
         )
     ch, cw = ll.shape
+    shapes = []
     for (hl, lh, hh) in coeffs[1:]:
         h, w = ch + lh.shape[-2], cw + hl.shape[-1]
         if tuple(hl.shape) != (ch, w // 2) or tuple(lh.shape) != (h // 2, cw) \
                 or tuple(hh.shape) != (h // 2, w // 2):
             raise ValueError("band shapes do not chain into a pyramid")
         ch, cw = h, w
+        shapes.append((h, w))
     if len(coeffs) == 1:
         return ll
     _check_inputs("fused_deep_waverec2", tile, *[ll] + [b for lvl in coeffs[1:] for b in lvl])
@@ -757,9 +782,13 @@ def fused_deep_waverec2(coeffs, wavelet="cdf97", tile: int = TILE1):
     if not ll.is_cuda:
         return fused_deep_waverec2_plain(coeffs, wavelet, tile)
     _suffix(ll.dtype)
-    for hl, lh, hh in coeffs[1:]:
-        ll = _level_inv_cuda("B6", ll, hl, lh, hh, wavelet, tile)
-    return ll
+    out = _carve(shapes, ll)
+    ins = [ll.contiguous()]
+    for bands, rec in zip(coeffs[1:], out):
+        ins += [b.contiguous() for b in bands] + [rec]
+    _launch_deep("B6", "dwt_deep_inv", ll.dtype, wavelet, True, _ptrs(*ins), len(shapes),
+                 ch, cw, tile, ll.device)
+    return out[-1]
 
 
 # ------------------------------------------------------------ pyramid schedules

@@ -12,7 +12,9 @@ Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
 int32 bit-exactly, B2 and B5 bit for bit in every dtype (main-path frame,
 border-only and mixed tiles, a misaligned input, tiles 32-128; B5 refuses
-a misaligned output); the banded body to 2e-5 (the tensor cores sum in
+a misaligned output), B3 and B6 bit for bit in every dtype (the main
+path's deep tail and the odd 541x1025 chain at 1-4 levels, tiles 4-96,
+one cooperative launch a call; a window too wide is refused); the banded body to 2e-5 (the tensor cores sum in
 another order than the plain version's matrix products).  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
 extended-rows contracts of the single levels (4 rows fused, 8 streamed),
@@ -230,6 +232,7 @@ DEEP = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,levels,dtype,wavelet,tile", DEEP)
 def test_b3_b6_kernels_match_plain(cuda_device, h, w, levels, dtype, wavelet, tile):
+    """B3 and B6 each run all their levels in one cooperative launch."""
     x = _img(h, w, dtype, cuda_device, seed=1)
     exact = dtype == torch.int32
     tf.reset_counters()
@@ -238,10 +241,76 @@ def test_b3_b6_kernels_match_plain(cuda_device, h, w, levels, dtype, wavelet, ti
     rec = tf.fused_deep_waverec2(d, wavelet, tile=tile)
     _close(rec, tf.fused_deep_waverec2_plain(d, wavelet, tile), exact)
     torch.cuda.synchronize()
-    assert (tf.KERNELS["B3"].launches, tf.KERNELS["B6"].launches) == (levels, levels)
+    assert (tf.KERNELS["B3"].launches, tf.KERNELS["B6"].launches) == (1, 1)
     if exact:
         _close(d, sep.wavedec2(x, wavelet, levels), True)
         assert torch.equal(rec, x)
+
+
+def _disjoint(tensors):
+    """The tensors' byte spans do not overlap."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tensors)
+    return all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+def _b3_b6_exact(x, wavelet, levels, tile=tf.TILE1):
+    """B3 and B6 bit for bit equal to their plain versions, one launch each,
+    every output a view of its own span, a grid the card holds at once."""
+    tf.reset_counters()
+    d = tf.fused_deep_wavedec2(x, wavelet, levels, tile=tile)
+    rec = tf.fused_deep_waverec2(d, wavelet, tile=tile)
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B3"].launches, tf.KERNELS["B6"].launches) == (1, 1)
+    assert all(1 <= g <= r for g, r in (tf.LAST_GRID["B3"], tf.LAST_GRID["B6"]))
+    assert _disjoint(_leaves(d))
+    _close(d, tf.fused_deep_wavedec2_plain(x, wavelet, levels, tile), True)
+    _close(rec, tf.fused_deep_waverec2_plain(d, wavelet, tile), True)
+    return d, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(536, 1024), (541, 1025)])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype,wavelet", [
+    (dt, wv) for dt in (torch.float32, torch.float64) for wv in ("cdf97", "cdf53", "haar")
+] + [(torch.int32, "cdf53"), (torch.int32, "cdf97")])
+def test_b3_b6_equal_plain_bit_for_bit(cuda_device, h, w, levels, dtype, wavelet):
+    """The main path's deep tail (536x1024, three levels) and the odd chain
+    of the 2161x4097 pyramid (541x1025: ceil/floor bands at every level),
+    in every dtype, for the deep tail's wavelets; int32 also equals the
+    oracle and comes back exactly."""
+    x = _img(h, w, dtype, cuda_device, seed=11).to(dtype)
+    d, rec = _b3_b6_exact(x, wavelet, levels)
+    if dtype == torch.int32:
+        _close(d, sep.wavedec2(x, wavelet, levels), True)
+        assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [4, 8, 16, 64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b3_b6_tiles_equal_plain(cuda_device, tile, dtype):
+    """Any first-level tile whose window a block walks (2 * tile + 8 <=
+    256) gives the plain version's bits."""
+    if dtype == torch.float64 and tile == 96:
+        tile = 80  # a 200-wide float64 window is 320 KB, above 227 KB
+    _b3_b6_exact(_img(541, 1025, dtype, cuda_device, seed=12).to(dtype),
+                 "cdf53" if dtype == torch.int32 else "cdf97", 3, tile)
+
+
+@pytest.mark.cuda
+def test_b3_b6_refuse_a_tile_too_wide(cuda_device):
+    """A window wider than the block's 256 threads is refused by the
+    launcher, and the wrapper raises: no quiet fallback."""
+    x = _img(536, 1024, torch.float32, cuda_device, seed=13)
+    d = tf.fused_deep_wavedec2(x, "cdf97", 3)
+    tf.reset_counters()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tf.fused_deep_wavedec2(x, "cdf97", 3, tile=125)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tf.fused_deep_waverec2(d, "cdf97", tile=125)
+    assert (tf.KERNELS["B3"].launches, tf.KERNELS["B6"].launches) == (0, 0)
 
 
 @pytest.mark.cuda
@@ -252,7 +321,7 @@ def test_fused_pyramid_on_card_matches_oracle(cuda_device):
     rec = api.waverec2(coeffs, "cdf97", impl="fused")
     torch.cuda.synchronize()
     assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
-        "B2": 1, "B3": 3, "B5": 1, "B6": 3}
+        "B2": 1, "B3": 1, "B5": 1, "B6": 1}
     for a, b in zip(_leaves(coeffs), _leaves(sep.wavedec2(x, "cdf97", 5))):
         assert a.shape == b.shape and float((a - b).abs().max()) <= 5e-4
     assert float((rec - x).abs().max()) <= 1e-3
@@ -399,7 +468,7 @@ def test_single_levels_reach_the_kernels_through_the_api(cuda_device):
     rec = api.idwt2(*b, "cdf97")
     torch.cuda.synchronize()
     assert {k: s.launches for k, s in tf.KERNELS.items() if s.launches} == {
-        "B1": 2, "B3": 2, "B4": 1}
+        "B1": 2, "B3": 1, "B4": 1}
     for a, c in zip(_leaves(got), _leaves(sep.wavedec2(x, "cdf97", 3))):
         assert float((a - c).abs().max()) <= 5e-4
     assert float((rec - x).abs().max()) <= 1e-3

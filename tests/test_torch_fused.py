@@ -191,6 +191,64 @@ def test_b6_plain_int_bitexact(h, w, wavelet):
     np.testing.assert_array_equal(got.numpy(), x)
 
 
+DEEP_INVARIANT = [
+    (134, 256, 3, np.float32, "cdf97"), (75, 133, 3, np.float32, "cdf97"),
+    (136, 264, 3, np.float64, "cdf97"), (75, 133, 3, np.float64, "cdf53"),
+    (134, 256, 3, np.int32, "cdf53"), (75, 133, 3, np.int32, "cdf97"),
+    (96, 72, 2, np.float32, "haar"), (70, 97, 2, np.float32, "interp53")]
+
+
+def _seeded(h, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        return torch.from_numpy(rng.integers(-255, 256, (h, w)).astype(np.int32))
+    return torch.from_numpy(rng.standard_normal((h, w)).astype(dtype))
+
+
+@pytest.mark.parametrize("h,w,levels,dtype,wavelet", DEEP_INVARIANT)
+def test_b3_plain_is_tile_invariant(h, w, levels, dtype, wavelet):
+    """Every output of B3 depends only on its own neighbourhood, read at
+    global positions, so any tile gives the same bits: the CUDA kernel
+    picks a tile per level and must still equal the plain version
+    exactly.  75x133 gives ceil/floor bands at every level."""
+    x = _seeded(h, w, dtype, h * w + 2)
+    base = _leaves(tf.fused_deep_wavedec2_plain(x, wavelet, levels, 8))
+    for tile in (16, 32, 64):
+        got = _leaves(tf.fused_deep_wavedec2_plain(x, wavelet, levels, tile))
+        assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, base))
+
+
+@pytest.mark.parametrize("h,w,levels,dtype,wavelet", DEEP_INVARIANT)
+def test_b6_plain_is_tile_invariant(h, w, levels, dtype, wavelet):
+    """The same for B6: the interleaved window is read through the
+    whole-point mirror at global positions, level by level."""
+    x = _seeded(h, w, dtype, h * w + 3)
+    coeffs = tf.fused_deep_wavedec2_plain(x, wavelet, levels)
+    base = tf.fused_deep_waverec2_plain(coeffs, wavelet, 8)
+    for tile in (16, 32, 64):
+        got = tf.fused_deep_waverec2_plain(coeffs, wavelet, tile)
+        assert got.dtype == x.dtype and torch.equal(got, base)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_deep_outputs_are_aligned_disjoint_views(dtype):
+    """B3/B6 hand their kernel every band of every level (and the scratch
+    levels) as views of one allocation: contiguous, disjoint, each on a
+    16-byte boundary, the shapes asked for."""
+    shapes = [(268, 512), (134, 257), (135, 256), (67, 129), (5, 3), (1, 1)]
+    views = tf._carve(shapes, torch.zeros(1, dtype=dtype))
+    assert [tuple(v.shape) for v in views] == shapes
+    spans = []
+    for v in views:
+        assert v.is_contiguous() and v.dtype == dtype
+        start = v.data_ptr()
+        assert start % 16 == 0
+        spans.append((start, start + v.numel() * v.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert len({v.untyped_storage().data_ptr() for v in views}) == 1
+
+
 # ------------------------------------------------------------------- wrappers
 
 
@@ -315,8 +373,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.build_all()
     assert _cuda.build_dir() == tmp_path / "b"
-    assert set(_cuda.SOURCES) == {"fused2l.cu", "level.cu", "fused3d.cu", "streamed.cu",
-                                  "streamed3d.cu", "remote_halo.cu"}
+    assert set(_cuda.SOURCES) == {"fused2l.cu", "deep.cu", "level.cu", "fused3d.cu",
+                                  "streamed.cu", "streamed3d.cu", "remote_halo.cu"}
     assert set(_cuda._SOURCE_OF) == set(_cuda._SIGS)
     assert all((_cuda.CSRC / s).exists() for s in _cuda.SOURCES + _cuda.HEADERS)
 
