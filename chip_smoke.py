@@ -53,19 +53,20 @@
    version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5; B2, B3, B5 and B6 exactly, bit for bit, B3 also on the odd
-   pyramid's 541x1025 chain), B1/B4/B7/B9 on every input the sharded
-   kernel bodies and the
-   explicit-'auto' pyramid give them (caught by wrapping the wrappers
-   during an extra run of those paths; <= 3e-5), each banded
+   <= 3e-5; B1-B6 exactly, bit for bit, B1 also at the odd pyramid's
+   2161x4097 and 1081x2049 and the 513x511 gate, B1/B4 with extended
+   rows, B3 on the odd pyramid's 541x1025 chain), B1/B4/B7/B9 on every
+   input the sharded kernel bodies and the explicit-'auto' pyramid give
+   them (caught by wrapping the wrappers during an extra run of those
+   paths; B1/B4 exactly, B7/B9 <= 3e-5), each banded
    instantiation of B8/B10/B11/B12 against its plain version (<= 2e-5:
    the tensor cores sum in another order), and B18 at the sharded path's
    level-1 shapes (exactly).
 5. Times each kernel and its plain version with CUDA events (and the
    kernel's device time with the profiler, which leaves out the host's
    cost of issuing it), beside the card's bound for the same work; B3 and
-   B6 also beside the route they replace (one launch of level.cu's
-   kernel per level); the library yardstick of a forward level (reflect
+   B6 also beside one launch of B1/B4 per level (the same tile body,
+   csrc/onelevel.cuh); the library yardstick of a forward level (reflect
    padding by 4 and a stride-2 conv2d with the level's four 9x9 analysis
    filters, TF32 off) at B3's level shapes and B1's frame; times and
    profiles the paths, and prints the card's name and power limit, a
@@ -222,6 +223,9 @@ def profile_path(label: str, run, smi: str) -> None:
         print(f"profile   {us:10.1f} us  x{n:<3d} {key[:90]}")
 
 
+#: the single-level kernels on the line walks of csrc/lines.cuh, held to
+#: their plain versions bit for bit (B7/B9 to 3e-5)
+EXACT_LEVELS = ("B1", "B4")
 #: the single-level kernel wrappers (B1, B4, B7, B9) that the sharded kernel
 #: bodies and the explicit-'auto' pyramid call
 LEVEL_WRAPPERS = ("fused_dwt2_level", "fused_idwt2_level", "streamed_dwt2_level",
@@ -432,12 +436,8 @@ def main() -> int:
              lambda a: F.fused_deep_wavedec2_plain(a, WV, 3))):
         err = max_abs(leaves(kern(arg)), leaves(plain(arg)))
         torch.cuda.synchronize()
-        if k == "B3":
-            require(err == 0, f"B3 kernel == plain bit for bit at "
-                    f"{'x'.join(map(str, arg.shape))} ({HO}x{WO} pyramid)")
-        else:
-            require(err <= 3e-5, f"{k} kernel vs plain at {'x'.join(map(str, arg.shape))} "
-                    f"({HO}x{WO} pyramid) max|diff| {err:.3e} <= 3e-5")
+        require(err == 0, f"{k} kernel == plain bit for bit at "
+                f"{'x'.join(map(str, arg.shape))} ({HO}x{WO} pyramid)")
 
     # ---- the bench gates of B1, and the extended-rows contract
     xs = torch.from_numpy(rng.standard_normal((513, 511)).astype(np.float32)).to(dev)
@@ -445,7 +445,7 @@ def main() -> int:
     err = max_abs(list(got), list(sep.dwt2_level(xs, WV)))
     require(err <= 3e-5, f"f32 513x511 B1 vs separable oracle max|diff| {err:.3e} <= 3e-5")
     err = max_abs(list(got), list(F.dwt2_level_plain(xs, WV)))
-    require(err <= 3e-5, f"f32 513x511 B1 vs plain max|diff| {err:.3e} <= 3e-5")
+    require(err == 0, "f32 513x511 B1 kernel == plain bit for bit")
     got = F.fused_dwt2_level(xi, "cdf53")
     require(max_abs(list(got), list(F.dwt2_level_plain(xi, "cdf53"))) == 0
             and max_abs(list(got), list(sep.dwt2_level(xi, "cdf53"))) == 0,
@@ -456,15 +456,15 @@ def main() -> int:
     xe = torch.from_numpy(rng.standard_normal((512 + 2 * F.HALO, 512)).astype(np.float32)).to(dev)
     got = F.fused_dwt2_level(xe, WV, boundary_rows="extended")
     err = max_abs(list(got), list(F.dwt2_level_plain(xe, WV, ext=True)))
-    require(err <= 3e-5, f"extended rows 512x512 (+4 rows each side) B1 vs plain "
-            f"max|diff| {err:.3e} <= 3e-5")
+    require(err == 0, "extended rows 512x512 (+4 rows each side) B1 kernel == plain "
+            "bit for bit")
     be = [torch.from_numpy(rng.standard_normal((256 + 2 * F.CH, 256)).astype(np.float32)).to(dev)
           for _ in range(4)]
     back = F.fused_idwt2_level(*be, WV, boundary_rows="extended")
     err = max_abs(back, F.idwt2_level_plain(*be, WV, ext=True))
-    require(tuple(back.shape) == (512, 512) and err <= 3e-5,
-            f"extended rows 512x512 (+4 channel rows each side) B4 vs plain "
-            f"max|diff| {err:.3e} <= 3e-5")
+    require(tuple(back.shape) == (512, 512) and err == 0,
+            "extended rows 512x512 (+4 channel rows each side) B4 kernel == plain "
+            "bit for bit")
 
     # ---- the 3-D path: wavedec3/waverec3 'fused', 64x512x512 J=2 (B14, B15)
     v = torch.from_numpy(rng.random(VOL, dtype=np.float32)).to(dev)
@@ -739,8 +739,11 @@ def main() -> int:
     for k, (kern, plain, _, _) in new_cases.items():
         errs[k] = max_abs(leaves(kern()), leaves(plain()))
         torch.cuda.synchronize()
-        require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
-                f"max|diff| {errs[k]:.3e} <= 3e-5")
+        if k in EXACT_LEVELS:
+            require(errs[k] == 0, f"{k} kernel == plain bit for bit at its path's shapes")
+        else:
+            require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
+                    f"max|diff| {errs[k]:.3e} <= 3e-5")
     for k, (kern, plain, _, _) in level2.items():
         err = max_abs(leaves(kern()), leaves(plain()))
         torch.cuda.synchronize()
@@ -818,7 +821,8 @@ def main() -> int:
 
     def level_vs_plain(label, calls):
         """Each kept call of B1/B4/B7/B9 against its plain version on the
-        same arguments (<= 3e-5); the kernel's error row takes the worst."""
+        same arguments (B1/B4 bit for bit, B7/B9 <= 3e-5); the kernel's
+        error row takes the worst."""
         plain = {
             "fused_dwt2_level": ("B1", F.fused_dwt2_level, lambda a, e: F.dwt2_level_plain(
                 a["x"], a["wavelet"], a["tile"], e)),
@@ -841,8 +845,12 @@ def main() -> int:
             torch.cuda.synchronize()
             errs[k] = max(errs[k], err)
             shape = "x".join(map(str, a.get("x", a.get("ll")).shape))
-            require(err <= 3e-5, f"{k} kernel vs plain on {'an extended' if ext else 'a'} "
-                    f"{shape} input of the {label} max|diff| {err:.3e} <= 3e-5")
+            what = f"{'an extended' if ext else 'a'} {shape} input of the {label}"
+            if k in EXACT_LEVELS:
+                require(err == 0, f"{k} kernel == plain bit for bit on {what}")
+            else:
+                require(err <= 3e-5, f"{k} kernel vs plain on {what} max|diff| "
+                        f"{err:.3e} <= 3e-5")
 
     # each per-shard kernel vs its plain version on the very blocks the
     # sharded kernel bodies give it: every level's extended block, the
@@ -961,8 +969,8 @@ def main() -> int:
               f"{nbytes / 1e6:.1f} MB moved{tc}) [{smi}]", flush=True)
         return ms, plain_ms, max(bytes_ms, ops_ms), bound_by
 
-    # ---- B3/B6 per call beside the route they replace: one launch of
-    # level.cu's kernel per level, through B1/B4's wrappers
+    # ---- B3/B6 per call beside one launch of B1/B4 per level (the same
+    # tile body), through B1/B4's wrappers
     def level_route_fwd():
         a = ll2
         for _ in range(3):
@@ -979,7 +987,7 @@ def main() -> int:
     for k, one, per_level in (("B3", cases["B3"][0], level_route_fwd),
                               ("B6", cases["B6"][0], level_route_inv)):
         print(f"time {k} per call (levels 3-5 of {H}x{W} f32): device {fmt(device_ms(one))} "
-              f"(one cooperative launch, csrc/deep.cu); one level.cu launch per level: "
+              f"(one cooperative launch, csrc/deep.cu); one B1/B4 launch per level: "
               f"device {fmt(device_ms(per_level))} [{smi}]", flush=True)
 
     # ---- the library yardstick of a forward level (never on the port's
@@ -1077,9 +1085,11 @@ def main() -> int:
     fwd_ms = time_ms(lambda: api.dwt2(x, WV, impl="fused"), args.reps)
     inv_ms = time_ms(lambda: api.idwt2(*bands, WV, impl="fused"), args.reps)
     odd_ms = time_ms(lambda: api.wavedec2(xo, WV, J, impl="fused"), args.reps)
-    print(f"time single-level path: dwt2 {fwd_ms:.4f} ms, idwt2 {inv_ms:.4f} ms "
-          f"({H}x{W} f32), wavedec2 {odd_ms:.4f} ms ({HO}x{WO} f32 J={J}) [{smi}]",
-          flush=True)
+    fwd_dev = device_ms(lambda: api.dwt2(x, WV, impl="fused"))
+    inv_dev = device_ms(lambda: api.idwt2(*bands, WV, impl="fused"))
+    print(f"time single-level path: dwt2 {fwd_ms:.4f} ms (device {fmt(fwd_dev)}), idwt2 "
+          f"{inv_ms:.4f} ms (device {fmt(inv_dev)}) ({H}x{W} f32), wavedec2 {odd_ms:.4f} ms "
+          f"({HO}x{WO} f32 J={J}) [{smi}]", flush=True)
     fwd_ms = time_ms(lambda: api.wavedec2(x, WV, J, impl="streamed"), args.reps)
     inv_ms = time_ms(lambda: api.waverec2(sc, WV, impl="streamed"), args.reps)
     fwd2_ms = time_ms(lambda: api.wavedec2(x, WV, 2, impl="streamed"), args.reps)

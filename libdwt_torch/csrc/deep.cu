@@ -11,8 +11,8 @@
 // ~1.7 us at 3.35 TB/s, and that data stays in the 50 MB L2 (B2 has just
 // written it).  Each level has only 40-144 tiles for 132 SMs, so a level
 // lasts as long as one tile's life: load, lift, store.  One launch per
-// level (B1/B4's kernel, level.cu) took ~31 us a level.  The design cuts
-// the tile's life and the launches:
+// level took ~31 us a level.  The design cuts the tile's life and the
+// launches:
 //   * One cooperative launch for all levels: a grid-stride loop over each
 //     level's tiles, then a grid-wide barrier; each level's LL (forward)
 //     or reconstruction (inverse) goes to a device buffer that the next
@@ -23,16 +23,17 @@
 //     tiles than the card has SMs.  The plain versions are tile-invariant
 //     (every output depends only on its own neighbourhood, read at global
 //     positions), so any tile gives their bits.
-//   * A tile is a (2t + 8)-square window with halo 4 (tiles::HALO) on both
-//     axes, lifted by lines.cuh's walks: one thread per line (or segment)
-//     with every step pipelined in registers, one barrier pair per pass,
-//     a row stride of 2 mod 4 so the column walks are conflict-free.
+//   * A tile is onelevel.cuh's body (shared with B1/B4, level.cu): a
+//     (2t + 8)-square window with halo 4 on both axes, lifted by
+//     lines.cuh's walks: one thread per line (or segment) with every step
+//     pipelined in registers, one barrier pair per pass, a row stride of
+//     2 mod 4 so the column walks are conflict-free.
 //   * Forward loads: cp.async with every row in flight, two columns a
 //     thread mirrored once, rows mirrored only in tiles that cross an edge
 //     (no per-element division).  Inverse loads: the interleaved window
 //     read element by element from the four bands through the whole-point
 //     mirror, which keeps parity, so a mirrored sample stays in its band
-//     (band_ptr's rule; ceil/floor widths for odd sizes).
+//     (tiles.cuh band_ptr's rule; ceil/floor widths for odd sizes).
 //   * The forward's scale is applied as each band value is stored, the
 //     inverse's as the column walk first reads a sample (the same
 //     multiply as a separate pass, so the same bits).  Stores are 16 bytes
@@ -46,147 +47,23 @@
 #include <cooperative_groups.h>
 
 #include "lines.cuh"
-#include "tiles.cuh"
+#include "onelevel.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int HALO = tiles::HALO;
+using onelevel::HALO;
+using onelevel::Level;
 constexpr int THREADS = 256;
 constexpr int MAX_DEEP = 16;
 constexpr int MIN_TILE = 8;
-
-// One level of a call: its image (forward: the input; inverse: the
-// output), h x w, and its four bands LL, HL, LH, HH (forward: outputs;
-// inverse: inputs), ceil(h/2) or floor(h/2) rows and ceil(w/2) or
-// floor(w/2) columns; tiles of ``tile`` band samples a side.
-template <typename T>
-struct Level {
-    T* img;
-    T* band[4];
-    int h, w, tile;
-};
 
 template <typename T>
 struct Deep {
     int n;
     Level<T> lv[MAX_DEEP];
 };
-
-// Band k (0..3: LL, HL, LH, HH) of L, selected without indexing.
-template <typename T>
-__device__ __forceinline__ T* band_of(const Level<T>& L, int k) {
-    T* b = L.band[0];
-#pragma unroll
-    for (int j = 1; j < 4; ++j) b = k == j ? L.band[j] : b;
-    return b;
-}
-
-// Copy the E x E window at (y0 - HALO, x0 - HALO) of L's image into s
-// (row stride RS) with cp.async, every row in flight at once: each thread
-// keeps two columns, mirrored once, and walks the rows, mirrored once per
-// row and only in tiles whose window crosses an edge.  Two columns inside
-// the image are one copy when ``vec`` (the image's rows are pair-aligned).
-template <typename T>
-__device__ __forceinline__ void fwd_load(const Level<T>& L, T* s, int RS, int E, int y0,
-                                         int x0, bool vec) {
-    const int cpr = E / 2, groups = blockDim.x / cpr;
-    if ((int)threadIdx.x >= groups * cpr) return;
-    const int m = threadIdx.x % cpr, gx = x0 - HALO + 2 * m;
-    const bool in_x = vec && gx >= 0 && gx + 2 <= L.w;
-    const int c0 = mirror_idx(gx, L.w), c1 = mirror_idx(gx + 1, L.w);
-    const int py = y0 - HALO;
-    const bool in_y = py >= 0 && py + E <= L.h;
-    for (int r = threadIdx.x / cpr; r < E; r += groups) {
-        const T* row = L.img + (size_t)(in_y ? py + r : mirror_idx(py + r, L.h)) * L.w;
-        T* dst = s + r * RS + 2 * m;
-        if (in_x) {
-            __pipeline_memcpy_async(dst, row + gx, 2 * sizeof(T));
-        } else {
-            __pipeline_memcpy_async(dst, row + c0, sizeof(T));
-            __pipeline_memcpy_async(dst + 1, row + c1, sizeof(T));
-        }
-    }
-}
-
-// The lifted window's core -> the tile's t x t samples of each band, each
-// times its scale factor.  Band k's row i is window row HALO + 2i + (k >> 1),
-// columns HALO + (k & 1) + 2j.  Each thread keeps one chunk of V = 16 /
-// sizeof(T) band columns and walks the (row, band) pairs.
-template <typename T>
-__device__ __forceinline__ void fwd_store(const T* s, int RS, const Level<T>& L, int y0,
-                                          int x0, const LiftParams& P) {
-    constexpr int V = 16 / sizeof(T);
-    const int t = L.tile, ch = (L.h + 1) >> 1, fh = L.h >> 1;
-    const int cw = (L.w + 1) >> 1, fw = L.w >> 1;
-    const int cps = (t + V - 1) / V, groups = blockDim.x / cps;
-    if ((int)threadIdx.x >= groups * cps) return;
-    const int c = threadIdx.x % cps, j = x0 / 2 + c * V, m = min(V, t - c * V);
-    const T* src = s + HALO * RS + HALO + 2 * c * V;
-    for (int q = threadIdx.x / cps; q < 4 * t; q += groups) {
-        const int i = q >> 2, k = q & 3, gi = y0 / 2 + i;
-        if (gi >= ch) break;
-        const int cols = (k & 1) ? fw : cw, n = min(m, cols - j);
-        if (n <= 0 || ((k >> 1) && gi >= fh)) continue;
-        T* dst = band_of(L, k) + (size_t)gi * cols + j;
-        lines::put(dst, src + (2 * i + (k >> 1)) * RS + (k & 1), n, lines::aligned16(dst), P,
-                   k);
-    }
-}
-
-// The E x E interleaved window at (y0 - HALO, x0 - HALO) of L's output
-// from its four bands, element by element with cp.async: each thread keeps
-// one window column, mirrored once, and walks the rows (mirrored only in
-// tiles that cross an edge).  Even rows hold LL | HL, odd rows LH | HH, at
-// even | odd columns; the mirror keeps parity.
-template <typename T>
-__device__ __forceinline__ void inv_load(const Level<T>& L, T* s, int RS, int E, int y0,
-                                         int x0) {
-    const int groups = blockDim.x / E;
-    if ((int)threadIdx.x >= groups * E) return;
-    const int c = threadIdx.x % E, gx = mirror_idx(x0 - HALO + c, L.w), odd = gx & 1;
-    const int bw = odd ? L.w >> 1 : (L.w + 1) >> 1;
-    const T* ev = band_of(L, odd) + (gx >> 1);
-    const T* od = band_of(L, 2 | odd) + (gx >> 1);
-    const int py = y0 - HALO;
-    const bool in_y = py >= 0 && py + E <= L.h;
-    for (int r = threadIdx.x / E; r < E; r += groups) {
-        const int gy = in_y ? py + r : mirror_idx(py + r, L.h);
-        __pipeline_memcpy_async(s + r * RS + c, ((gy & 1) ? od : ev) + (size_t)(gy >> 1) * bw,
-                                sizeof(T));
-    }
-}
-
-// The lifted window's S x S core -> the output from (y0, x0), cut at h x w.
-// Each thread keeps one chunk of V = 16 / sizeof(T) columns and walks the
-// rows: one 16-byte store a chunk where it is whole and aligned.
-template <typename T>
-__device__ __forceinline__ void inv_store(const T* s, int RS, const Level<T>& L, int y0,
-                                          int x0) {
-    constexpr int V = 16 / sizeof(T);
-    using PT = typename lines::Pair<T>::type;
-    using VT = typename lines::Vec16<T>::type;
-    const int S = 2 * L.tile, cpr = (S + V - 1) / V, groups = blockDim.x / cpr;
-    if ((int)threadIdx.x >= groups * cpr) return;
-    const int c = threadIdx.x % cpr, gx = x0 + c * V;
-    const int n = min(min(V, S - c * V), L.w - gx), rows = min(S, L.h - y0);
-    if (n <= 0) return;
-    const T* src = s + HALO * RS + HALO + c * V;  // even offset: Pair-aligned
-    for (int r = threadIdx.x / cpr; r < rows; r += groups) {
-        T* dst = L.img + (size_t)(y0 + r) * L.w + gx;
-        const T* sr = src + r * RS;
-        if (n == V && lines::aligned16(dst)) {
-            VT v;
-#pragma unroll
-            for (int u = 0; u < V / 2; ++u)
-                reinterpret_cast<PT*>(&v)[u] = reinterpret_cast<const PT*>(sr)[u];
-            *reinterpret_cast<VT*>(dst) = v;
-        } else {
-            for (int u = 0; u < n; ++u) dst[u] = sr[u];
-        }
-    }
-}
 
 // Forward, levels fine to coarse: each tile of a level loaded, lifted
 // (rows, columns) and stored into the four bands; the level's LL is the
@@ -205,12 +82,12 @@ __global__ void __launch_bounds__(THREADS) deep_fwd_kernel(Deep<T> d, LiftParams
             && reinterpret_cast<uintptr_t>(L.img) % (2 * sizeof(T)) == 0;
         for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
             const int y0 = t / nx * S, x0 = t % nx * S;
-            fwd_load(L, s, RS, E, y0, x0, vec);
+            onelevel::fwd_load<0>(L, s, RS, E, y0, x0, vec);
             __pipeline_commit();
             __pipeline_wait_prior(0);
             __syncthreads();
             lines::lift_fwd<NST, SYM>(s, E, RS, P);
-            fwd_store(s, RS, L, y0, x0, P);
+            onelevel::fwd_store(s, RS, L, y0, x0, P);
             __syncthreads();
         }
         if (k + 1 < d.n) grid.sync();
@@ -232,12 +109,12 @@ __global__ void __launch_bounds__(THREADS) deep_inv_kernel(Deep<T> d, LiftParams
         const int nx = (L.w + S - 1) / S, ntiles = nx * ((L.h + S - 1) / S);
         for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
             const int y0 = t / nx * S, x0 = t % nx * S;
-            inv_load(L, s, RS, E, y0, x0);
+            onelevel::inv_load<0>(L, s, RS, E, y0, x0);
             __pipeline_commit();
             __pipeline_wait_prior(0);
             __syncthreads();
             lines::lift_inv<NST, SYM>(s, E, RS, P);
-            inv_store(s, RS, L, y0, x0);
+            onelevel::inv_store(s, RS, L, y0, x0);
             __syncthreads();
         }
         if (k + 1 < d.n) grid.sync();

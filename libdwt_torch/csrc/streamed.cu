@@ -31,7 +31,7 @@
 // bit those of the plain versions in ops/streamed.py.
 //
 // The single levels B7/B9 walk the same (band, segment) items with
-// level.cu's one-level body (tiles.cuh fwd1_*/inv1_*): a halo of 4 on both
+// tiles.cuh's one-level body (fwd1_*/inv1_*): a halo of 4 on both
 // axes, so a 64x64 strip is a 72x72 window and the two buffers take 41 KB.
 // The inverse reads the interleaved coefficients through the mirror, which
 // for equal band shapes is exactly _fix_strip's channel rules.  Under
@@ -42,7 +42,7 @@
 // The one-launch pyramids are cooperative kernels (all blocks resident,
 // cooperative_groups grid syncs).  B11: the strip phase of B8 writes levels
 // 1-2 and LL2 into a scratch buffer that sits in the 50 MB L2; after a grid
-// sync each deep level runs level.cu's per-level tile (fwd1_tile) over
+// sync each deep level runs tiles.cuh's one-level tile (fwd1_tile) over
 // tiles in a grid-stride loop, with a grid sync between levels.  B12: the
 // deep inverse levels (inv1_tile) reconstruct LL2 into a scratch buffer, a
 // grid sync, then B10's strip phase reads LL2 from it (through the mirror,

@@ -1,6 +1,6 @@
-// Tile bodies shared by the 2-D kernels: one level (level.cu, the single
-// streamed levels and the deep phases of streamed.cu) and two levels per
-// pass (fused2l.cu, and the strip phases of streamed.cu).
+// Tile bodies shared by the 2-D kernels: one level (the single streamed
+// levels and the deep phases of streamed.cu) and two levels per pass (the
+// strip phases of streamed.cu).
 //
 // Each body is split into a load and a compute step so that the same
 // arithmetic serves a kernel that loads a tile and lifts it at once (one
@@ -59,7 +59,7 @@ __host__ __device__ __forceinline__ int lvl1_elems(int ty, int tx) {
 // reads.  EXT > 0: x carries a caller extension of EXT rows above and
 // below the image (h + 2*EXT rows), read straight with no row mirror, and
 // rows past it read as 0 (they reach only outputs past the image).  EXT is
-// 4 for the fused single level (B1) and 8 for the streamed one (B7).
+// 8 for the streamed single level (B7).
 template <int EXT, bool ASYNC, typename T>
 __device__ void fwd1_load(const T* x, T* s, int h, int w, int y0, int x0, int ty,
                           int tx) {
@@ -97,7 +97,7 @@ __device__ void fwd1_compute(T* s, T* ll, T* hl, T* lh, T* hh, int h, int w, int
     __syncthreads();
 }
 
-// One forward tile, loaded and lifted at once (level.cu, the deep phase of
+// One forward tile, loaded and lifted at once (the deep phase of
 // streamed.cu).
 template <int EXT, typename T>
 __device__ void fwd1_tile(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w, int y0,

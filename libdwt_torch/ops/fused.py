@@ -338,11 +338,11 @@ def _cdiv(a: int, b: int) -> int:
 
 def dwt2_level_tiles(x, wavelet, ty: int, tx: int, ext: int = 0):
     """One forward 2-D level on ty x tx tiles with a halo of HALO on both
-    axes (the tile algebra of csrc/tiles.cuh fwd1_*, shared by B1/B3 and
-    the streamed B7) -> (LL, HL, LH, HH), any size.  ``ext`` > 0: x
-    carries that many caller rows above and below the image
-    (boundary_rows='extended'), read with no row mirror; rows past them
-    read as 0, as in the kernels."""
+    axes (the tile algebra of csrc/onelevel.cuh, B1/B3, and of
+    csrc/tiles.cuh fwd1_*, the streamed B7) -> (LL, HL, LH, HH), any
+    size.  ``ext`` > 0: x carries that many caller rows above and below
+    the image (boundary_rows='extended'), read with no row mirror; rows
+    past them read as 0, as in the kernels."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(x.dtype), False)
     h, w = x.shape
@@ -374,7 +374,8 @@ def dwt2_level_plain(x, wavelet="cdf97", tile: int = TILE1, ext: bool = False):
 
 def idwt2_level_tiles(ll, hl, lh, hh, wavelet, ty: int, tx: int, ext: int = 0):
     """One inverse 2-D level on ty x tx output tiles (the tile algebra of
-    csrc/tiles.cuh inv1_*, shared by B4/B6 and the streamed B9).  ``ext``
+    csrc/onelevel.cuh, B4/B6, and of csrc/tiles.cuh inv1_*, the streamed
+    B9).  ``ext``
     > 0: every band carries that many caller channel rows above and below
     (boundary_rows='extended'), read with no row mirror."""
     wavelet = get_wavelet(wavelet)
@@ -602,7 +603,9 @@ def fused_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
     above and below the image (x has h + 8 rows, h even), read with no
     row mirror; columns still mirror.  ``strip_rows`` keeps the
     reference's contract (a multiple of 16, else ValueError); the CUDA
-    tile is 2-D, ``tile`` x ``tile`` samples of each band."""
+    tile is 2-D, ``tile`` x ``tile`` samples of each band.  On the card
+    the four bands are disjoint, 16-byte-aligned views of one
+    allocation."""
     wavelet = get_wavelet(wavelet)
     _check_fused_supported(wavelet)
     if x.ndim != 2:
@@ -622,7 +625,7 @@ def fused_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
         return dwt2_level_plain(x, wavelet, tile, ext)
     x = x.contiguous()
     cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
-    out = (_empty((cy, cx), x), _empty((cy, fx), x), _empty((fy, cx), x), _empty((fy, fx), x))
+    out = tuple(_carve([(cy, cx), (cy, fx), (fy, cx), (fy, fx)], x))
     _launch("B1", "dwt_fwd1", x.dtype, wavelet, False,
             _ptrs(x, *out) + [h, w, tile, int(ext)], x.device)
     return out

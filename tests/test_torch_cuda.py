@@ -10,7 +10,10 @@ GPU machine that has no JAX installed:
 
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
-int32 bit-exactly, B2 and B5 bit for bit in every dtype (main-path frame,
+int32 bit-exactly, B1 and B4 bit for bit in every dtype (the frames of
+their paths and 513x511, mirror and extended rows, tiles 4-96, every fused
+wavelet, misaligned inputs, outputs written whole and nothing past them; a
+window too wide is refused), B2 and B5 bit for bit in every dtype (main-path frame,
 border-only and mixed tiles, a misaligned input, tiles 32-128; B5 refuses
 a misaligned output), B3 and B6 bit for bit in every dtype (the main
 path's deep tail and the odd 541x1025 chain at 1-4 levels, tiles 4-96,
@@ -366,15 +369,14 @@ LEVEL = [
 @pytest.mark.parametrize("h,w,dtype,wavelet,tile", LEVEL)
 def test_b1_b4_kernels_match_plain(cuda_device, h, w, dtype, wavelet, tile):
     x = _img(h, w, dtype, cuda_device, seed=3)
-    exact = dtype == torch.int32
     tf.reset_counters()
     b = tf.fused_dwt2_level(x, wavelet, tile=tile)
-    _close(list(b), list(tf.dwt2_level_plain(x, wavelet, tile)), exact)
+    _close(list(b), list(tf.dwt2_level_plain(x, wavelet, tile)), True)
     rec = tf.fused_idwt2_level(*b, wavelet, tile=tile)
-    _close(rec, tf.idwt2_level_plain(*b, wavelet, tile), exact)
+    _close(rec, tf.idwt2_level_plain(*b, wavelet, tile), True)
     torch.cuda.synchronize()
     assert (tf.KERNELS["B1"].launches, tf.KERNELS["B4"].launches) == (1, 1)
-    if exact:
+    if dtype == torch.int32:
         _close(list(b), list(sep.dwt2_level(x, wavelet)), True)
         assert torch.equal(rec, x)
 
@@ -386,17 +388,155 @@ def test_b1_b4_kernels_match_plain(cuda_device, h, w, dtype, wavelet, tile):
     (65, 48, torch.int32, "cdf53")])
 def test_extended_rows_kernels_match_plain(cuda_device, h, w, dtype, wavelet):
     """The forward contract needs an even height; the inverse takes any."""
-    exact = dtype == torch.int32
     if h % 2 == 0:
         xe = _img(h + 2 * tf.HALO, w, dtype, cuda_device, seed=4)
         b = tf.fused_dwt2_level(xe, wavelet, boundary_rows="extended", tile=16)
-        _close(list(b), list(tf.dwt2_level_plain(xe, wavelet, 16, ext=True)), exact)
+        _close(list(b), list(tf.dwt2_level_plain(xe, wavelet, 16, ext=True)), True)
     cy, fy, cx, fx = -(-h // 2), h // 2, -(-w // 2), w // 2
     bands = [_img(r + 2 * tf.CH, c, dtype, cuda_device, seed=5 + i)
              for i, (r, c) in enumerate([(cy, cx), (cy, fx), (fy, cx), (fy, fx)])]
     rec = tf.fused_idwt2_level(*bands, wavelet, boundary_rows="extended", tile=16)
     assert tuple(rec.shape) == (h, w)
-    _close(rec, tf.idwt2_level_plain(*bands, wavelet, 16, ext=True), exact)
+    _close(rec, tf.idwt2_level_plain(*bands, wavelet, 16, ext=True), True)
+
+
+def _rows(ext):
+    return "extended" if ext else "mirror"
+
+
+def _b1_exact(x, wavelet, tile=tf.TILE1, ext=False):
+    """B1 on ``x`` equals its plain version bit for bit, in one launch; its
+    four bands are disjoint, 16-byte-aligned views."""
+    tf.reset_counters()
+    b = tf.fused_dwt2_level(x, wavelet, tile=tile, boundary_rows=_rows(ext))
+    torch.cuda.synchronize()
+    assert tf.KERNELS["B1"].launches == 1
+    assert _disjoint(b) and all(t.data_ptr() % 16 == 0 for t in b)
+    _close(list(b), list(tf.dwt2_level_plain(x, wavelet, tile, ext)), True)
+    return b
+
+
+def _b4_exact(bands, wavelet, tile=tf.TILE1, ext=False):
+    """B4 on ``bands`` equals its plain version bit for bit, in one launch."""
+    tf.reset_counters()
+    rec = tf.fused_idwt2_level(*bands, wavelet, tile=tile, boundary_rows=_rows(ext))
+    torch.cuda.synchronize()
+    assert tf.KERNELS["B4"].launches == 1
+    _close(rec, tf.idwt2_level_plain(*bands, wavelet, tile, ext), True)
+    return rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [
+    (2144, 4096),  # api.dwt2/idwt2 on the main path's frame
+    (2161, 4097), (1081, 2049),  # the odd pyramid's two B1 levels
+    (513, 511),  # the reference's odd-size gate
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b1_b4_equal_plain_bit_for_bit(cuda_device, h, w, dtype):
+    """The frames of B1's and B4's paths in every dtype; int32 (CDF 5/3)
+    also equals the oracle and comes back exactly."""
+    wavelet = "cdf53" if dtype == torch.int32 else "cdf97"
+    x = _img(h, w, dtype, cuda_device, seed=14).to(dtype)
+    b = _b1_exact(x, wavelet)
+    rec = _b4_exact(b, wavelet)
+    if dtype == torch.int32:
+        _close(list(b), list(sep.dwt2_level(x, wavelet)), True)
+        assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [4, 8, 16, 32, 64, 96])
+@pytest.mark.parametrize("dtype,wavelet", [
+    (dt, wv) for dt in (torch.float32, torch.float64)
+    for wv in ("cdf97", "cdf53", "interp53", "haar")
+] + [(torch.int32, wv) for wv in ("cdf97", "cdf53", "haar")])
+def test_b1_b4_tiles_and_wavelets_equal_plain(cuda_device, tile, dtype, wavelet):
+    """Any tile whose window a block walks (2 * tile + 8 <= 256) gives the
+    plain version's bits, for every wavelet the fused kernels take."""
+    if dtype == torch.float64 and tile == 96:
+        tile = 80  # a 200-wide float64 window is 320 KB, above 227 KB
+    x = _img(541, 1025, dtype, cuda_device, seed=15).to(dtype)
+    _b4_exact(_b1_exact(x, wavelet, tile), wavelet, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b1_b4_misaligned_inputs_take_the_scalar_loads(cuda_device, dtype):
+    """Contiguous views at storage offset 1 are not 16-byte aligned: B1
+    copies its window element by element, B4 reads misaligned bands."""
+    h, w, wavelet = 1056, 548, "cdf53" if dtype == torch.int32 else "cdf97"
+    buf = _img(1, h * w + 1, dtype, cuda_device, seed=16).to(dtype).reshape(-1)
+    x = buf[1:1 + h * w].view(h, w)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    bands = [torch.cat([b.new_zeros(1), b.reshape(-1)])[1:].view(b.shape)
+             for b in _b1_exact(x, wavelet)]
+    assert all(b.is_contiguous() and b.data_ptr() % 16 for b in bands)
+    _b4_exact(bands, wavelet)
+
+
+@pytest.mark.cuda
+def test_b1_b4_refuse_a_tile_too_wide(cuda_device):
+    """A window wider than the block's 256 threads is refused by the
+    launcher, and the wrapper raises: no quiet fallback."""
+    x = _img(256, 256, torch.float32, cuda_device, seed=17)
+    b = tf.fused_dwt2_level(x, "cdf97")
+    tf.reset_counters()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tf.fused_dwt2_level(x, "cdf97", tile=125)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tf.fused_idwt2_level(*b, "cdf97", tile=125)
+    assert (tf.KERNELS["B1"].launches, tf.KERNELS["B4"].launches) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+@pytest.mark.parametrize("h,w,ext", [(130, 97, True), (131, 97, False), (2161, 4097, False)])
+def test_b1_b4_write_their_outputs_and_nothing_else(cuda_device, monkeypatch, dtype, h, w,
+                                                    ext):
+    """Every allocation the wrappers make is poisoned (NaN; int32's least
+    value) before the launch.  Afterwards no output element holds the
+    poison (each equals the plain version), and every element of an
+    allocation outside its outputs (the 16-byte gaps between B1's four
+    bands) still does: no store runs past its band's ceil/floor size, the
+    extension's zero rows included."""
+    poison = float("nan") if dtype.is_floating_point else -2 ** 31
+    made = []
+
+    def poisoned(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            views = list(out) if isinstance(out, (list, tuple)) else [out]
+            whole = torch.empty(0, dtype=dtype, device=views[0].device).set_(
+                views[0].untyped_storage())
+            whole.fill_(poison)
+            made.append((whole, views))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(tf, "_carve", poisoned(tf._carve))
+    monkeypatch.setattr(tf, "_empty", poisoned(tf._empty))
+    wavelet = "cdf53" if dtype == torch.int32 else "cdf97"
+    x = _img(h + (2 * tf.HALO if ext else 0), w, dtype, cuda_device, seed=18).to(dtype)
+    b = _b1_exact(x, wavelet, ext=ext)
+    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
+    e = 2 * tf.CH if ext else 0
+    bands = b if not ext else [
+        _img(r + e, c, dtype, cuda_device, seed=19 + i).to(dtype)
+        for i, (r, c) in enumerate([(cy, cx), (cy, fx), (fy, cx), (fy, fx)])]
+    _b4_exact(bands, wavelet, ext=ext)
+    assert len(made) == 2
+    gaps = []
+    for whole, views in made:
+        outside = torch.ones(whole.numel(), dtype=torch.bool, device=whole.device)
+        for v in views:
+            off = (v.data_ptr() - whole.data_ptr()) // v.element_size()
+            outside[off: off + v.numel()] = False
+            assert not (v.isnan() if dtype.is_floating_point else v == poison).any()
+        gap = whole[outside]
+        assert bool((gap.isnan() if dtype.is_floating_point else gap == poison).all())
+        gaps.append(gap.numel())
+    assert gaps[0] > 0  # these widths leave gaps between B1's bands
 
 
 def _vol(shape, dtype, device, seed=0):

@@ -7,7 +7,9 @@ Pallas kernel run in interpret mode on the same seeded inputs, at the
 sizes tests/test_fused.py uses: float32 to 3e-5, int32 bit-exactly.  A
 tile of 8 (16 samples) makes several tiles, and short last tiles, out of
 these small images.  The CUDA kernels are held against these plain
-versions on the card by tests/test_torch_cuda.py.
+versions on the card by tests/test_torch_cuda.py, bit for bit; the plain
+versions give the same bits at every tile, so the kernel's tile need not
+be the plain version's.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -61,6 +63,75 @@ def test_b1_b4_plain_int_bitexact(h, w, wavelet):
     _close(rec, jf.fused_idwt2_level(*want, wavelet, strip_rows=32, interpret=True),
            exact=True)
     np.testing.assert_array_equal(rec.numpy(), x)
+
+
+@pytest.mark.parametrize("h,w,dtype", [(101, 97, np.float32), (64, 48, np.float32),
+                                     (101, 97, np.int32), (33, 517, np.int32)])
+def test_b1_cpu_outputs_are_separate_bands(h, w, dtype):
+    """On the CPU B1 returns four separate bands (writing one leaves the
+    others as they were) at the ceil/floor band shapes, with the Pallas
+    kernel's values."""
+    x = make_image(h, w, dtype=dtype)
+    wavelet = "cdf53" if dtype == np.int32 else "cdf97"
+    got = tf.fused_dwt2_level(torch.from_numpy(x), wavelet)
+    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
+    assert [tuple(b.shape) for b in got] == [(cy, cx), (cy, fx), (fy, cx), (fy, fx)]
+    assert all(b.device.type == "cpu" and b.dtype == got[0].dtype for b in got)
+    want = jf.fused_dwt2_level(jnp.asarray(x), wavelet, strip_rows=32, interpret=True)
+    _close(got, want, exact=dtype == np.int32)
+    for k in range(4):
+        others = [b.clone() for j, b in enumerate(got) if j != k]
+        got[k].fill_(7)
+        assert _same_bits([b for j, b in enumerate(got) if j != k], others)
+
+
+def _seeded(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        return torch.from_numpy(rng.integers(-255, 256, shape).astype(np.int32))
+    return torch.from_numpy(rng.standard_normal(shape).astype(dtype))
+
+
+def _same_bits(got, base):
+    return all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+               for a, b in zip(got, base))
+
+
+#: odd and even sizes, mirror and extended rows, each dtype the kernels take
+INVARIANT = [
+    (64, 96, np.float32, "cdf97", False), (101, 97, np.float32, "cdf97", False),
+    (75, 133, np.float64, "cdf97", False), (130, 97, np.int32, "cdf53", False),
+    (101, 97, np.int32, "cdf97", False), (96, 72, np.float32, "haar", False),
+    (70, 97, np.float32, "interp53", False), (130, 97, np.float32, "cdf97", True),
+    (64, 96, np.float64, "cdf53", True), (130, 98, np.int32, "cdf53", True),
+]
+
+
+@pytest.mark.parametrize("h,w,dtype,wavelet,ext", INVARIANT)
+def test_b1_plain_is_tile_invariant(h, w, dtype, wavelet, ext):
+    """Every output of B1 depends only on its own neighbourhood, read at
+    global positions (the extension's zero rows reach only outputs past
+    the image), so any tile gives the same bits: the CUDA kernel may take
+    any tile and must still equal the plain version exactly."""
+    x = _seeded((h + (2 * tf.HALO if ext else 0), w), dtype, h * w)
+    base = tf.dwt2_level_plain(x, wavelet, 8, ext)
+    for tile in (16, 32, 64):
+        assert _same_bits(tf.dwt2_level_plain(x, wavelet, tile, ext), base)
+
+
+@pytest.mark.parametrize("h,w,dtype,wavelet,ext", INVARIANT + [
+    (131, 97, np.float32, "cdf97", True), (65, 48, np.int32, "cdf53", True)])
+def test_b4_plain_is_tile_invariant(h, w, dtype, wavelet, ext):
+    """The same for B4, on seeded bands (with CH channel rows above and
+    below each when extended; the inverse's contract takes odd heights)."""
+    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
+    e = 2 * tf.CH if ext else 0
+    bands = [_seeded((r + e, c), dtype, h * w + i)
+             for i, (r, c) in enumerate([(cy, cx), (cy, fx), (fy, cx), (fy, fx)])]
+    base = tf.idwt2_level_plain(*bands, wavelet, 8, ext)
+    assert tuple(base.shape) == (h, w)
+    for tile in (16, 32, 64):
+        assert _same_bits([tf.idwt2_level_plain(*bands, wavelet, tile, ext)], [base])
 
 
 # ------------------------------------------------------- boundary_rows='extended'

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where a hand-written 2-D kernel spends its time on the GPU: B2, B5 (the
-two-level kernels of csrc/fused2l.cu), B3, B6 (the deep tails of
-csrc/deep.cu).
+"""Where a hand-written 2-D kernel spends its time on the GPU: B1, B4 (the
+one-level kernels of csrc/level.cu), B2, B5 (the two-level kernels of
+csrc/fused2l.cu), B3, B6 (the deep tails of csrc/deep.cu).
 
-    python3 tools/kernel_phases.py B3 [B6 B2 B5] [--tile N] [--reps 200] [--seed 0]
+    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5] [--tile N] [--reps 200] [--seed 0]
 
 For each kernel named, on the main path's shapes (2144x4096 float32 CDF
-9/7: B2 on the frame, B5 on its two-level bands, B3 on its 536x1024 LL2
-for three levels, B6 on those three levels' bands):
+9/7: B1 and B2 on the frame, B4 on its one-level bands, B5 on its
+two-level bands, B3 on its 536x1024 LL2 for three levels, B6 on those
+three levels' bands):
 
 1. Times the kernel with CUDA events over back-to-back launches made
    straight through ctypes into preallocated outputs, so that the
@@ -20,7 +21,9 @@ for three levels, B6 on those three levels' bands):
    runs it on the same inputs and checks it again.  Prints each phase's
    mean and median cycles per block (per level for B3/B6, whose phases
    repeat once a level: load, lift, stores, grid sync), a block's
-   lifetime, and the most blocks resident on an SM at once.
+   lifetime, the most blocks resident on an SM at once, and (B1, B3, B4,
+   B6) the blocks an SM that the occupancy query allows the stamped
+   kernel at its tile's shared memory.
 
 A kernel is data here: its source, kernel function, entry point, phase
 markers, the variable that counts its rounds, and a function that makes
@@ -40,8 +43,20 @@ sys.path.insert(0, ROOT)
 
 H, W, WV, DEEP_LEVELS = 2144, 4096, "cdf97", 3
 MAX_BLOCKS = 1 << 14
+#: threads a block of every kernel here (THREADS in their sources)
+THREADS = 256
 
 KERNELS = {
+    "B1": {"source": "level.cu", "kernel": "fwd1_kernel", "entry": "dwt_fwd1",
+           "tile": 32, "round": None, "instance": "fwd1_kernel<float, 4, true, 0>",
+           "phases": (("__pipeline_wait_prior(0);", "load"),
+                      ("lines::lift_fwd<NST, SYM>(", "lift"),
+                      ("onelevel::fwd_store(", "stores"))},
+    "B4": {"source": "level.cu", "kernel": "inv1_kernel", "entry": "dwt_inv1",
+           "tile": 32, "round": None, "instance": "inv1_kernel<float, 4, true, 0>",
+           "phases": (("__pipeline_wait_prior(0);", "load"),
+                      ("lines::lift_inv<NST, SYM>(", "lift"),
+                      ("onelevel::inv_store(", "stores"))},
     "B2": {"source": "fused2l.cu", "kernel": "fwd2_kernel", "entry": "dwt_fwd2",
            "tile": 64, "round": None,
            "phases": (("__pipeline_wait_prior(0);", "load"),
@@ -58,13 +73,13 @@ KERNELS = {
                       ("lines::lift_inv<NST, SYM>(s1", "level-1 lift"),
                       ("inv2::store(", "stores"))},
     "B3": {"source": "deep.cu", "kernel": "deep_fwd_kernel", "entry": "dwt_deep_fwd",
-           "tile": 32, "round": "k",
+           "tile": 32, "round": "k", "instance": "deep_fwd_kernel<float, 4, true>",
            "phases": (("__pipeline_wait_prior(0);", "load"),
                       ("lines::lift_fwd<NST, SYM>(", "lift"),
                       ("fwd_store(s, RS, L, y0, x0, P);", "stores"),
                       ("if (k + 1 < d.n) grid.sync();", "grid sync"))},
     "B6": {"source": "deep.cu", "kernel": "deep_inv_kernel", "entry": "dwt_deep_inv",
-           "tile": 32, "round": "k",
+           "tile": 32, "round": "k", "instance": "deep_inv_kernel<float, 4, true>",
            "phases": (("__pipeline_wait_prior(0);", "load"),
                       ("lines::lift_inv<NST, SYM>(", "lift"),
                       ("inv_store(s, RS, L, y0, x0);", "stores"),
@@ -72,11 +87,20 @@ KERNELS = {
 }
 
 
+def window_smem(tile: int) -> int:
+    """Shared memory (bytes, float32) of the one-level window of B1, B3,
+    B4 and B6 at ``tile``: (2 tile + 8) rows of lines::stride columns."""
+    e = 2 * tile + 8
+    return 4 * e * (e if e % 4 else e + 2)
+
+
 def stamped_source(src: str, spec: dict, rounds: int) -> str:
     """``src`` with a barrier and a clock64 stamp after each phase of the
     spec's kernel function: per block, slot 0 at its start and slot 1 +
     round * NP + i after phase i of a round; then the globaltimer at the
-    block's start and end, and its SM."""
+    block's start and end, and its SM.  Where the spec names an
+    ``instance`` of the kernel, ``kp_occupancy`` gives the blocks an SM
+    that cudaOccupancyMaxActiveBlocksPerMultiprocessor allows it."""
     phases, np_ = spec["phases"], len(spec["phases"])
     nstamp = 1 + rounds * np_
     rnd = spec["round"] or "0"
@@ -135,6 +159,13 @@ extern "C" int kp_clear(int n) {
     return err ? err : (int)cudaMemset(p, 0, sizeof(unsigned long long) * n);
 }
 """
+    if "instance" in spec:
+        getter += f"""
+extern "C" int kp_occupancy(int* blocks, int threads, int smem) {{
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, {spec["instance"]},
+                                                              threads, (size_t)smem);
+}}
+"""
     return head[:t0] + prelude + head[t0:] + "\n".join(out) + tail + getter
 
 
@@ -150,9 +181,19 @@ def make_case(kid, tile, seed):
 
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.random((H, W), dtype=np.float32)).cuda()
-    P = F._lift_params(F.get_wavelet(WV), False, kid in ("B5", "B6"))
+    P = F._lift_params(F.get_wavelet(WV), False, kid in ("B4", "B5", "B6"))
     info = (ctypes.c_int * 2)()
-    if kid in ("B2", "B5"):
+    if kid in ("B1", "B4"):
+        bands = [a.contiguous() for a in F.dwt2_level_plain(x, WV, tile)]
+        if kid == "B1":
+            ins, outs, want = [x], F._carve([tuple(a.shape) for a in bands], x), bands
+        else:
+            ins = bands
+            outs = [torch.empty((H, W), device="cuda")]
+            want = [F.idwt2_level_plain(*bands, WV, tile)]
+        args = [t.data_ptr() for t in ins + outs] + [H, W, tile, 0]
+        blocks = -(-W // (2 * tile)) * -(-H // (2 * tile))
+    elif kid in ("B2", "B5"):
         ll2, b2, b1 = F.fused_dwt2_2level_plain(x, WV)
         if kid == "B2":
             ins = [x]
@@ -204,7 +245,7 @@ def make_case(kid, tile, seed):
     def launch(fn):
         return fn(*args, ctypes.byref(P), stream)
 
-    return {"ins": ins, "outs": outs, "want": want, "launch": launch, "P": P,
+    return {"ins": ins, "outs": outs, "want": want, "launch": launch, "P": P, "tile": tile,
             "nblocks": lambda: blocks if blocks is not None else info[0],
             "rounds": 1 if blocks is not None else DEEP_LEVELS}
 
@@ -298,6 +339,11 @@ def report(kid, spec, case, lib, smi):
     print(f"{len(most)} SMs; most blocks resident on an SM at once: {max(most)} "
           f"(mean of the SMs' most {np.mean(most):.2f}); {nblk / len(most):.2f} blocks "
           f"an SM", flush=True)
+    if "instance" in spec:
+        occ, smem = ctypes.c_int(), window_smem(case["tile"])
+        _cuda.check(lib.kp_occupancy(ctypes.byref(occ), THREADS, smem), "kp_occupancy")
+        print(f"occupancy query: {occ.value} blocks of {THREADS} threads an SM at {smem} "
+              f"bytes of shared memory (the stamped {spec['instance']})", flush=True)
 
 
 def main() -> int:
