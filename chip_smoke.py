@@ -69,8 +69,20 @@
    csrc/onelevel.cuh); the library yardstick of a forward level (reflect
    padding by 4 and a stride-2 conv2d with the level's four 9x9 analysis
    filters, TF32 off) at B3's level shapes and B1's frame; times and
-   profiles the paths, and prints the card's name and power limit, a
-   JSON line of kernels, and last the contract line.
+   profiles the paths.
+6. The riders: the port's plain-torch modules on the card at the
+   2144x4096 frame.  ``dwt2_fix``/``idwt2_fix`` in FIX32 (CDF 9/7) and
+   FIX16 (CDF 5/3) equal the CPU's bit for bit; ``fdwt2_interleaved`` J=5
+   f32 through ``interleaved_to_packed2`` is within 5e-4 of ``fdwt2``, and
+   the int32 CDF 5/3 interleaved round trip is exact; ``swt2`` J=3, one
+   NSLS level each way and ``eaw_wavedec2``/``eaw_waverec2`` J=2 round trip
+   on the frame to 1e-3 (SWT in the interior) and, on a 256x512 crop,
+   agree with the CPU port (SWT and EAW 5e-4, NSLS 3e-5); and
+   ``features.denoise2(x + noise, 'cdf97', 5, impl='fused')`` launches B2,
+   B3, B5 and B6 once each (counts set to 0 just before it) and is within
+   1e-3 of ``impl='separable'``.  Each rider's time with CUDA events.
+Then it prints the card's name and power limit, a JSON line of kernels,
+and last the contract line.
 
 Exits non-zero, printing no result line, when there is no CUDA device
 or any check fails.  Needs one card.
@@ -270,6 +282,130 @@ def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
     print(f"ok  {what}", flush=True)
+
+
+#: the CPU crop of the frame on which the riders on the card are held to
+#: the port's CPU result (the full frame runs on the card only)
+RIDER_CROP = (256, 512)
+
+
+def riders(x, seed: int, reps: int, smi: str) -> None:
+    """The plain-torch modules on the card at the bench frame ``x``: fixed
+    point (bit for bit == the CPU), the interleaved layout, SWT, NSLS, EAW
+    (== the CPU port on a crop, and round trips on the frame), and
+    ``denoise2(impl='fused')``, which runs B2, B3, B5 and B6 once each."""
+    import numpy as np
+    import torch
+
+    from libdwt_torch.ops import eaw, features, interleaved, nsls, swt
+    from libdwt_torch.ops import fused as F
+    from libdwt_torch.ops import separable as sep
+    from libdwt_torch.utils import fix
+
+    H, W = x.shape
+    cpu = x.cpu()
+    times = {}
+
+    def timed(name, fn, windows=5):
+        # host-paced streams of small ops vary from window to window: the
+        # median of several windows of ``reps`` calls, with their spread
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = sorted(time_ms(fn, reps, warm=0) for _ in range(windows))
+        return out
+
+    # ---- fixed point: FIX32 CDF 9/7 and FIX16 CDF 5/3, bit for bit == CPU
+    for q, wv in ((fix.FIX32, "cdf97"), (fix.FIX16, "cdf53")):
+        xq = fix.to_fix(x, q)
+        bands = timed(f"dwt2_fix {q.name} {wv}", lambda: fix.dwt2_fix(xq, wv, q))
+        back = timed(f"idwt2_fix {q.name} {wv}", lambda: fix.idwt2_fix(*bands, wv, q))
+        cq = fix.to_fix(cpu, q)
+        cb = fix.dwt2_fix(cq, wv, q)
+        ok = (torch.equal(xq.cpu(), cq) and all(torch.equal(a.cpu(), b) for a, b in zip(bands, cb))
+              and torch.equal(back.cpu(), fix.idwt2_fix(*cb, wv, q)))
+        require(ok and xq.dtype == q.dtype and xq.is_cuda,
+                f"riders: dwt2_fix/idwt2_fix {q.name} {wv} {H}x{W} on the card == CPU bit for bit")
+        err = float((fix.from_fix(back, q) - x).abs().max())
+        print(f"riders: {q.name} {wv} round trip max|err| {err:.3e} (quantized)", flush=True)
+
+    # ---- the interleaved layout: J=5 f32 vs the packed transform, int32 exact
+    inter = timed("fdwt2_interleaved J=5 f32",
+                  lambda: interleaved.fdwt2_interleaved(x, "cdf97", 5))
+    err = max_abs(interleaved.interleaved_to_packed2(inter, 5), sep.fdwt2(x, "cdf97", 5))
+    require(err <= 5e-4, f"riders: interleaved J=5 {H}x{W} f32 -> packed vs fdwt2 max|diff| "
+            f"{err:.3e} <= 5e-4")
+    rec = timed("idwt2_interleaved J=5 f32",
+                lambda: interleaved.idwt2_interleaved(inter, "cdf97", 5))
+    err = max_abs(rec, x)
+    require(err <= 1e-3, f"riders: interleaved J=5 round trip max|err| {err:.3e} <= 1e-3")
+    xi = (x * 255).to(torch.int32)
+    yi = interleaved.fdwt2_interleaved(xi, "cdf53", 5)
+    require(torch.equal(interleaved.idwt2_interleaved(yi, "cdf53", 5), xi)
+            and torch.equal(interleaved.interleaved_to_packed2(yi, 5), sep.fdwt2(xi, "cdf53", 5)),
+            "riders: int32 CDF 5/3 interleaved J=5 round trip exact, == packed fdwt2")
+
+    # ---- SWT J=3, one NSLS level, EAW J=2: the frame on the card (round
+    # trips), a crop on the card vs the CPU port (the tests' bounds)
+    sc = timed("swt2 J=3", lambda: swt.swt2(x, "cdf97", 3))
+    sr = timed("iswt2 J=3", lambda: swt.iswt2(sc, "cdf97"))
+    m = 16 * 8  # the SWT clamps borders and the DWT mirrors: the interior
+    err = max_abs(sr[m:-m, m:-m], x[m:-m, m:-m])
+    require(err <= 1e-3, f"riders: swt2/iswt2 J=3 {H}x{W} interior round trip max|err| "
+            f"{err:.3e} <= 1e-3")
+    nb = timed("nsls_dwt2_level", lambda: nsls.nsls_dwt2_level(x, "cdf97"))
+    nr = timed("nsls_idwt2_level", lambda: nsls.nsls_idwt2_level(*nb, "cdf97"))
+    err = max_abs(nr, x)
+    require(err <= 1e-3, f"riders: NSLS level round trip max|err| {err:.3e} <= 1e-3")
+    err = max_abs(list(nb), list(sep.dwt2_level(x, "cdf97")))
+    require(err <= 3e-5, f"riders: NSLS level vs dwt2_level max|diff| {err:.3e} <= 3e-5")
+    ec, ew = timed("eaw_wavedec2 J=2", lambda: eaw.eaw_wavedec2(x, "cdf97", 2))
+    er = timed("eaw_waverec2 J=2", lambda: eaw.eaw_waverec2(ec, ew, "cdf97"))
+    err = max_abs(er, x)
+    require(err <= 1e-3, f"riders: EAW J=2 round trip max|err| {err:.3e} <= 1e-3")
+
+    ch, cw = RIDER_CROP
+    crop = x[:ch, :cw].contiguous()
+    ccpu = crop.cpu()
+    checks = (
+        ("swt2 J=3", 5e-4, lambda a: swt.swt2(a, "cdf97", 3)),
+        ("nsls_dwt2_level", 3e-5, lambda a: list(nsls.nsls_dwt2_level(a, "cdf97"))),
+        ("nsls_idwt2_level", 3e-5,
+         lambda a: nsls.nsls_idwt2_level(*sep.dwt2_level(a, "cdf97"), "cdf97")),
+        ("eaw_wavedec2 J=2", 5e-4, lambda a: eaw.eaw_wavedec2(a, "cdf97", 2)[0]),
+        ("eaw_waverec2 J=2", 5e-4,
+         lambda a: eaw.eaw_waverec2(*eaw.eaw_wavedec2(a, "cdf97", 2), "cdf97")),
+    )
+    for name, tol, fn in checks:
+        got, want = leaves(fn(crop)), leaves(fn(ccpu))
+        err = max_abs([g.cpu() for g in got], want)
+        require(all(g.is_cuda for g in got) and err <= tol,
+                f"riders: {name} {ch}x{cw} crop on the card vs the CPU port max|diff| "
+                f"{err:.3e} <= {tol:g}")
+
+    # ---- denoise2 on the fused main path: B2, B3, B5, B6 once each
+    rng = np.random.default_rng(seed + 1)
+    noisy = x + torch.from_numpy(0.1 * rng.standard_normal((H, W), dtype=np.float32)).to(x.device)
+    torch.cuda.synchronize()
+    F.reset_counters()
+    den = features.denoise2(noisy, "cdf97", 5, impl="fused")
+    torch.cuda.synchronize()
+    got_l = {k: F.KERNELS[k].launches for k in F.KERNELS if F.KERNELS[k].launches}
+    print("denoise2 launches: " + json.dumps(got_l), flush=True)
+    require(got_l == {"B2": 1, "B3": 1, "B5": 1, "B6": 1},
+            "riders: denoise2(impl='fused') launched B2, B3, B5, B6 once each")
+    den_sep = features.denoise2(noisy, "cdf97", 5, impl="separable")
+    err = max_abs(den, den_sep)
+    print(f"riders: denoise2 fused vs separable max|diff| {err:.3e}", flush=True)
+    require(bool(torch.isfinite(den).all()) and err <= 1e-3,
+            f"riders: denoise2 {H}x{W} J=5 fused vs separable max|diff| {err:.3e} <= 1e-3")
+    timed("denoise2 fused", lambda: features.denoise2(noisy, "cdf97", 5, impl="fused"))
+    timed("denoise2 separable", lambda: features.denoise2(noisy, "cdf97", 5, impl="separable"))
+    for name, ms in times.items():
+        print(f"time rider {name} ({H}x{W}): median {ms[len(ms) // 2]:.4f} ms, "
+              f"{len(ms)} windows of {reps} calls from {ms[0]:.4f} to {ms[-1]:.4f} ms "
+              f"[{smi}]", flush=True)
+    profile_path("denoise2 impl='fused' (wavedec2 + thresholds + waverec2)",
+                 lambda: features.denoise2(noisy, "cdf97", 5, impl="fused"), smi)
 
 
 def main() -> int:
@@ -1172,6 +1308,10 @@ def main() -> int:
                  lambda: api.waverec2(api.wavedec2(x, WV, 2, impl="streamed-mxu"), WV,
                                       impl="streamed-mxu"),
                  smi)
+
+    # ---- the riders: the plain-torch modules on the card, and denoise2
+    # on the fused main path
+    riders(x, args.seed, args.reps, smi)
 
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -7,8 +7,14 @@ two-level and deep forward and inverse), the streamed 2-D kernels
 (``impl='streamed'``: single levels, two levels per streamed pass, or the
 whole pyramid in one launch), the fused and streamed 3-D levels,
 forward and inverse, and the sharded transforms on a device mesh
-(:mod:`libdwt_torch.parallel`, with the halo push kernel).  Entry points
-run on the card unless given a CPU tensor or ``device='cpu'``.
+(:mod:`libdwt_torch.parallel`, with the halo push kernel); and the riders
+in plain torch: Q-format fixed point (:mod:`libdwt_torch.utils.fix`), the
+interleaved layout, strided convolution, the stationary transform (SWT),
+non-separable lifting (NSLS), edge-avoiding wavelets (EAW), band features
+and denoising (:mod:`libdwt_torch.ops.features`, whose ``denoise2`` runs
+the dispatching pyramid) and the vector helpers
+(:mod:`libdwt_torch.utils.vecops`).  Entry points run on the card unless
+given a CPU tensor or ``device='cpu'``.
 
 Top-level names follow ``libdwt_tpu``: ``wavedec2`` & co. are the
 separable oracle, ``wavedec2_fast`` & co. the dispatching API
@@ -38,5 +44,11 @@ from libdwt_torch.ops.fused import (KERNELS, fused_deep_wavedec2,
                                     fused_wavedec2, fused_waverec2,
                                     reset_counters)
 from libdwt_torch.ops.fused3d import fused_dwt3_level, fused_idwt3_level
+from libdwt_torch.ops.eaw import eaw_wavedec2, eaw_waverec2
+from libdwt_torch.ops.interleaved import fdwt2_interleaved, idwt2_interleaved
+from libdwt_torch.ops.nsls import nsls_dwt2_level, nsls_idwt2_level
+from libdwt_torch.ops.conv import convolve1, find_max_pos
+from libdwt_torch.ops.swt import (analysis_filters, iswt1, iswt2, swt1, swt2,
+                                  swt_level)
 
 __version__ = "0.1.0"

@@ -10,6 +10,16 @@
                the streamed pyramid functions
 - streamed3d — the streamed 3-D tile kernels (one level, forward and
                inverse)
+- interleaved — transforms in the interleaved (dwt-simple) layout and the
+               conversions to and from the packed one
+- conv       — centred strided convolution with saturated borders,
+               find_max_pos
+- swt        — the stationary (à-trous) transform, 1-D and 2-D, and its
+               inverse
+- nsls       — the non-separable lifting level, forward and inverse
+- eaw        — edge-avoiding (weighted) lifting and its 2-D pyramid
+- features   — per-band statistics, feature vectors, thresholds and
+               denoise2 (which runs the dispatching pyramid)
 """
 
 

@@ -1,1 +1,2 @@
-"""Geometry, test images and device helpers."""
+"""Geometry, test images, device helpers, Q-format fixed point (fix) and
+the vector/image helpers (vecops)."""

@@ -22,6 +22,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def as_tensors(*xs, device=None):
+    """Each of ``xs`` as a tensor (:func:`as_tensor`); a non-tensor goes to
+    ``device`` or, if that is None, to the device of the first tensor
+    among ``xs``."""
+    if device is None:
+        device = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    return tuple(x if isinstance(x, torch.Tensor) else as_tensor(x, device) for x in xs)
+
+
 def as_tensor(x, device=None) -> torch.Tensor:
     """``x`` as a tensor: tensors keep their device unless ``device``
     names another one; other inputs go to ``device`` (default cuda)."""

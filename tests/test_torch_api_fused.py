@@ -9,6 +9,7 @@ kernels each call reached.
 """
 import logging
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -19,6 +20,7 @@ from libdwt_torch import api
 from libdwt_torch.ops import UnsupportedGeometry
 from libdwt_torch.ops import fused as tf
 from libdwt_torch.ops import fused3d as t3
+from libdwt_torch.ops import separable as ts_sep
 from libdwt_torch.utils.log import get_logger
 
 
@@ -202,3 +204,39 @@ def test_3d_explicit_impl_is_honoured_or_raises():
     api.set_impl("auto")
     api.waverec3(api.wavedec3(torch.zeros(16, 16, 16), "cdf97", 2), "cdf97")
     assert _calls() == {}
+
+
+@pytest.mark.parametrize("wavelet", ["cdf97", "cdf53"])
+def test_fused_waverec2_at_small_odd_deep_levels_matches_the_oracle(wavelet):
+    """130x258 J=5: the reference's fused inverse raises there (its deep
+    kernel reaches a small odd level); the port's deep inverse B6 takes all
+    five levels and gives the separable reconstruction."""
+    x = np.random.default_rng(15).random((130, 258), dtype=np.float32)
+    coeffs, want = jax.jit(lambda a: (lambda c: (c, js.waverec2(c, wavelet)))(
+        js.wavedec2(a, wavelet, 5)))(x)
+    got = api.waverec2([torch.tensor(np.asarray(coeffs[0]))]
+                       + [tuple(torch.tensor(np.asarray(b)) for b in lvl)
+                          for lvl in coeffs[1:]], wavelet, impl="fused")
+    assert _calls() == {"B6": 1}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), x, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("h,w,level", [(48, 50, 3), (33, 47, 1), (176, 198, 5), (64, 64, 3)])
+def test_fused_haar_forward_at_odd_sizes_gives_the_oracle(h, w, level):
+    """Haar through the fused pyramid gives the reference's fused
+    coefficients, borders included, and the oracle's where every level's
+    lengths are even; at an odd length the kernels' whole-point mirror
+    departs from the oracle's one-sided rule in both packages (an open
+    fault).  The fused inverse gives the oracle's inverse of the same
+    coefficients at every size."""
+    x = np.random.default_rng(h + w).standard_normal((h, w)).astype(np.float32)
+    got = api.wavedec2(torch.from_numpy(x), "haar", level, impl="fused")
+    _close(got, japi.wavedec2(x, "haar", level, impl="fused"), 1e-6)
+    assert "B3" in _calls() or level == 1
+    if h % (1 << level) == 0 and w % (1 << level) == 0:
+        _close(got, ts_sep.wavedec2(torch.from_numpy(x), "haar", level), 1e-6)
+    if level == 1:
+        _close(api.dwt2(torch.from_numpy(x), "haar", impl="fused"),
+               japi.dwt2(x, "haar", impl="fused"), 1e-6)
+    _close([api.waverec2(got, "haar", impl="fused")], [ts_sep.waverec2(got, "haar")], 1e-6)

@@ -86,6 +86,25 @@ TWO_LEVEL = [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wavelet", ["cdf97", "cdf53"])
+def test_fused_pyramid_at_small_odd_deep_levels_matches_oracle(cuda_device, wavelet):
+    """130x258 J=5 through api.wavedec2/waverec2(impl='fused'): every
+    forward level is too small for a kernel (separable), and B6 takes all
+    five inverse levels in one launch, where the reference's fused inverse
+    raises; the result is the oracle's."""
+    x = _img(130, 258, torch.float32, cuda_device, 15)
+    tf.reset_counters()
+    coeffs = api.wavedec2(x, wavelet, 5, impl="fused")
+    rec = api.waverec2(coeffs, wavelet, impl="fused")
+    torch.cuda.synchronize()
+    assert (tf.KERNELS["B3"].launches, tf.KERNELS["B6"].launches) == (0, 1)
+    want = sep.wavedec2(x, wavelet, 5)
+    assert max(float((a - b).abs().max()) for a, b in zip(_leaves(coeffs), _leaves(want))) <= 5e-4
+    assert float((rec - sep.waverec2(want, wavelet)).abs().max()) <= 5e-4
+    assert float((rec - x).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,w,dtype,wavelet,tile", TWO_LEVEL)
 def test_b2_b5_kernels_match_plain(cuda_device, h, w, dtype, wavelet, tile):
     x = _img(h, w, dtype, cuda_device)
