@@ -6,7 +6,8 @@
 1. Builds every CUDA kernel of the port from ``libdwt_torch/csrc``.
 2. Drives nine paths through the public API, each with the launch
    counts set to 0 just before it and read just after, on data made from
-   a numpy seed (CDF 9/7, float32):
+   a numpy seed (CDF 9/7, float32); the riders (6.) and the tools (7.)
+   are the tenth and eleventh:
    - the 2-D pyramid: ``api.wavedec2`` / ``waverec2``, J=5,
      ``impl='fused'`` on a 2144x4096 frame (two-level kernels B2/B5,
      deep tails B3/B6: one cooperative launch each for levels 3-5);
@@ -66,10 +67,12 @@
    kernel's device time with the profiler, which leaves out the host's
    cost of issuing it), beside the card's bound for the same work; B3 and
    B6 also beside one launch of B1/B4 per level (the same tile body,
-   csrc/onelevel.cuh); the library yardstick of a forward level (reflect
-   padding by 4 and a stride-2 conv2d with the level's four 9x9 analysis
-   filters, TF32 off) at B3's level shapes and B1's frame; times and
-   profiles the paths.
+   csrc/onelevel.cuh); the library yardsticks of the forward kernels
+   (reflect padding by 4 and a stride-2 conv2d with the level's four 9x9
+   analysis filters, chained over B1/B7's one level, B2/B8's two, B3's
+   deep three and B11's five; a stride-2 conv3d with the eight 9x9x9
+   filters at both of B14/B16's levels; TF32 off, each held to the plain
+   version or the oracle); times and profiles the paths.
 6. The riders: the port's plain-torch modules on the card at the
    2144x4096 frame.  ``dwt2_fix``/``idwt2_fix`` in FIX32 (CDF 9/7) and
    FIX16 (CDF 5/3) equal the CPU's bit for bit; ``fdwt2_interleaved`` J=5
@@ -81,6 +84,22 @@
    ``features.denoise2(x + noise, 'cdf97', 5, impl='fused')`` launches B2,
    B3, B5 and B6 once each (counts set to 0 just before it) and is within
    1e-3 of ``impl='separable'``.  Each rider's time with CUDA events.
+7. The tools: the frame quantized to 8 bits, written as a P5 PGM and a
+   FLOAT EXR; ``Image.load_pgm`` on the card == the CPU load bit for bit;
+   ``Image.wavedec('cdf97', 5, impl='fused')`` launches B2 and B3 once
+   each and ``api.waverec2(impl='fused')`` B5 and B6 (5e-4 from the
+   oracle, round trip 1e-3); ``save_pgm`` rewrites the same bytes and
+   ``Image.load_exr`` gives the frame back exactly;
+   ``Volume.fill_test(64, 512, 512).wavedec('cdf97', 2)`` launches B14
+   twice (5e-4); ``selftest(device='cuda')`` is all True with B1 and B4
+   once per fused wavelet; ``interop.transform`` of a 2144x4096x3
+   channels-last frame both ways (round trip 1e-3; a 256x512 crop == the
+   CPU port within 1e-5); ``gabor_ft``/``gabor_wt``/``gabor_st`` at 128
+   bins on 16 signals of 65,536 samples (the first held to the CPU port:
+   magnitude 1e-4 of its max, phase 1e-3 where the magnitude exceeds 1e-3
+   of its max); ``perf.measure_perf_2d`` of the fused pyramid at
+   256-4096, ``perf.info()`` and ``python -m libdwt_torch --json``.  Each
+   call's time with CUDA events (median of 5 windows of ``--reps`` calls).
 Then it prints the card's name and power limit, a JSON line of kernels,
 and last the contract line.
 
@@ -170,6 +189,23 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def windows_ms(fn, reps: int, windows: int = 5):
+    """Event times per call of ``fn`` over ``windows`` windows of ``reps``
+    calls each, sorted (host-paced streams of small ops vary from window to
+    window: report the median and the range)."""
+    import torch
+
+    torch.cuda.synchronize()
+    return sorted(time_ms(fn, reps, warm=0) for _ in range(windows))
+
+
+def print_windows(label: str, times, reps: int, smi: str) -> None:
+    for name, ms in times.items():
+        print(f"time {label} {name}: median {ms[len(ms) // 2]:.4f} ms, "
+              f"{len(ms)} windows of {reps} calls from {ms[0]:.4f} to {ms[-1]:.4f} ms "
+              f"[{smi}]", flush=True)
 
 
 def device_ms(fn, reps: int = 5, tries: int = 3):
@@ -306,12 +342,9 @@ def riders(x, seed: int, reps: int, smi: str) -> None:
     cpu = x.cpu()
     times = {}
 
-    def timed(name, fn, windows=5):
-        # host-paced streams of small ops vary from window to window: the
-        # median of several windows of ``reps`` calls, with their spread
+    def timed(name, fn):
         out = fn()
-        torch.cuda.synchronize()
-        times[name] = sorted(time_ms(fn, reps, warm=0) for _ in range(windows))
+        times[name] = windows_ms(fn, reps)
         return out
 
     # ---- fixed point: FIX32 CDF 9/7 and FIX16 CDF 5/3, bit for bit == CPU
@@ -400,12 +433,199 @@ def riders(x, seed: int, reps: int, smi: str) -> None:
             f"riders: denoise2 {H}x{W} J=5 fused vs separable max|diff| {err:.3e} <= 1e-3")
     timed("denoise2 fused", lambda: features.denoise2(noisy, "cdf97", 5, impl="fused"))
     timed("denoise2 separable", lambda: features.denoise2(noisy, "cdf97", 5, impl="separable"))
-    for name, ms in times.items():
-        print(f"time rider {name} ({H}x{W}): median {ms[len(ms) // 2]:.4f} ms, "
-              f"{len(ms)} windows of {reps} calls from {ms[0]:.4f} to {ms[-1]:.4f} ms "
-              f"[{smi}]", flush=True)
+    print_windows("rider", {f"{k} ({H}x{W})": v for k, v in times.items()}, reps, smi)
     profile_path("denoise2 impl='fused' (wavedec2 + thresholds + waverec2)",
                  lambda: features.denoise2(noisy, "cdf97", 5, impl="fused"), smi)
+
+
+#: the Gabor planes on the card: 16 seeded signals of 65,536 samples
+#: (1 M samples a call) at 128 bins; the CPU port holds the first signal
+GABOR_SIGNALS, GABOR_N, GABOR_BINS = 16, 65536, 128
+#: the square sizes of the perf sweep of the fused pyramid
+PERF_SIZES = (256, 512, 1024, 2048, 4096)
+
+
+def tools(x, seed: int, reps: int, smi: str, flops: float) -> None:
+    """The tools path on the card: ``Image`` through PGM and EXR files and
+    the fused pyramid (B2, B3, B5, B6), ``Volume.wavedec`` (B14 twice),
+    ``selftest`` (B1/B4 once per fused wavelet), ``interop.transform`` of a
+    channels-last frame, the Gabor planes, the perf sweep, ``perf.info`` and
+    ``python -m libdwt_torch --json``."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from libdwt_torch import REGISTRY, api, interop
+    from libdwt_torch.image import Image, Volume
+    from libdwt_torch.ops import fused as F
+    from libdwt_torch.ops import gabor
+    from libdwt_torch.ops import separable as sep
+    from libdwt_torch.selftest import selftest
+    from libdwt_torch.utils import io as dio
+    from libdwt_torch.utils import perf
+
+    H, W = x.shape
+    times = {}
+
+    def timed(name, fn):
+        out = fn()
+        times[name] = windows_ms(fn, reps)
+        return out
+
+    def launches_of(run):
+        """Runs ``run`` with the counts set to 0 just before it; returns
+        its result and the kernels it launched."""
+        torch.cuda.synchronize()
+        F.reset_counters()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the image path: the frame quantized to 8 bits, as a P5 PGM and
+        # a FLOAT EXR; loaded onto the card; the fused pyramid both ways
+        q = np.trunc(x.cpu().numpy().astype(np.float64) * 255.0).astype(np.float32)
+        x8 = q / np.float32(255)  # what an 8-bit load gives back
+        pgm, pgm2, exr = (os.path.join(tmp, n) for n in ("f.pgm", "g.pgm", "f.exr"))
+        dio.save_pgm(pgm, x8, binary=True)
+        dio.write_exr(exr, x8)
+        img = Image.load_pgm(pgm)
+        cpu_img = Image.load_pgm(pgm, device="cpu")
+        require(img.data.is_cuda and torch.equal(img.data.cpu(), cpu_img.data)
+                and torch.equal(cpu_img.data, torch.from_numpy(x8)),
+                f"tools: Image.load_pgm {H}x{W} P5 on the card == the CPU load bit for bit")
+        coeffs, fwd_l = launches_of(lambda: img.wavedec("cdf97", 5, impl="fused"))
+        rec, inv_l = launches_of(lambda: api.waverec2(coeffs, "cdf97", impl="fused"))
+        print(f"tools: Image.wavedec launches {json.dumps(fwd_l)}, api.waverec2 launches "
+              f"{json.dumps(inv_l)}", flush=True)
+        require(fwd_l == {"B2": 1, "B3": 1} and inv_l == {"B5": 1, "B6": 1},
+                "tools: Image.wavedec('cdf97', 5, impl='fused') launched B2 and B3 once each, "
+                "api.waverec2 B5 and B6 once each")
+        err = max_abs(leaves(coeffs), leaves(sep.wavedec2(img.data, "cdf97", 5)))
+        require(err <= 5e-4, f"tools: Image.wavedec vs separable oracle max|diff| {err:.3e} "
+                "<= 5e-4")
+        err = max_abs(rec, img.data)
+        require(err <= 1e-3, f"tools: Image round trip max|err| {err:.3e} <= 1e-3")
+        img.save_pgm(pgm2, binary=True)
+        with open(pgm, "rb") as f1, open(pgm2, "rb") as f2:
+            require(f1.read() == f2.read(),
+                    "tools: save_pgm(binary=True) of the loaded image rewrites the same bytes")
+        ex = Image.load_exr(exr)
+        require(ex.data.is_cuda and torch.equal(ex.data.cpu(), torch.from_numpy(x8)),
+                "tools: Image.load_exr == the written frame exactly")
+        timed(f"Image.load_pgm P5 {H}x{W}", lambda: Image.load_pgm(pgm).data)
+        timed(f"Image.wavedec cdf97 J=5 fused {H}x{W}",
+              lambda: img.wavedec("cdf97", 5, impl="fused"))
+        timed(f"api.waverec2 cdf97 J=5 fused {H}x{W}",
+              lambda: api.waverec2(coeffs, "cdf97", impl="fused"))
+        timed(f"Image.save_pgm P5 {H}x{W}", lambda: img.save_pgm(pgm2, binary=True))
+        timed(f"Image.save_exr {H}x{W}", lambda: img.save_exr(exr))
+        timed(f"Image.load_exr {H}x{W}", lambda: Image.load_exr(exr).data)
+
+    # ---- Volume.wavedec J=2 with 'auto': B14 once a level
+    vol = Volume.fill_test(64, 512, 512)
+    vc, vol_l = launches_of(lambda: vol.wavedec("cdf97", 2))
+    print(f"tools: Volume.wavedec launches {json.dumps(vol_l)}", flush=True)
+    require(vol_l == {"B14": 2}, "tools: Volume.fill_test(64, 512, 512).wavedec('cdf97', 2) "
+            "launched B14 twice")
+    err = max_abs(leaves(vc), leaves(sep.wavedec3(vol.data, "cdf97", 2)))
+    require(err <= 5e-4, f"tools: Volume.wavedec vs separable oracle max|diff| {err:.3e} <= 5e-4")
+    timed("Volume.wavedec cdf97 J=2 64x512x512", lambda: vol.wavedec("cdf97", 2))
+
+    # ---- selftest on the card: B1 then B4 for every fused wavelet
+    rep, st_l = launches_of(lambda: selftest(device="cuda"))
+    print(f"tools: selftest {sum(rep.values())}/{len(rep)} passed, launches "
+          f"{json.dumps(st_l)}", flush=True)
+    require(all(v is True for v in rep.values()) and rep.keys() == selftest(device="cpu").keys(),
+            "tools: selftest(device='cuda') has the CPU's keys, every entry True")
+    n_fused = sum(map(F.fused_supported, REGISTRY))
+    require(st_l == {"B1": n_fused, "B4": n_fused},
+            f"tools: selftest launched B1 and B4 once per fused wavelet ({n_fused})")
+    timed("selftest(device='cuda')", lambda: selftest(device="cuda"))
+
+    # ---- interop.transform of a channels-last 3-channel frame, both ways
+    rng = np.random.default_rng(seed + 2)
+    rgb = torch.from_numpy(rng.random((H, W, 3), dtype=np.float32)).to(x.device)
+    fwd = timed(f"interop.transform forward {H}x{W}x3",
+                lambda: interop.transform(rgb, interop.DWT_FORWARD))
+    back = timed(f"interop.transform inverse {H}x{W}x3",
+                 lambda: interop.transform(fwd, interop.DWT_INVERSE))
+    err = max_abs(back, rgb)
+    require(fwd.is_cuda and fwd.shape == rgb.shape and err <= 1e-3,
+            f"tools: interop.transform {H}x{W}x3 channels-last round trip max|err| {err:.3e} "
+            "<= 1e-3")
+    ch, cw = RIDER_CROP
+    crop = rgb[:ch, :cw].contiguous()
+    for flags in (interop.DWT_FORWARD, interop.DWT_INVERSE):
+        err = max_abs(interop.transform(crop, flags).cpu(), interop.transform(crop.cpu(), flags))
+        require(err <= 1e-5, f"tools: interop.transform flags={flags} {ch}x{cw}x3 crop on the "
+                f"card vs the CPU port max|diff| {err:.3e} <= 1e-5")
+
+    # ---- the Gabor planes: 16 signals of 65,536 samples at 128 bins
+    sigs = torch.from_numpy(rng.standard_normal((GABOR_SIGNALS, GABOR_N)).astype(np.float32)
+                            ).to(x.device)
+    planes = {
+        "gabor_ft sigma=8": (lambda s, out="mag": gabor.gabor_ft(s, GABOR_BINS, 8.0, out),
+                             gabor.gaussian_size(8.0, 1.0)),
+        "gabor_wt sigma=2 freq=pi/2": (
+            lambda s, out="mag": gabor.gabor_wt(s, GABOR_BINS, 2.0, math.pi / 2, out),
+            gabor.gaussian_size(2.0, math.pi / 2 / (math.pi / GABOR_BINS))),
+        "gabor_st": (lambda s, out="mag": gabor.gabor_st(s, GABOR_BINS, out),
+                     gabor.gaussian_size(gabor.s_sigma(0.5 / GABOR_BINS), 1.0)),
+    }
+    for name, (fn, taps) in planes.items():
+        mag = fn(sigs)
+        arg = fn(sigs, "arg")
+        torch.cuda.synchronize()
+        require(tuple(mag.shape) == (GABOR_SIGNALS, GABOR_BINS, GABOR_N)
+                and bool(torch.isfinite(mag).all()) and bool(torch.isfinite(arg).all()),
+                f"tools: {name} {GABOR_SIGNALS}x{GABOR_N} at {GABOR_BINS} bins: "
+                f"finite planes of the expected shape")
+        m0, a0 = fn(sigs[0].cpu()).numpy(), fn(sigs[0].cpu(), "arg").numpy()
+        peak = float(np.abs(m0).max())
+        err = float(np.abs(mag[0].cpu().numpy() - m0).max())
+        require(err <= 1e-4 * peak, f"tools: {name} magnitude on the card vs the CPU port "
+                f"max|diff| {err:.3e} <= 1e-4 * max ({1e-4 * peak:.3e})")
+        keep = m0 > 1e-3 * peak
+        wrapped = np.abs(np.angle(np.exp(1j * (arg[0].cpu().numpy().astype(np.float64) - a0))))
+        err = float(wrapped[keep].max())
+        require(err <= 1e-3, f"tools: {name} phase on the card vs the CPU port (wrapped, where "
+                f"magnitude > 1e-3 * max) max|diff| {err:.3e} <= 1e-3")
+        del mag, arg
+        ms = windows_ms(lambda: fn(sigs), reps)
+        times[f"{name} {GABOR_SIGNALS}x{GABOR_N} bins={GABOR_BINS}"] = ms
+        # 2 flops a multiply-add: 2*bins output channels (the real and the
+        # imaginary bank) of the bank's taps at every sample
+        ops = 2.0 * sigs.numel() * 2 * GABOR_BINS * taps
+        print(f"time tools {name}: bank {taps} taps, {ops / 1e12:.3f} TFLOP a call, float32 "
+              f"bound {ops / flops * 1e3:.4f} ms, median {ms[len(ms) // 2]:.4f} ms "
+              f"({ops / (ms[len(ms) // 2] * 1e-3) / 1e12:.2f} TFLOP/s) [{smi}]", flush=True)
+    profile_path(f"gabor_st {GABOR_SIGNALS}x{GABOR_N} bins={GABOR_BINS}",
+                 lambda: planes["gabor_st"][0](sigs), smi)
+
+    print_windows("tools", times, reps, smi)
+
+    # ---- the perf sweep of the fused pyramid, perf.info and the CLI
+    rows = perf.measure_perf_2d(lambda a: api.wavedec2(a, "cdf97", 5, impl="fused"),
+                                sizes=PERF_SIZES)
+    require([r[0] for r in rows] == list(PERF_SIZES) and all(r[1] > 0 for r in rows),
+            "tools: perf.measure_perf_2d of the fused wavedec2 J=5 gave a row a size")
+    for n, spp, mps in rows:
+        print(f"perf measure_perf_2d wavedec2 cdf97 J=5 fused {n}x{n}: {spp * 1e9:.4f} ns a "
+              f"pixel, {mps:.1f} Mpix/s (min of 5 fenced trials) [{smi}]", flush=True)
+    inf = perf.info()
+    print("perf.info: " + json.dumps(inf), flush=True)
+    require(inf["platform"] == "gpu" and inf["device_kind"] == torch.cuda.get_device_name(),
+            "tools: perf.info names the card")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = subprocess.run([sys.executable, "-m", "libdwt_torch", "--json"], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    print("python -m libdwt_torch --json: " + cli.stdout.strip(), flush=True)
+    require(cli.returncode == 0 and json.loads(cli.stdout)["platform"] == "gpu",
+            "tools: python -m libdwt_torch --json ran and names the gpu")
 
 
 def main() -> int:
@@ -1126,40 +1346,52 @@ def main() -> int:
               f"(one cooperative launch, csrc/deep.cu); one B1/B4 launch per level: "
               f"device {fmt(device_ms(per_level))} [{smi}]", flush=True)
 
-    # ---- the library yardstick of a forward level (never on the port's
+    # ---- the library yardsticks of the forward kernels (never on the port's
     # path): reflect padding by 4 (whole-point, as the kernels' mirror) and
-    # a stride-2 conv2d with the level's four 9x9 analysis filters, read off
-    # the plain level's response to unit impulses; TF32 off.  The inverse
-    # has none: its border rule on the bands is not a padding.
+    # a stride-2 conv2d with the level's four 9x9 analysis filters, chained
+    # over the kernel's levels (B1/B7 one, B2/B8 two, B3 the deep three, B11
+    # five); a stride-2 conv3d with the eight 9x9x9 filters for B14/B16.
+    # The filters are outer products of the 1-D pair, read off the oracle's
+    # response to unit impulses; TF32 off.  The inverse has none: its
+    # border rule on the bands is not a padding.
     import torch.nn.functional as nnf
 
-    def analysis_filters():
+    def analysis_pair():
         n, p = 32, 16
-        wts = torch.zeros(4, 1, 9, 9, dtype=torch.float64)
-        for dp in (0, 1):
-            for dq in (0, 1):
-                imp = torch.zeros(n, n, dtype=torch.float64)
-                imp[p + dp, p + dq] = 1
-                for k, b in enumerate(F.dwt2_level_plain(imp, WV)):
-                    for i in range(b.shape[0]):
-                        for j in range(b.shape[1]):
-                            u, v = p + dp - 2 * i + 4, p + dq - 2 * j + 4
-                            if 0 <= u < 9 and 0 <= v < 9:
-                                wts[k, 0, u, v] = b[i, j]
-        return wts.to(dev, torch.float32)
+        pair = torch.zeros(2, 9, dtype=torch.float64)  # low, high
+        for d in (0, 1):
+            imp = torch.zeros(n, dtype=torch.float64)
+            imp[p + d] = 1
+            for k, band in enumerate(sep.dwt1(imp, WV)):
+                for i in range(band.shape[0]):
+                    if 0 <= p + d - 2 * i + 4 < 9:
+                        pair[k, p + d - 2 * i + 4] = band[i]
+        return pair
 
-    conv_w = analysis_filters()
+    lo_hi = analysis_pair()
+    # bands in the order of the plain level: LL, HL, LH, HH as (y, x) filters
+    conv_w = torch.stack([torch.outer(lo_hi[fy], lo_hi[fx])
+                          for fy, fx in ((0, 0), (0, 1), (1, 0), (1, 1))])[:, None]
+    conv_w = conv_w.to(dev, torch.float32)
+    # the 3-D bands by sorted (z, y, x) name, as leaves() orders them
+    conv3_w = torch.stack([
+        torch.einsum("i,j,k->ijk", *(lo_hi[int(c == "H")] for c in name))
+        for name in sorted(b14_l1)])[:, None].to(dev, torch.float32)
 
     def conv_level(a):
         return nnf.conv2d(nnf.pad(a[None, None], (4, 4, 4, 4), mode="reflect"), conv_w,
                           stride=2)[0]
 
-    def conv_tail(a):
+    def conv_chain(a, levels):
         out = []
-        for _ in range(3):
+        for _ in range(levels):
             a, *details = conv_level(a)
             out.append(details)
         return [a] + out[::-1]
+
+    def conv3_level(a):
+        return nnf.conv3d(nnf.pad(a[None, None], (4,) * 6, mode="reflect"), conv3_w,
+                          stride=2)[0]
 
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1172,13 +1404,32 @@ def main() -> int:
                     f"{err:.3e} <= 3e-5")
             print(f"time pad + conv2d level {shape}: {time_ms(lambda: conv_level(a), args.reps):.4f} "
                   f"ms (device {fmt(device_ms(lambda: conv_level(a)))}) [{smi}]", flush=True)
-        err = max_abs(leaves(conv_tail(ll2)), leaves(F.fused_deep_wavedec2_plain(ll2, WV, 3)))
+        err = max_abs(leaves(conv_chain(ll2, 3)), leaves(F.fused_deep_wavedec2_plain(ll2, WV, 3)))
         require(err <= 3e-5, f"pad + conv2d levels 3-5 vs B3's plain version max|diff| "
                 f"{err:.3e} <= 3e-5")
-        library = {"B1": time_ms(lambda: conv_level(x), args.reps),
-                   "B3": time_ms(lambda: conv_tail(ll2), args.reps)}
-        print(f"time pad + conv2d levels 3-5 (B3's work): {library['B3']:.4f} ms (device "
-              f"{fmt(device_ms(lambda: conv_tail(ll2)))}) [{smi}]", flush=True)
+        err = max_abs(leaves(conv_chain(x, 2)), leaves(F.fused_dwt2_2level_plain(x, WV)))
+        require(err <= 3e-5, f"pad + conv2d levels 1-2 vs B2's plain version max|diff| "
+                f"{err:.3e} <= 3e-5")
+        err = max_abs(leaves(conv_chain(x, J)), leaves(want))  # a pyramid: the pyramid bound
+        require(err <= 5e-4, f"pad + conv2d levels 1-{J} vs the oracle's pyramid max|diff| "
+                f"{err:.3e} <= 5e-4")
+        for a, tag in ((v, "level 1"), (ll3, "level 2")):
+            err = max_abs(list(conv3_level(a)), leaves(F3.dwt3_level_plain(a, WV)))
+            require(err <= 3e-5, f"pad + conv3d {tag} ({'x'.join(map(str, a.shape))}) vs "
+                    f"B14's plain version max|diff| {err:.3e} <= 3e-5")
+        library = {}
+        for k, what, fn in (
+                ("B1", "level 1", lambda: conv_level(x)),
+                ("B2", "levels 1-2", lambda: conv_chain(x, 2)),
+                ("B3", "levels 3-5", lambda: conv_chain(ll2, 3)),
+                ("B11", f"levels 1-{J}", lambda: conv_chain(x, J)),
+                ("B14", "3-D level 1", lambda: conv3_level(v)),
+                ("B14 level 2", "3-D level 2", lambda: conv3_level(ll3))):
+            library[k] = time_ms(fn, args.reps)
+            print(f"time library {k} (pad + conv, {what}): {library[k]:.4f} ms (device "
+                  f"{fmt(device_ms(fn))}) [{smi}]", flush=True)
+        # the same functions as B1, B2, B11 and B14 compute
+        library.update(B7=library["B1"], B8=library["B2"], B16=library["B14"])
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -1312,6 +1563,10 @@ def main() -> int:
     # ---- the riders: the plain-torch modules on the card, and denoise2
     # on the fused main path
     riders(x, args.seed, args.reps, smi)
+
+    # ---- the tools: Image/Volume through files and the fused kernels,
+    # selftest, interop, Gabor, perf and the CLI
+    tools(x, args.seed, args.reps, smi, flops)
 
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -13,8 +13,14 @@ interleaved layout, strided convolution, the stationary transform (SWT),
 non-separable lifting (NSLS), edge-avoiding wavelets (EAW), band features
 and denoising (:mod:`libdwt_torch.ops.features`, whose ``denoise2`` runs
 the dispatching pyramid) and the vector helpers
-(:mod:`libdwt_torch.utils.vecops`).  Entry points run on the card unless
-given a CPU tensor or ``device='cpu'``.
+(:mod:`libdwt_torch.utils.vecops`); and the tools in plain torch and numpy:
+time-frequency analysis (:mod:`libdwt_torch.ops.gabor`), the file codecs
+and dataset cache (:mod:`libdwt_torch.utils.io`, ``exr``, ``cache``,
+``nativelib``), ``Image``/``Volume`` (:mod:`libdwt_torch.image`), the
+flags API of :mod:`libdwt_torch.interop`, the measurement harness
+(:mod:`libdwt_torch.utils.perf`), :mod:`libdwt_torch.selftest` and
+``python -m libdwt_torch``.  Entry points run on the card unless given a
+CPU tensor or ``device='cpu'``.
 
 Top-level names follow ``libdwt_tpu``: ``wavedec2`` & co. are the
 separable oracle, ``wavedec2_fast`` & co. the dispatching API
@@ -36,6 +42,7 @@ from libdwt_torch.api import dwt2 as dwt2_level_fast, idwt2 as idwt2_level_fast
 from libdwt_torch.api import wavedec2 as wavedec2_fast, waverec2 as waverec2_fast
 from libdwt_torch.api import wavedec3 as wavedec3_fast, waverec3 as waverec3_fast
 from libdwt_torch.interop import pyramid_from_numpy, pyramid_to_numpy
+from libdwt_torch.image import Image, Volume
 from libdwt_torch.ops import UnsupportedGeometry
 from libdwt_torch.ops.fused import (KERNELS, fused_deep_wavedec2,
                                     fused_deep_waverec2, fused_dwt2_2level,

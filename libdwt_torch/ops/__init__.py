@@ -20,6 +20,8 @@
 - eaw        — edge-avoiding (weighted) lifting and its 2-D pyramid
 - features   — per-band statistics, feature vectors, thresholds and
                denoise2 (which runs the dispatching pyramid)
+- gabor      — time-frequency planes (STFT, complex-Morlet CWT,
+               S-transform) as one conv1d, phase derivative, ridges
 """
 
 

@@ -20,7 +20,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_neither_jax_nor_the_jax_package():
     names = sorted(m.name for m in pkgutil.walk_packages(libdwt_torch.__path__, "libdwt_torch."))
     for new in ("utils.fix", "ops.interleaved", "ops.conv", "ops.swt", "ops.nsls", "ops.eaw",
-                "ops.features", "utils.vecops"):
+                "ops.features", "utils.vecops", "ops.gabor", "utils.io", "utils.nativelib",
+                "utils.exr", "utils.cache", "image", "interop", "utils.perf", "selftest",
+                "__main__"):
         assert f"libdwt_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -33,6 +35,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'nsls_dwt2_level', 'nsls_idwt2_level', 'convolve1', 'find_max_pos',\n"
         "          'analysis_filters', 'iswt1', 'iswt2', 'swt1', 'swt2', 'swt_level'):\n"
         "    assert callable(getattr(t, n)), n\n"
+        "import libdwt_torch.image as im\n"
+        "assert t.Image is im.Image and t.Volume is im.Volume\n"
+        "assert 'libdwt_torch.ops.gabor' in sys.modules and 'libdwt_torch.__main__' in sys.modules\n"
         "print('ok', len(sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -53,6 +58,9 @@ ENTRY_POINTS = [
     ("libdwt_torch.ops.eaw", "eaw_wavedec2", lambda a: (a,)),
     ("libdwt_torch.ops.features", "denoise2", lambda a: (a,)),
     ("libdwt_torch.utils.vecops", "scale21", lambda a: (a,)),
+    ("libdwt_torch.ops.gabor", "gabor_st", lambda a: (a, 4)),
+    ("libdwt_torch.ops.gabor", "detect_ridges3", lambda a: (a,)),
+    ("libdwt_torch.ops.gabor", "strongest_ridges", lambda a: (a, 2)),
 ]
 
 
