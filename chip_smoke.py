@@ -54,7 +54,9 @@
    version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5; B1-B6 exactly, bit for bit, B1 also at the odd pyramid's
+   <= 3e-5; B1-B6, B11 and B12 exactly, bit for bit, B11 and B12 also
+   equal to B2 then B3 and B6 then B5 on the frame and, launched with no
+   deep level, to B2 and B5; B1 also at the odd pyramid's
    2161x4097 and 1081x2049 and the 513x511 gate, B1/B4 with extended
    rows, B3 on the odd pyramid's 541x1025 chain), B1/B4/B7/B9 on every
    input the sharded kernel bodies and the explicit-'auto' pyramid give
@@ -65,7 +67,9 @@
    level-1 shapes (exactly).
 5. Times each kernel and its plain version with CUDA events (and the
    kernel's device time with the profiler, which leaves out the host's
-   cost of issuing it), beside the card's bound for the same work; B3 and
+   cost of issuing it), beside the card's bound for the same work; B11
+   and B12's device time split into the strip phase (a launch with no
+   deep level) and the deep levels, beside B2 + B3 and B6 + B5; B3 and
    B6 also beside one launch of B1/B4 per level (the same tile body,
    csrc/onelevel.cuh); the library yardsticks of the forward kernels
    (reflect padding by 4 and a stride-2 conv2d with the level's four 9x9
@@ -274,6 +278,10 @@ def profile_path(label: str, run, smi: str) -> None:
 #: the single-level kernels on the line walks of csrc/lines.cuh, held to
 #: their plain versions bit for bit (B7/B9 to 3e-5)
 EXACT_LEVELS = ("B1", "B4")
+#: the streamed kernels on lines.cuh's walks (B11/B12: fused2l.cuh's bodies
+#: and deep.cuh's levels), held to their plain versions bit for bit (B8/B10
+#: to 3e-5)
+EXACT_STREAMED = ("B11", "B12")
 #: the single-level kernel wrappers (B1, B4, B7, B9) that the sharded kernel
 #: bodies and the explicit-'auto' pyramid call
 LEVEL_WRAPPERS = ("fused_dwt2_level", "fused_idwt2_level", "streamed_dwt2_level",
@@ -312,6 +320,44 @@ def spy_calls(module, names, run):
         for n, fn in saved.items():
             setattr(module, n, fn)
     return kept
+
+
+def strip_phase(a, wavelet, ty: int = 64, tx: int = 64):
+    """B11 (``a`` a frame) or B12 (``a`` a two-level pyramid (LL2, level-2
+    bands, level-1 bands)) launched with no deep level, straight through its
+    C entry point (the wrappers take three levels or more): the strip phase
+    alone.  Returns (launch, outputs): B11's seven bands in B2's order, or
+    B12's frame.  Launches are not counted."""
+    import ctypes
+
+    import torch
+
+    from libdwt_torch.models.wavelets import get_wavelet
+    from libdwt_torch.ops import _cuda
+    from libdwt_torch.ops import fused as F
+
+    inverse = isinstance(a, (list, tuple))
+    if inverse:
+        ins = [a[0].contiguous()] + [b.contiguous() for t in a[1:] for b in t]
+        h, w = 4 * ins[0].shape[0], 4 * ins[0].shape[1]
+        out = torch.empty((h, w), dtype=ins[0].dtype, device=ins[0].device)
+        ptrs, first, outs = ins, out, out
+    else:
+        h, w = a.shape
+        q = [torch.empty((h // 4, w // 4), dtype=a.dtype, device=a.device) for _ in range(4)]
+        b = [torch.empty((h // 2, w // 2), dtype=a.dtype, device=a.device) for _ in range(3)]
+        ptrs, first, outs = q + b, a, (q[0], tuple(q[1:]), tuple(b))
+    fn = _cuda.kernel_fn("dwt_sdeep_inv" if inverse else "dwt_sdeep_fwd",
+                         F._suffix(first.dtype))
+    params = F._lift_params(get_wavelet(wavelet), first.dtype == torch.int32, inverse)
+    arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    info = (ctypes.c_int * 2)()
+
+    def launch():
+        _cuda.check(fn(first.data_ptr(), arr, 0, h, w, ty, tx, F.TILE1, info,
+                       ctypes.byref(params), torch.cuda.current_stream().cuda_stream),
+                    "strip phase")
+    return launch, outs
 
 
 def require(ok: bool, what: str) -> None:
@@ -927,8 +973,46 @@ def main() -> int:
     for k, (kern, plain, _, _) in streamed_cases.items():
         errs[k] = max_abs(leaves(kern()), leaves(plain()))
         torch.cuda.synchronize()
-        require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
-                f"max|diff| {errs[k]:.3e} <= 3e-5")
+        if k in EXACT_STREAMED:
+            require(errs[k] == 0, f"{k} kernel == plain bit for bit at its path's shapes")
+        else:
+            require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
+                    f"max|diff| {errs[k]:.3e} <= 3e-5")
+    # B11/B12 run B2's strip body and B3's deep levels (B6's levels, B5's
+    # body): on the frame they equal those kernels bit for bit, and so does
+    # each one's strip phase alone (a launch with no deep level)
+    ll2f, b2f, b1f = F.fused_dwt2_2level(x, WV)
+    err = max_abs(leaves(streamed_cases["B11"][0]()),
+                  leaves(list(F.fused_deep_wavedec2(ll2f, WV, J - 2)) + [b2f, b1f]))
+    require(err == 0, f"B11 == B2 then B3 bit for bit on the {H}x{W} J={J} frame")
+    rec_f = F.fused_idwt2_2level(F.fused_deep_waverec2(sc[:-2], WV), sc[-2], sc[-1], WV)
+    err = max_abs(streamed_cases["B12"][0](), rec_f)
+    require(err == 0, f"B12 == B6 then B5 bit for bit on the {H}x{W} J={J} frame")
+    strips_fwd, strips_fwd_out = strip_phase(x, WV)
+    strips_inv, strips_inv_out = strip_phase(s2c, WV)
+    strips_fwd()
+    strips_inv()
+    torch.cuda.synchronize()
+    require(max_abs(leaves(strips_fwd_out), leaves(F.fused_dwt2_2level(x, WV))) == 0
+            and max_abs(strips_inv_out, F.fused_idwt2_2level(*s2c, WV)) == 0,
+            "B11/B12 with no deep level (the strip phase alone) == B2 / B5 bit for bit")
+    fmt_dev = "{:.4f}".format
+    for k, whole, strips, fused_pair in (
+            ("B11", streamed_cases["B11"][0], strips_fwd,
+             lambda: F.fused_deep_wavedec2(F.fused_dwt2_2level(x, WV)[0], WV, J - 2)),
+            ("B12", streamed_cases["B12"][0], strips_inv,
+             lambda: F.fused_idwt2_2level(F.fused_deep_waverec2(sc[:-2], WV), sc[-2], sc[-1],
+                                          WV))):
+        t = {name: device_ms(fn) for name, fn in (("whole", whole), ("strips", strips),
+                                                   ("fused", fused_pair))}
+        if None in t.values():
+            print(f"time {k} device split: not measured [{smi}]", flush=True)
+            continue
+        print(f"time {k} device split (J={J}, {H}x{W} f32): one launch {fmt_dev(t['whole'])} "
+              f"ms = strip phase {fmt_dev(t['strips'])} ms (a launch with no deep level) + "
+              f"deep levels {fmt_dev(t['whole'] - t['strips'])} ms; the fused kernels it "
+              f"runs ({'B2 + B3' if k == 'B11' else 'B6 + B5'}, two launches) "
+              f"{fmt_dev(t['fused'])} ms [{smi}]", flush=True)
 
     # ---- the single streamed levels: dwt2/idwt2 'streamed' at 2144x4096 (B7/B9)
     F.reset_counters()

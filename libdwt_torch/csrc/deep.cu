@@ -14,7 +14,8 @@
 // level took ~31 us a level.  The design cuts the tile's life and the
 // launches:
 //   * One cooperative launch for all levels: a grid-stride loop over each
-//     level's tiles, then a grid-wide barrier; each level's LL (forward)
+//     level's tiles, then a grid-wide barrier (deep.cuh's level loop, which
+//     B11/B12 in streamed.cu run too); each level's LL (forward)
 //     or reconstruction (inverse) goes to a device buffer that the next
 //     level reads from L2.  The grid is the most tiles of any level,
 //     capped by the blocks that fit on the card at once.
@@ -44,139 +45,29 @@
 // the default tile 32).
 #include <algorithm>
 
-#include <cooperative_groups.h>
-
-#include "lines.cuh"
-#include "onelevel.cuh"
-
-namespace cg = cooperative_groups;
+#include "deep.cuh"
 
 namespace {
 
-using onelevel::HALO;
-using onelevel::Level;
-constexpr int THREADS = 256;
-constexpr int MAX_DEEP = 16;
-constexpr int MIN_TILE = 8;
+using deep::Deep;
+using deep::THREADS;
 
-template <typename T>
-struct Deep {
-    int n;
-    Level<T> lv[MAX_DEEP];
-};
-
-// Forward, levels fine to coarse: each tile of a level loaded, lifted
-// (rows, columns) and stored into the four bands; the level's LL is the
-// next level's image.  NST: the lifting steps (1, 2 or 4, alternating d,
-// s from d); SYM: all symmetric.
+// The levels of ``deep.cuh`` alone.  NST: the lifting steps (forward: 1, 2
+// or 4, alternating d, s from d; inverse: 2 or 4, alternating s, d from s,
+// or 1, a d step); SYM: all symmetric.
 template <typename T, int NST, bool SYM>
 __global__ void __launch_bounds__(THREADS) deep_fwd_kernel(Deep<T> d, LiftParams P) {
     extern __shared__ __align__(16) unsigned char deep_smem[];
-    T* s = reinterpret_cast<T*>(deep_smem);
-    cg::grid_group grid = cg::this_grid();
-    for (int k = 0; k < d.n; ++k) {
-        const Level<T> L = d.lv[k];
-        const int S = 2 * L.tile, E = S + 2 * HALO, RS = lines::stride(E);
-        const int nx = (L.w + S - 1) / S, ntiles = nx * ((L.h + S - 1) / S);
-        const bool vec = L.w % 2 == 0
-            && reinterpret_cast<uintptr_t>(L.img) % (2 * sizeof(T)) == 0;
-        for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-            const int y0 = t / nx * S, x0 = t % nx * S;
-            onelevel::fwd_load<0>(L, s, RS, E, y0, x0, vec);
-            __pipeline_commit();
-            __pipeline_wait_prior(0);
-            __syncthreads();
-            lines::lift_fwd<NST, SYM>(s, E, RS, P);
-            onelevel::fwd_store(s, RS, L, y0, x0, P);
-            __syncthreads();
-        }
-        if (k + 1 < d.n) grid.sync();
-    }
+    deep::fwd_levels<NST, SYM>(d, P, reinterpret_cast<T*>(deep_smem));
 }
 
-// Inverse, levels coarse to fine: each tile of a level's output loaded
-// from its bands, lifted (scaled columns, rows) and stored; the output is
-// the next level's LL.  NST: the steps (2 or 4, alternating s, d from s;
-// or 1, a d step).
 template <typename T, int NST, bool SYM>
 __global__ void __launch_bounds__(THREADS) deep_inv_kernel(Deep<T> d, LiftParams P) {
     extern __shared__ __align__(16) unsigned char deep_smem[];
-    T* s = reinterpret_cast<T*>(deep_smem);
-    cg::grid_group grid = cg::this_grid();
-    for (int k = 0; k < d.n; ++k) {
-        const Level<T> L = d.lv[k];
-        const int S = 2 * L.tile, E = S + 2 * HALO, RS = lines::stride(E);
-        const int nx = (L.w + S - 1) / S, ntiles = nx * ((L.h + S - 1) / S);
-        for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-            const int y0 = t / nx * S, x0 = t % nx * S;
-            onelevel::inv_load<0>(L, s, RS, E, y0, x0);
-            __pipeline_commit();
-            __pipeline_wait_prior(0);
-            __syncthreads();
-            lines::lift_inv<NST, SYM>(s, E, RS, P);
-            onelevel::inv_store(s, RS, L, y0, x0);
-            __syncthreads();
-        }
-        if (k + 1 < d.n) grid.sync();
-    }
+    deep::inv_levels<NST, SYM>(d, P, reinterpret_cast<T*>(deep_smem));
 }
 
 // ------------------------------------------------------------ host side
-
-int tiles_of(int h, int w, int tile) {
-    return ((h + 2 * tile - 1) / (2 * tile)) * ((w + 2 * tile - 1) / (2 * tile));
-}
-
-// The tile of an h x w level: ``tile``, halved while the level has fewer
-// tiles than the card has SMs and the half is at least MIN_TILE.
-int level_tile(int h, int w, int tile, int sms) {
-    while (tile % 2 == 0 && tile / 2 >= MIN_TILE && tiles_of(h, w, tile) < sms) tile /= 2;
-    return tile;
-}
-
-// Fill d's levels from ptrs (4n + 1 pointers: level k's image or LL is
-// ptrs[4k]; its other three bands ptrs[4k + 1 .. 4k + 3]; ptrs[4k + 4] is
-// what it makes: the forward's LL, the inverse's output) and their sizes,
-// fine to coarse from h x w (forward) or coarse to fine up to h x w
-// (inverse); the shared memory of the largest window and the most tiles.
-template <typename T>
-int plan(Deep<T>& d, void* const* ptrs, int n, int h, int w, int tile, bool inverse,
-         size_t* smem, int* most, int* sms) {
-    if (n < 1 || n > MAX_DEEP || tile < 1 || 2 * tile + 2 * HALO > THREADS)
-        return (int)cudaErrorInvalidValue;  // a line a thread
-    int dev = 0, err = (int)cudaGetDevice(&dev);
-    if (err || (err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)))
-        return err;
-    T* const* p = reinterpret_cast<T* const*>(ptrs);
-    int hs[MAX_DEEP], ws[MAX_DEEP];
-    for (int k = 0; k < n; ++k) {
-        hs[k] = h;
-        ws[k] = w;
-        h = (h + 1) / 2;
-        w = (w + 1) / 2;
-    }
-    d.n = n;
-    *smem = 0;
-    *most = 0;
-    for (int k = 0; k < n; ++k) {
-        Level<T>& L = d.lv[k];
-        L.h = hs[inverse ? n - 1 - k : k];
-        L.w = ws[inverse ? n - 1 - k : k];
-        L.tile = level_tile(L.h, L.w, tile, *sms);
-        if (inverse) {
-            L.img = p[4 * k + 4];
-            L.band[0] = p[4 * k];
-        } else {
-            L.img = p[4 * k];
-            L.band[0] = p[4 * k + 4];
-        }
-        for (int b = 1; b < 4; ++b) L.band[b] = p[4 * k + b];
-        const int E = 2 * L.tile + 2 * HALO;
-        *smem = std::max(*smem, sizeof(T) * (size_t)(E * lines::stride(E)));
-        *most = std::max(*most, tiles_of(L.h, L.w, L.tile));
-    }
-    return 0;
-}
 
 // One cooperative launch of ``kernel`` over d: as many blocks as the
 // level with the most tiles has, capped by the blocks the card holds at
@@ -206,10 +97,11 @@ int launch_deep_fwd(void* const* ptrs, int n, int h, int w, int tile, int* info,
                     const LiftParams* P, cudaStream_t stream) {
     for (int s = 0; s < P->n; ++s)
         if (P->is_d[s] != (s % 2 == 0)) return (int)cudaErrorInvalidValue;
+    if (n < 1) return (int)cudaErrorInvalidValue;
     Deep<T> d;
     size_t smem = 0;
     int most = 0, sms = 0;
-    const int err = plan(d, ptrs, n, h, w, tile, false, &smem, &most, &sms);
+    const int err = deep::plan(d, ptrs, n, h, w, tile, false, &smem, &most, &sms);
     if (err) return err;
     return dispatch<T>(0, P, [&](auto, auto nst, auto sym) {
         return launch_coop(deep_fwd_kernel<T, decltype(nst)::value, decltype(sym)::value>, d,
@@ -224,10 +116,11 @@ int launch_deep_inv(void* const* ptrs, int n, int h, int w, int tile, int* info,
                     const LiftParams* P, cudaStream_t stream) {
     for (int s = 0; s < P->n; ++s)
         if (P->is_d[s] != (P->n == 1 || s % 2 == 1)) return (int)cudaErrorInvalidValue;
+    if (n < 1) return (int)cudaErrorInvalidValue;
     Deep<T> d;
     size_t smem = 0;
     int most = 0, sms = 0;
-    const int err = plan(d, ptrs, n, h, w, tile, true, &smem, &most, &sms);
+    const int err = deep::plan(d, ptrs, n, h, w, tile, true, &smem, &most, &sms);
     if (err) return err;
     return dispatch<T>(0, P, [&](auto, auto nst, auto sym) {
         return launch_coop(deep_inv_kernel<T, decltype(nst)::value, decltype(sym)::value>, d,

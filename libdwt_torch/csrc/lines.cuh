@@ -1,10 +1,10 @@
 // The lifting core of the hand-written 2-D kernels (fused2l.cu: B2, B5;
-// deep.cu: B3, B6): lines of a window in shared memory, each walked by one
-// thread with every lifting step pipelined in registers, the scale folded
-// into a read or a store, and the dispatch of a launcher onto the
-// compile-time step count and symmetry.  The walks do lift_one's
-// arithmetic in the plain versions' order, so every kernel on them equals
-// its plain version bit for bit.
+// deep.cu: B3, B6; level.cu: B1, B4; streamed.cu: B11, B12): lines of a
+// window in shared memory, each walked by one thread with every lifting
+// step pipelined in registers, the scale folded into a read or a store,
+// and the dispatch of a launcher onto the compile-time step count and
+// symmetry.  The walks do lift_one's arithmetic in the plain versions'
+// order, so every kernel on them equals its plain version bit for bit.
 #pragma once
 
 #include <cstdint>
@@ -13,7 +13,7 @@
 #include "lifting.cuh"
 
 // Lines of a window in shared memory, walked by one thread each with every
-// lifting step pipelined in registers: the lifting core of B2, B3, B5, B6.
+// lifting step pipelined in registers: the lifting core of B1-B6, B11, B12.
 namespace lines {
 
 // 16 bytes of T, and one (even, odd) sample pair.
@@ -183,14 +183,15 @@ __device__ __forceinline__ void walk(const Line& line, int f, int e, int a, int 
     }
 }
 
-// One lifting pass over the n lines of a window: line t % n, cut into S
-// segments of at least MIN_SEG pairs so that n * S threads walk at once.
+// One lifting pass over the n lines of L pairs of a window: line t % n,
+// cut into S segments of at least MIN_SEG pairs so that n * S threads walk
+// at once (n <= blockDim.x).
 constexpr int MIN_SEG = 12;
 
 template <int NST, bool SYM, bool SF = false, typename Line,
           typename T = typename Line::value_type>
-__device__ __forceinline__ void pass(const Line& line, int n, const LiftParams& P) {
-    const int L = n / 2, S = max(1, min((int)blockDim.x / n, L / MIN_SEG));
+__device__ __forceinline__ void pass(const Line& line, int n, int L, const LiftParams& P) {
+    const int S = max(1, min((int)blockDim.x / n, L / MIN_SEG));
     const int seg = threadIdx.x / n;
     const int a = seg * L / S, b = (seg + 1) * L / S;
     const int f = max(a - 2, 0), e = min(b + 2, L);
@@ -261,26 +262,35 @@ struct ScaledColLine {
     }
 };
 
-// Every lifting step along the rows, then the columns, of an n x n window
-// (row stride RS).
+// Every lifting step along the rows, then the columns, of a rows x cols
+// window (row stride RS; both even and at most blockDim.x).
+template <int NST, bool SYM, typename T>
+__device__ __forceinline__ void lift_fwd(T* s, int rows, int cols, int RS,
+                                         const LiftParams& P) {
+    const int r = threadIdx.x % rows, c = threadIdx.x % cols;
+    pass<NST, SYM>(RowLine<T>{s + r * RS}, rows, cols / 2, P);
+    pass<NST, SYM>(ColLine<T>{s + c, RS}, cols, rows / 2, P);
+}
 template <int NST, bool SYM, typename T>
 __device__ __forceinline__ void lift_fwd(T* s, int n, int RS, const LiftParams& P) {
-    const int line = threadIdx.x % n;
-    pass<NST, SYM>(RowLine<T>{s + line * RS}, n, P);
-    pass<NST, SYM>(ColLine<T>{s + line, RS}, n, P);
+    lift_fwd<NST, SYM>(s, n, n, RS, P);
 }
 
-// Scale, then every lifting step along the columns, then the rows, of an
-// n x n window (row stride RS): the inverse's steps alternate s, d from s,
-// or are one d step.
+// Scale, then every lifting step along the columns, then the rows, of a
+// rows x cols window (row stride RS): the inverse's steps alternate s, d
+// from s, or are one d step.
+template <int NST, bool SYM, typename T>
+__device__ __forceinline__ void lift_inv(T* s, int rows, int cols, int RS,
+                                         const LiftParams& P) {
+    constexpr bool SF = NST > 1;
+    const int r = threadIdx.x % rows, c = threadIdx.x % cols;
+    const ScaledColLine<T> col{s + c, RS, factor<T>(P, c & 1), factor<T>(P, 2 | (c & 1))};
+    pass<NST, SYM, SF>(col, cols, rows / 2, P);
+    pass<NST, SYM, SF>(RowLine<T>{s + r * RS}, rows, cols / 2, P);
+}
 template <int NST, bool SYM, typename T>
 __device__ __forceinline__ void lift_inv(T* s, int n, int RS, const LiftParams& P) {
-    constexpr bool SF = NST > 1;
-    const int line = threadIdx.x % n;
-    const ScaledColLine<T> col{s + line, RS, factor<T>(P, line & 1),
-                               factor<T>(P, 2 | (line & 1))};
-    pass<NST, SYM, SF>(col, n, P);
-    pass<NST, SYM, SF>(RowLine<T>{s + line * RS}, n, P);
+    lift_inv<NST, SYM>(s, n, n, RS, P);
 }
 
 }  // namespace lines

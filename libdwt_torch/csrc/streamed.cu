@@ -16,7 +16,7 @@
 // written once (2144x4096 f32: 35.1 MB each way, ~21 us at 3.35 TB/s); the
 // lifting is ~16 flops per pixel over both levels, far below 67 TFLOP/s.
 //
-// Design.  The TPU kernels stream full-width strips because its lane axis
+// B7-B10.  The TPU kernels stream full-width strips because its lane axis
 // needs no halo; a 4096-wide f32 strip with its halo does not fit twice in
 // the 227 KB a block may hold.  Here the frame is cut into column bands of
 // tx samples, each band into segments of strips of ty rows, and one work
@@ -24,11 +24,11 @@
 // by strip: before it lifts strip i it issues the cp.async loads of strip
 // i+1's halo'd window into the other buffer (one copy per element,
 // so the border mirror is just the source index), and it waits for strip
-// i+1 only after strip i's outputs are written.  Halos: forward TOP2 = 16
-// rows (streamed.py:400) and HALO2 = 12 columns; inverse 8 LL1 samples at
-// level 2 and 4 signal samples at level 1, on both axes.  The tile
-// arithmetic is fused2l.cu's (tiles.cuh), so a strip's values are bit for
-// bit those of the plain versions in ops/streamed.py.
+// i+1 only after strip i's outputs are written.  B8/B10's halos: forward
+// TOP2 = 16 rows (streamed.py:400) and HALO2 = 12 columns; inverse 8 LL1
+// samples at level 2 and 4 signal samples at level 1, on both axes.  Their
+// tile arithmetic is tiles.cuh's, so a strip's values are bit for bit those
+// of the plain versions in ops/streamed.py.
 //
 // The single levels B7/B9 walk the same (band, segment) items with
 // tiles.cuh's one-level body (fwd1_*/inv1_*): a halo of 4 on both
@@ -39,39 +39,72 @@
 // channel rows (inverse) above and below, read straight.  A 2144x4096 f32
 // level moves 70.3 MB (21 us at 3.35 TB/s).
 //
-// The one-launch pyramids are cooperative kernels (all blocks resident,
-// cooperative_groups grid syncs).  B11: the strip phase of B8 writes levels
-// 1-2 and LL2 into a scratch buffer that sits in the 50 MB L2; after a grid
-// sync each deep level runs tiles.cuh's one-level tile (fwd1_tile) over
-// tiles in a grid-stride loop, with a grid sync between levels.  B12: the
-// deep inverse levels (inv1_tile) reconstruct LL2 into a scratch buffer, a
-// grid sync, then B10's strip phase reads LL2 from it (through the mirror,
-// which gives the whole-point head and repeat tail channel rules of
-// streamed.py:1303-1319).  The grid is the number of blocks that can be
-// resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor after
-// the shared-memory attribute is set), at most the largest phase's items.
-// Scratch buffers are never read before the grid sync that follows their
-// writes, and no pointer is __restrict__, so no read can see a stale line.
+// B11/B12, the one-launch pyramids (dwt_sdeep_*: sdeep_fwd_lines and
+// sdeep_inv_lines).  Bound: bytes, 70.3 MB at 2144x4096 f32 J=5 (21 us at
+// 3.35 TB/s; the deep levels' 5.8 MB stays in the 50 MB L2).  Their first
+// port ran B8/B10's strips on tiles.cuh's lift_tile and the deep levels on
+// tiles::fwd1_tile/inv1_tile: 0.6531 / 0.5971 ms on an H100 (31x / 28x the
+// bound), in lift_tile's 16- to 32-way column bank conflicts, per-update
+// index arithmetic, a barrier a step, idle threads, and ~48 us a deep
+// level.  Now one cooperative launch of two phases, a grid sync between:
+//   * The strips walk B8/B10's (band, segment) items, each window lifted
+//     by fused2l.cuh's B2/B5 body: cp.async loads with every row in flight
+//     and rows mirrored only in strips that cross an edge, one thread a
+//     line with every step in registers (lines.cuh, rows x columns), the
+//     scale folded into a store or a read, the LL1 re-mirror or channel
+//     rule folded into a source index.  Halos as B2/B5's: HALO2 = 12 on
+//     both axes forward (the plain versions are tile-invariant, so the
+//     reference's 16-row TOP2 is not needed for the values); IH2 = 8 and
+//     IH1 = 4 inverse.  A strip is ty x tx, any multiples of 4 whose
+//     windows' lines fit the block (ty, tx <= 232 forward, 248 inverse).
+//   * One buffer a block.  The forward loads strip i+1's window into it
+//     as soon as strip i's level 1 has left it, while strip i's LL1 lifts;
+//     the inverse commits a strip's level 2, then its level-1 details,
+//     waited for only after level 2 lifts.  A second buffer, to load the
+//     whole next strip while this one lifts, bought nothing measurable
+//     (B11 / B12 0.1340 / 0.1237 ms with two, 0.1348 / 0.1258 with one, on
+//     an H100 80GB HBM3 at 700 W, both at the 2 blocks an SM that the
+//     registers allow) and would not fit float64 at 128x128 in 227 KB.
+//   * The deep levels are deep.cuh's level loop, B3/B6's: a grid-stride
+//     loop over each level's tiles of onelevel.cuh's body, a grid sync
+//     between levels, each level's tile picked on the host by its rule.
+//     B11 writes LL2 to a scratch buffer for them; B12's last level
+//     rebuilds LL2 into one, which its strips read through the mirror
+//     (the whole-point head and repeat tail channel rules of
+//     streamed.py:1303-1319).
+//   * The grid is the most items or tiles of either phase, capped by the
+//     blocks resident at once (the occupancy query at the larger phase's
+//     shared memory).  A launch with no deep level runs the strips alone.
+// The arithmetic is the plain order's (__fadd_rn/__fmul_rn, integer steps
+// for int32), so B11/B12 equal their plain versions, and B2 then B3 (B6
+// then B5), bit for bit in float32, float64 and int32.
 //
 // The banded-matmul body (B13, banded.cuh) replaces the polyphase lift of
 // the strip phases of B8/B10/B11/B12 in their MXU = true instantiations
 // (dwt_*_mxu_f32, float32 only): the matrices ride in the kernel's shared
 // memory after the float windows and the body's three data parts, copied
-// there once per block before its first strip.  The deep levels of B11/B12
-// stay polyphase, as in the reference (streamed.py:1167-1169).  At the
-// default 64x64 strip a forward block then holds 177 KB and an inverse
-// block 145 KB, one block per SM.
+// there once per block before its first strip.  Its one-launch pyramids
+// keep the first port's design (B8/B10's strips with TOP2, then each deep
+// level as tiles.cuh's one-level tile over a grid-stride loop, one tile
+// for all levels), and their deep levels stay polyphase, as in the
+// reference (streamed.py:1167-1169).  At the default 64x64 strip a forward
+// block then holds 177 KB and an inverse block 145 KB, one block per SM.
+// Scratch buffers are never read before the grid sync that follows their
+// writes, and no pointer is __restrict__, so no read can see a stale line.
 //
 // The float64 (f64) instantiations double every buffer: at the default
-// 64x64 strip a two-level forward block holds 148 KB and an inverse one
-// 120 KB (one block per SM, no tile halved); shared memory and the
-// cooperative grids are sized with sizeof(T), so the occupancy calculator
-// sees the real footprint.
+// 64x64 strip a two-level forward block of B8 holds 148 KB and an inverse
+// one 120 KB (one block per SM); B11/B12's windows take 77 KB and 62 KB.
+// Shared memory and the cooperative grids are sized with sizeof(T), so the
+// occupancy calculator sees the real footprint.
 #include <algorithm>
 
 #include <cooperative_groups.h>
 
 #include "banded.cuh"
+#include "deep.cuh"
+#include "fused2l.cuh"
+#include "lines.cuh"
 #include "tiles.cuh"
 
 namespace cg = cooperative_groups;
@@ -215,7 +248,96 @@ __device__ void inv2_strips(const InvBands<T>& b, const Strips& g, const LiftPar
     }
 }
 
-// One deep level over tiles of 2*tile samples, grid-stride.
+// B11's strips on fused2l.cuh's two-level body (the B2 window with halo
+// HALO2 on both axes): each (band, segment) item walked down strip by
+// strip, strip i+1's window loading into the one buffer as soon as strip
+// i's level 1 has left it, while strip i's LL1 lifts.  ST: the strip's
+// edge at compile time (64, the default strip), or 0 to take g's ty x tx;
+// NST, SYM as for dispatch.
+template <int ST, int NST, bool SYM, typename T>
+__device__ __forceinline__ void fwd2_line_strips(const T* x, const FwdBands<T>& b,
+                                                 const Strips& g, const LiftParams& P,
+                                                 T* smem) {
+    using tiles::HALO2;
+    const int ty = ST ? ST : g.ty, tx = ST ? ST : g.tx;
+    const int EY = ty + 2 * HALO2, EX = tx + 2 * HALO2, E1Y = ty / 2 + 8, E1X = tx / 2 + 8;
+    const int RS = lines::stride(EX), RS1 = lines::stride(E1X);
+    T* const s1 = smem;
+    T* const s2 = s1 + EY * RS;  // EY % 4 == 0, RS even: 16-byte aligned
+    const bool vec = lines::aligned16(x) && g.w % 4 == 0;
+    T* const b1[3] = {b.hl1, b.lh1, b.hh1};
+    T* const b2[4] = {b.ll2, b.hl2, b.lh2, b.hh2};
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        fwd2::load(x, s1, RS, g.h, g.w, first * ty, x0, EY, EX, vec);
+        __pipeline_commit();
+        for (int i = first; i < last; ++i) {
+            const int y0 = i * ty;
+            __pipeline_wait_prior(0);
+            __syncthreads();
+            lines::lift_fwd<NST, SYM>(s1, EY, EX, RS, P);
+            fwd2::store_bands(s1, RS, HALO2, b1, ty / 2, tx / 2, y0 / 2, x0 / 2, g.h / 2,
+                              g.w / 2, P);
+            fwd2::ll1_window(s1, RS, s2, RS1, g.h, g.w, y0, x0, E1Y, E1X, P);
+            __syncthreads();
+            if (i + 1 < last) {
+                fwd2::load(x, s1, RS, g.h, g.w, y0 + ty, x0, EY, EX, vec);
+                __pipeline_commit();
+            }
+            lines::lift_fwd<NST, SYM>(s2, E1Y, E1X, RS1, P);
+            fwd2::store_bands(s2, RS1, 4, b2, ty / 4, tx / 4, y0 / 4, x0 / 4, g.h / 4, g.w / 4,
+                              P);
+        }
+    }
+}
+
+// B12's strips on fused2l.cuh's two-level body: one stage, the level-2
+// window and the level-1 window after it.  A strip's two copy groups
+// (level 2, then the level-1 details) go in once the strip before is
+// stored; the level-1 details are waited for only after level 2 lifts.
+// ST, NST, SYM as for fwd2_line_strips.
+template <int ST, int NST, bool SYM, typename T>
+__device__ __forceinline__ void inv2_line_strips(const InvBands<T>& b, const Strips& g,
+                                                 const LiftParams& P, T* smem) {
+    using tiles::IH1;
+    using tiles::IH2;
+    const int ty = ST ? ST : g.ty, tx = ST ? ST : g.tx;
+    const int E2Y = ty / 2 + 2 * IH2, E2X = tx / 2 + 2 * IH2;
+    const int E1Y = ty + 2 * IH1, E1X = tx + 2 * IH1;
+    const int RS2 = lines::stride(E2X), RS1 = lines::stride(E1X);
+    T* const s2 = smem;
+    T* const s1 = s2 + E2Y * RS2;  // E2Y and RS2 even: 16-byte aligned
+    auto load = [&](int y0, int x0) {
+        inv2::load_level2(b.ll2, b.hl2, b.lh2, b.hh2, s2, RS2, E2Y, E2X, g.h, g.w, y0, x0);
+        __pipeline_commit();
+        inv2::load_level1(b.hl1, b.lh1, b.hh1, s1, RS1, E1Y, E1X, g.h, g.w, y0, x0);
+        __pipeline_commit();
+    };
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        load(first * ty, x0);
+        for (int i = first; i < last; ++i) {
+            const int y0 = i * ty;
+            __pipeline_wait_prior(1);  // strip i's level 2
+            __syncthreads();
+            lines::lift_inv<NST, SYM>(s2, E2Y, E2X, RS2, P);
+            inv2::ll1_window(s2, RS2, s1, RS1, g.h, g.w, y0, x0, E1Y / 2, E1X / 2);
+            __pipeline_wait_prior(0);  // its level-1 details
+            __syncthreads();
+            lines::lift_inv<NST, SYM>(s1, E1Y, E1X, RS1, P);
+            inv2::store(s1, RS1, b.out, g.h, g.w, y0, x0, ty, tx);
+            __syncthreads();  // the stage is free for the next copies
+            if (i + 1 < last) load(y0 + ty, x0);
+        }
+    }
+}
+
+// One deep level over tiles of 2*tile samples, grid-stride (the banded
+// body's pyramids).
 template <typename T, bool INV>
 __device__ void deep_level(const Level<T>& L, int tile, const LiftParams& P, T* s) {
     const int S = 2 * tile;
@@ -310,23 +432,26 @@ sinv1_kernel(const T* ll, const T* hl, const T* lh, const T* hh, T* out, Strips 
     inv1_strips<EXT>(ll, hl, lh, hh, out, g, P, reinterpret_cast<T*>(smem_raw));
 }
 
-template <typename T, bool MXU>
+// B11/B12 with the banded body (the polyphase pyramids are sdeep_*_lines
+// below): B8/B10's strips and the deep levels as tiles.cuh's one-level
+// tiles.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-sdeep_fwd_kernel(const T* x, FwdBands<T> b, Strips g, Deep<T> d, int tile,
+sdeep_fwd_mxu(const T* x, FwdBands<T> b, Strips g, Deep<T> d, int tile,
                  LiftParams P, banded::MxuMats M) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
     cg::grid_group grid = cg::this_grid();
-    fwd2_strips<T, MXU>(x, b, g, P, M, smem_raw);
+    fwd2_strips<T, true>(x, b, g, P, M, smem_raw);
     for (int k = 0; k < d.n; ++k) {
         grid.sync();
         deep_level<T, false>(d.lv[k], tile, P, s);
     }
 }
 
-template <typename T, bool MXU>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-sdeep_inv_kernel(InvBands<T> b, Strips g, Deep<T> d, int tile, LiftParams P,
+sdeep_inv_mxu(InvBands<T> b, Strips g, Deep<T> d, int tile, LiftParams P,
                  banded::MxuMats M) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
@@ -335,7 +460,33 @@ sdeep_inv_kernel(InvBands<T> b, Strips g, Deep<T> d, int tile, LiftParams P,
         deep_level<T, true>(d.lv[k], tile, P, s);
         grid.sync();
     }
-    inv2_strips<T, MXU>(b, g, P, M, smem_raw);
+    inv2_strips<T, true>(b, g, P, M, smem_raw);
+}
+
+// B11 and B12 on the line walks: the strips above and deep.cuh's levels in
+// one cooperative launch, a grid sync between the phases.  d.n == 0 runs
+// the strips alone.
+template <typename T, int ST, int NST, bool SYM>
+__global__ void __launch_bounds__(THREADS)
+sdeep_fwd_lines(Strips g, const T* x, FwdBands<T> b, deep::Deep<T> d, LiftParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* s = reinterpret_cast<T*>(smem_raw);
+    fwd2_line_strips<ST, NST, SYM>(x, b, g, P, s);
+    if (d.n == 0) return;
+    cg::this_grid().sync();
+    deep::fwd_levels<NST, SYM>(d, P, s);
+}
+
+template <typename T, int ST, int NST, bool SYM>
+__global__ void __launch_bounds__(THREADS)
+sdeep_inv_lines(Strips g, InvBands<T> b, deep::Deep<T> d, LiftParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* s = reinterpret_cast<T*>(smem_raw);
+    if (d.n > 0) {
+        deep::inv_levels<NST, SYM>(d, P, s);
+        cg::this_grid().sync();
+    }
+    inv2_line_strips<ST, NST, SYM>(b, g, P, s);
 }
 
 // ------------------------------------------------------------ host side
@@ -460,10 +611,10 @@ int launch_sinv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int
 
 // ptrs: ll2 scratch, hl2, lh2, hh2, hl1, lh1, hh1, then per deep level
 // (fine first) hl, lh, hh, ll.  info[0..1] <- grid, resident blocks.
-template <typename T, bool MXU>
-int launch_sdeep_fwd(const T* x, void* const* ptrs, int n, int h, int w, int ty,
-                     int tx, int tile, int* info, const LiftParams* P,
-                     const banded::MxuMats* M, cudaStream_t stream) {
+template <typename T>
+int launch_sdeep_fwd_mxu(const T* x, void* const* ptrs, int n, int h, int w, int ty,
+                         int tx, int tile, int* info, const LiftParams* P,
+                         const banded::MxuMats* M, cudaStream_t stream) {
     if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
     T* const* p = reinterpret_cast<T* const*>(ptrs);
     FwdBands<T> b{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
@@ -476,10 +627,10 @@ int launch_sdeep_fwd(const T* x, void* const* ptrs, int n, int h, int w, int ty,
         d.lv[k] = Level<T>{hs[k], ws[k], k ? p[7 + 4 * k - 1] : p[0], q[0], q[1], q[2],
                            q[3]};
     }
-    const size_t smem = std::max(fwd_smem<T, MXU>(ty, tx, *M), deep_smem<T>(tile));
+    const size_t smem = std::max(fwd_smem<T, true>(ty, tx, *M), deep_smem<T>(tile));
     Strips g;
     int resident = 0;
-    int err = plan(sdeep_fwd_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
+    int err = plan(sdeep_fwd_mxu<T>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
     info[0] = grid_for(g, d, tile, resident);
     info[1] = resident;
@@ -487,18 +638,17 @@ int launch_sdeep_fwd(const T* x, void* const* ptrs, int n, int h, int w, int ty,
     banded::MxuMats Mv = *M;
     void* args[] = {(void*)&x, (void*)&b,    (void*)&g,  (void*)&d,
                     (void*)&tile, (void*)&Pv, (void*)&Mv};
-    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_fwd_kernel<T, MXU>,
-                                           dim3(info[0]), dim3(THREADS), args, smem,
-                                           stream);
+    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_fwd_mxu<T>, dim3(info[0]),
+                                           dim3(THREADS), args, smem, stream);
     return err ? err : (int)cudaGetLastError();
 }
 
 // ptrs: LL_J, then per deep level (coarse first) hl, lh, hh, reconstruction
 // (the last one is the LL2 scratch), then hl2, lh2, hh2, hl1, lh1, hh1.
-template <typename T, bool MXU>
-int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
-                     int tile, int* info, const LiftParams* P, const banded::MxuMats* M,
-                     cudaStream_t stream) {
+template <typename T>
+int launch_sdeep_inv_mxu(T* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
+                         int tile, int* info, const LiftParams* P, const banded::MxuMats* M,
+                         cudaStream_t stream) {
     if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
     T* const* p = reinterpret_cast<T* const*>(ptrs);
     int hs[MAX_DEEP + 1], ws[MAX_DEEP + 1];
@@ -512,20 +662,110 @@ int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int
     }
     T* const* s = p + 1 + 4 * n;
     InvBands<T> b{p[4 * n], s[0], s[1], s[2], s[3], s[4], s[5], out};
-    const size_t smem = std::max(inv_smem<T, MXU>(ty, tx, *M), deep_smem<T>(tile));
+    const size_t smem = std::max(inv_smem<T, true>(ty, tx, *M), deep_smem<T>(tile));
     Strips g;
     int resident = 0;
-    int err = plan(sdeep_inv_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
+    int err = plan(sdeep_inv_mxu<T>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
     info[0] = grid_for(g, d, tile, resident);
     info[1] = resident;
     LiftParams Pv = *P;
     banded::MxuMats Mv = *M;
     void* args[] = {(void*)&b, (void*)&g, (void*)&d, (void*)&tile, (void*)&Pv, (void*)&Mv};
-    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_inv_kernel<T, MXU>,
-                                           dim3(info[0]), dim3(THREADS), args, smem,
-                                           stream);
+    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_inv_mxu<T>, dim3(info[0]),
+                                           dim3(THREADS), args, smem, stream);
     return err ? err : (int)cudaGetLastError();
+}
+
+// The shared memory of B11/B12 on the line walks: the strips' windows (the
+// forward's signal window, then its LL1 window; the inverse's stage), or
+// the deep levels' window where that is larger.
+template <typename T>
+size_t lines_fwd_smem(int ty, int tx) {
+    const int EY = ty + 2 * tiles::HALO2, EX = tx + 2 * tiles::HALO2;
+    return sizeof(T) * ((size_t)EY * lines::stride(EX)
+                        + (size_t)(ty / 2 + 8) * lines::stride(tx / 2 + 8));
+}
+template <typename T>
+size_t lines_inv_smem(int ty, int tx) {
+    const int E2Y = ty / 2 + 2 * tiles::IH2, E2X = tx / 2 + 2 * tiles::IH2;
+    const int E1Y = ty + 2 * tiles::IH1, E1X = tx + 2 * tiles::IH1;
+    return sizeof(T) * ((size_t)E2Y * lines::stride(E2X) + (size_t)E1Y * lines::stride(E1X));
+}
+
+// One cooperative launch of B11 or B12 on the line walks: ``args`` point to
+// the kernel's arguments after its Strips (planned here) and before its
+// lifting parameters; the grid is the most items or tiles of either phase,
+// capped by the co-resident blocks.  info[0..1] <- grid, resident blocks.
+template <typename K, typename... Args>
+int launch_lines(K kernel, size_t smem, int h, int w, int ty, int tx, int most, int* info,
+                 const LiftParams* P, cudaStream_t stream, Args*... args) {
+    Strips g;
+    int resident = 0;
+    int err = plan(kernel, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    info[0] = std::min(std::max(g.items(), most), resident);
+    info[1] = resident;
+    LiftParams Pv = *P;
+    void* a[] = {(void*)&g, (void*)args..., (void*)&Pv};
+    err = (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(info[0]), dim3(THREADS),
+                                           a, smem, stream);
+    return err ? err : (int)cudaGetLastError();
+}
+
+// B11 on the line walks; ptrs as for launch_sdeep_fwd_mxu, n >= 0.  The steps
+// alternate d, s from d (1, 2 or 4 of them); a window line a thread.
+template <typename T>
+int launch_sdeep_fwd_lines(const T* x, void* const* ptrs, int n, int h, int w, int ty,
+                           int tx, int tile, int* info, const LiftParams* P,
+                           cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (s % 2 == 0)) return (int)cudaErrorInvalidValue;
+    if (n < 0 || n > deep::MAX_DEEP || std::max(ty, tx) + 2 * tiles::HALO2 > THREADS)
+        return (int)cudaErrorInvalidValue;
+    T* const* p = reinterpret_cast<T* const*>(ptrs);
+    FwdBands<T> b{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+    // deep.cuh's layout: LL2, then each level's hl, lh, hh, ll
+    void* dp[4 * deep::MAX_DEEP + 1] = {ptrs[0]};
+    std::copy(ptrs + 7, ptrs + 7 + 4 * n, dp + 1);
+    deep::Deep<T> d;
+    size_t dsmem = 0;
+    int most = 0, sms = 0;
+    const int err = deep::plan(d, dp, n, h / 4, w / 4, tile, false, &dsmem, &most, &sms);
+    if (err) return err;
+    const size_t smem = std::max(lines_fwd_smem<T>(ty, tx), dsmem);
+    return dispatch<T>(ty == tx ? ty : 0, P, [&](auto st, auto nst, auto sym) {
+        return launch_lines(sdeep_fwd_lines<T, decltype(st)::value, decltype(nst)::value,
+                                            decltype(sym)::value>,
+                            smem, h, w, ty, tx, most, info, P, stream, &x, &b, &d);
+    });
+}
+
+// B12 on the line walks; ptrs as for launch_sdeep_inv_mxu, n >= 0.  The steps
+// (already reversed and negated) alternate s, d from s (2 or 4 of them), or
+// are one d step; ``out`` 16-byte aligned (16-byte stores).
+template <typename T>
+int launch_sdeep_inv_lines(T* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
+                           int tile, int* info, const LiftParams* P, cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (P->n == 1 || s % 2 == 1)) return (int)cudaErrorInvalidValue;
+    if (n < 0 || n > deep::MAX_DEEP || std::max(ty, tx) + 2 * tiles::IH1 > THREADS
+        || reinterpret_cast<uintptr_t>(out) % 16)
+        return (int)cudaErrorInvalidValue;
+    T* const* p = reinterpret_cast<T* const*>(ptrs);
+    T* const* s = p + 1 + 4 * n;
+    InvBands<T> b{p[4 * n], s[0], s[1], s[2], s[3], s[4], s[5], out};
+    deep::Deep<T> d;
+    size_t dsmem = 0;
+    int most = 0, sms = 0;
+    const int err = deep::plan(d, ptrs, n, h / 4, w / 4, tile, true, &dsmem, &most, &sms);
+    if (err) return err;
+    const size_t smem = std::max(lines_inv_smem<T>(ty, tx), dsmem);
+    return dispatch<T>(ty == tx ? ty : 0, P, [&](auto st, auto nst, auto sym) {
+        return launch_lines(sdeep_inv_lines<T, decltype(st)::value, decltype(nst)::value,
+                                            decltype(sym)::value>,
+                            smem, h, w, ty, tx, most, info, P, stream, &b, &d);
+    });
 }
 
 }  // namespace
@@ -575,14 +815,14 @@ int launch_sdeep_inv(T* out, void* const* ptrs, int n, int h, int w, int ty, int
     extern "C" int dwt_sdeep_fwd_##SUF(const T* x, void* const* ptrs, int n, int h, \
                                        int w, int ty, int tx, int tile, int* info, \
                                        const LiftParams* P, void* stream) {        \
-        return launch_sdeep_fwd<T, false>(x, ptrs, n, h, w, ty, tx, tile, info, P, \
-                                          &NO_MATS, (cudaStream_t)stream);         \
+        return launch_sdeep_fwd_lines<T>(x, ptrs, n, h, w, ty, tx, tile, info, P,  \
+                                         (cudaStream_t)stream);                    \
     }                                                                              \
     extern "C" int dwt_sdeep_inv_##SUF(T* out, void* const* ptrs, int n, int h,     \
                                        int w, int ty, int tx, int tile, int* info, \
                                        const LiftParams* P, void* stream) {        \
-        return launch_sdeep_inv<T, false>(out, ptrs, n, h, w, ty, tx, tile, info,  \
-                                          P, &NO_MATS, (cudaStream_t)stream);      \
+        return launch_sdeep_inv_lines<T>(out, ptrs, n, h, w, ty, tx, tile, info,   \
+                                         P, (cudaStream_t)stream);                 \
     }
 
 LIBDWT_STREAMED(f32, float)
@@ -611,13 +851,13 @@ extern "C" int dwt_sdeep_fwd_mxu_f32(const float* x, void* const* ptrs, int n, i
                                      int w, int ty, int tx, int tile, int* info,
                                      const LiftParams* P, const banded::MxuMats* M,
                                      void* stream) {
-    return launch_sdeep_fwd<float, true>(x, ptrs, n, h, w, ty, tx, tile, info, P, M,
-                                         (cudaStream_t)stream);
+    return launch_sdeep_fwd_mxu<float>(x, ptrs, n, h, w, ty, tx, tile, info, P, M,
+                                       (cudaStream_t)stream);
 }
 extern "C" int dwt_sdeep_inv_mxu_f32(float* out, void* const* ptrs, int n, int h, int w,
                                      int ty, int tx, int tile, int* info,
                                      const LiftParams* P, const banded::MxuMats* M,
                                      void* stream) {
-    return launch_sdeep_inv<float, true>(out, ptrs, n, h, w, ty, tx, tile, info, P, M,
-                                         (cudaStream_t)stream);
+    return launch_sdeep_inv_mxu<float>(out, ptrs, n, h, w, ty, tx, tile, info, P, M,
+                                       (cudaStream_t)stream);
 }

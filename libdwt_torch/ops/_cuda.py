@@ -22,8 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused2l.cu", "deep.cu", "level.cu", "fused3d.cu", "streamed.cu",
            "streamed3d.cu", "remote_halo.cu")
-HEADERS = ("lifting.cuh", "lines.cuh", "onelevel.cuh", "tiles.cuh", "tiles3.cuh",
-           "banded.cuh")
+HEADERS = ("lifting.cuh", "lines.cuh", "onelevel.cuh", "deep.cuh", "fused2l.cuh",
+           "tiles.cuh", "tiles3.cuh", "banded.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,7 +10,8 @@ GPU machine that has no JAX installed:
 
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
-int32 bit-exactly, B1 and B4 bit for bit in every dtype (the frames of
+int32 bit-exactly, B11 and B12 bit for bit in every dtype (and equal to
+B2 then B3, B6 then B5), B1 and B4 bit for bit in every dtype (the frames of
 their paths and 513x511, mirror and extended rows, tiles 4-96, every fused
 wavelet, misaligned inputs, outputs written whole and nothing past them; a
 window too wide is refused), B2 and B5 bit for bit in every dtype (main-path frame,
@@ -694,27 +695,52 @@ STREAMED_DEEP = [
     (260, 256, 3, torch.float32, "cdf53", 64, 48),
     (256, 320, 4, torch.int32, "cdf53", 64, 64),
     (512, 384, 5, torch.int32, "cdf97", 32, 16),
+    (1036, 128, 3, torch.float64, "cdf97", 64, 64),
+    (260, 256, 3, torch.float64, "cdf97", 32, 48),
+    # the largest float64 strip: its window and LL1 window take 225 KB of a
+    # block's 227 KB (two windows would not fit)
+    (512, 384, 5, torch.float64, "cdf97", 128, 128),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,level,dtype,wavelet,ty,tx", STREAMED_DEEP)
 def test_b11_b12_kernels_match_plain(cuda_device, h, w, level, dtype, wavelet, ty, tx):
-    x = _img(h, w, dtype, cuda_device, seed=12)
-    exact = dtype == torch.int32
+    x = _img(h, w, dtype, cuda_device, seed=12).to(dtype)
     tf.reset_counters()
     d = ts.streamed_wavedec2_deep(x, wavelet, level, ty=ty, tx=tx)
-    _close(d, ts.streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx), exact)
+    _close(d, ts.streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx), True)
     rec = ts.streamed_waverec2_deep(d, wavelet, ty=ty, tx=tx)
-    _close(rec, ts.streamed_waverec2_deep_plain(d, wavelet, ty, tx), exact)
+    _close(rec, ts.streamed_waverec2_deep_plain(d, wavelet, ty, tx), True)
     torch.cuda.synchronize()
     assert (tf.KERNELS["B11"].launches, tf.KERNELS["B12"].launches) == (1, 1)
     for kid in ("B11", "B12"):  # the cooperative grid fits the card at once
         grid, resident = ts.LAST_GRID[kid]
         assert 1 <= grid <= resident
-    if exact:
+    if dtype == torch.int32:
         _close(d, sep.wavedec2(x, wavelet, level), True)
         assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,level,ty,tx,dtype", [
+    (2144, 4096, 5, 64, 64, torch.float32), (2144, 4096, 5, 64, 64, torch.int32),
+    # float64 LL2 of a 4K frame exceeds the deep tail's resident limit
+    (1024, 1024, 4, 64, 64, torch.float64),
+    (1036, 128, 3, 32, 48, torch.float32), (1036, 128, 3, 32, 48, torch.float64),
+    (1036, 128, 3, 32, 48, torch.int32)])
+def test_b11_b12_equal_the_fused_kernels(cuda_device, h, w, level, ty, tx, dtype):
+    """B11 runs B2's strip body and B3's deep levels, B12 B6's levels and
+    B5's body: on the card, B11's pyramid equals B2 then B3, and B12's
+    reconstruction B6 then B5, bit for bit."""
+    wavelet = "cdf53" if dtype == torch.int32 else "cdf97"
+    x = _img(h, w, dtype, cuda_device, seed=16).to(dtype)
+    d = ts.streamed_wavedec2_deep(x, wavelet, level, ty=ty, tx=tx)
+    ll2, b2, b1 = tf.fused_dwt2_2level(x, wavelet)
+    _close(d, list(tf.fused_deep_wavedec2(ll2, wavelet, level - 2)) + [b2, b1], True)
+    rec = ts.streamed_waverec2_deep(d, wavelet, ty=ty, tx=tx)
+    ll2 = tf.fused_deep_waverec2(d[:-2], wavelet)
+    _close(rec, tf.fused_idwt2_2level(ll2, d[-2], d[-1], wavelet), True)
 
 
 @pytest.mark.cuda

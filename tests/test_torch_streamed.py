@@ -218,3 +218,39 @@ def test_plain_strips_match_the_fused_tiles():
     assert all(torch.equal(p, q) for p, q in zip(_leaves(a), _leaves(b)))
     back = ts.streamed_idwt2_2level_plain(*a, "cdf97", 32, 20)
     assert torch.equal(back, tf.fused_idwt2_2level_plain(*a, "cdf97", 64))
+
+
+# (h, w, level, ty, tx): the strips of GEOMS and of the card tests'
+# STREAMED_DEEP (tests/test_torch_cuda.py), each at level 3 or deeper
+CHAIN = sorted({(h, w, 3, ty, tx) for h, w, _, ty, tx in GEOMS}
+               | {(256, 320, 4, 64, 64), (512, 384, 5, 32, 32), (1036, 128, 3, 64, 64),
+                  (260, 256, 3, 64, 48), (512, 384, 5, 32, 16), (512, 384, 5, 128, 128),
+                  (260, 256, 3, 32, 48)})
+
+
+def _leaves_of(tree):
+    return [x for t in tree for x in (_leaves_of(t) if isinstance(t, (list, tuple)) else [t])]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32])
+@pytest.mark.parametrize("h,w,level,ty,tx", CHAIN)
+def test_deep_plain_is_the_fused_chain(h, w, level, ty, tx, dtype):
+    """B11 and B12 run B2's strip body then B3's deep levels (B6's levels
+    then B5's body) on the card; their plain versions at any strip equal
+    the fused plain pyramid bit for bit: B2 then B3 forward, B6 then B5
+    inverse."""
+    rng = np.random.default_rng(h + w + ty + tx)
+    if dtype == np.int32:
+        x, wavelet = rng.integers(-512, 512, (h, w)).astype(np.int32), "cdf53"
+    else:
+        x, wavelet = rng.random((h, w)).astype(dtype), "cdf97"
+    x = torch.from_numpy(x)
+    got = ts.streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx)
+    ll2, b2, b1 = tf.fused_dwt2_2level_plain(x, wavelet)
+    want = tf.fused_deep_wavedec2_plain(ll2, wavelet, level - 2) + [b2, b1]
+    assert len(_leaves_of(got)) == len(_leaves_of(want))
+    assert all(a.dtype == x.dtype and torch.equal(a, b)
+               for a, b in zip(_leaves_of(got), _leaves_of(want)))
+    rec = ts.streamed_waverec2_deep_plain(got, wavelet, ty, tx)
+    ll2 = tf.fused_deep_waverec2_plain(got[:-2], wavelet)
+    assert torch.equal(rec, tf.fused_idwt2_2level_plain(ll2, got[-2], got[-1], wavelet))

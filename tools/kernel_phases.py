@@ -63,7 +63,8 @@ KERNELS = {
                       ("lines::lift_fwd<NST, SYM>(s1", "level-1 lift"),
                       ("fwd2::ll1_window(", "level-1 stores, LL1"),
                       ("lines::lift_fwd<NST, SYM>(s2", "level-2 lift"),
-                      ("b2, tile / 4, y0 / 4, x0 / 4, h / 4, w / 4, P);", "level-2 stores"))},
+                      ("b2, tile / 4, tile / 4, y0 / 4, x0 / 4, h / 4, w / 4, P);",
+                       "level-2 stores"))},
     "B5": {"source": "fused2l.cu", "kernel": "inv2_kernel", "entry": "dwt_inv2",
            "tile": 64, "round": None,
            "phases": (("__pipeline_wait_prior(1);", "level-2 load"),
@@ -73,12 +74,14 @@ KERNELS = {
                       ("lines::lift_inv<NST, SYM>(s1", "level-1 lift"),
                       ("inv2::store(", "stores"))},
     "B3": {"source": "deep.cu", "kernel": "deep_fwd_kernel", "entry": "dwt_deep_fwd",
+           "body": ("deep.cuh", "fwd_levels"),
            "tile": 32, "round": "k", "instance": "deep_fwd_kernel<float, 4, true>",
            "phases": (("__pipeline_wait_prior(0);", "load"),
                       ("lines::lift_fwd<NST, SYM>(", "lift"),
                       ("fwd_store(s, RS, L, y0, x0, P);", "stores"),
                       ("if (k + 1 < d.n) grid.sync();", "grid sync"))},
     "B6": {"source": "deep.cu", "kernel": "deep_inv_kernel", "entry": "dwt_deep_inv",
+           "body": ("deep.cuh", "inv_levels"),
            "tile": 32, "round": "k", "instance": "deep_inv_kernel<float, 4, true>",
            "phases": (("__pipeline_wait_prior(0);", "load"),
                       ("lines::lift_inv<NST, SYM>(", "lift"),
@@ -94,20 +97,19 @@ def window_smem(tile: int) -> int:
     return 4 * e * (e if e % 4 else e + 2)
 
 
-def stamped_source(src: str, spec: dict, rounds: int) -> str:
-    """``src`` with a barrier and a clock64 stamp after each phase of the
-    spec's kernel function: per block, slot 0 at its start and slot 1 +
-    round * NP + i after phase i of a round; then the globaltimer at the
-    block's start and end, and its SM.  Where the spec names an
-    ``instance`` of the kernel, ``kp_occupancy`` gives the blocks an SM
-    that cudaOccupancyMaxActiveBlocksPerMultiprocessor allows it."""
-    phases, np_ = spec["phases"], len(spec["phases"])
-    nstamp = 1 + rounds * np_
-    rnd = spec["round"] or "0"
-    k0 = src.rindex("__global__", 0, src.index(spec["kernel"] + "("))
-    k1 = src.index("\n}\n", k0) + 2
-    head, kern, tail = src[:k0], src[k0:k1], src[k1:]
-    lines = kern.split("\n")
+def _function(text: str, name: str, kind: str):
+    """(start, end) of the function ``name`` in ``text``: from the line of
+    its ``kind`` (``__global__`` or ``template <``) to its closing brace at
+    the start of a line."""
+    k0 = text.rindex(kind, 0, text.index(name + "("))
+    k0 = text.rindex("\n", 0, k0) + 1
+    return k0, text.index("\n}\n", k0) + 2
+
+
+def _stamp_phases(lines, spec):
+    """``lines`` with a barrier and a stamp after the one line of each phase
+    marker: slot 1 + round * NP + i after phase i of a round."""
+    phases, np_, rnd = spec["phases"], len(spec["phases"]), spec["round"] or "0"
     for marker, _ in phases:
         if sum(marker in ln for ln in lines) != 1:
             raise SystemExit(f"{spec['kernel']} has no single line with {marker!r}; "
@@ -115,21 +117,48 @@ def stamped_source(src: str, spec: dict, rounds: int) -> str:
     out = []
     for ln in lines:
         out.append(ln)
-        if "extern __shared__" in ln:
-            out.append("    const int kp_id = blockIdx.y * gridDim.x + blockIdx.x;")
-            out.append("    KP_STAMP(0);")
-            out.append(f"    if (threadIdx.x == 0 && kp_id < KP_MAX) {{"
-                       f" kp[kp_id * KP_SLOTS + {nstamp}] = kp_now();"
-                       f" kp[kp_id * KP_SLOTS + {nstamp + 2}] = kp_smid(); }}")
         for i, (marker, _) in enumerate(phases):
             if marker in ln:
                 out.append(f"    KP_STAMP(1 + ({rnd}) * {np_} + {i});")
+    return out
+
+
+def stamped_source(src: str, spec: dict, rounds: int, body: str = ""):
+    """``src`` with a barrier and a clock64 stamp after each phase of the
+    spec's kernel function, or, where the spec names a ``body`` (a header
+    and a device function the kernel calls), of that function in ``body``
+    (the header's text): per block, slot 0 at its start and slot 1 + round
+    * NP + i after phase i of a round; then the globaltimer at the block's
+    start and end, and its SM.  Where the spec names an ``instance`` of the
+    kernel, ``kp_occupancy`` gives the blocks an SM that
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor allows it.  Returns the
+    stamped source and the stamped header ("" without a body)."""
+    nstamp = 1 + rounds * len(spec["phases"])
+    k0, k1 = _function(src, spec["kernel"], "__global__")
+    head, kern, tail = src[:k0], src[k0:k1], src[k1:]
+    lines = kern.split("\n")
+    if not body:
+        lines = _stamp_phases(lines, spec)
+    out = []
+    for ln in lines:
+        out.append(ln)
+        if "extern __shared__" in ln:
+            out.append("    KP_STAMP(0);")
+            out.append(f"    if (threadIdx.x == 0 && KP_ID < KP_MAX) {{"
+                       f" kp[KP_ID * KP_SLOTS + {nstamp}] = kp_now();"
+                       f" kp[KP_ID * KP_SLOTS + {nstamp + 2}] = kp_smid(); }}")
     out.insert(len(out) - 1 - out[::-1].index("}"),
-               f"    if (threadIdx.x == 0 && kp_id < KP_MAX)"
-               f" kp[kp_id * KP_SLOTS + {nstamp + 1}] = kp_now();")
+               f"    if (threadIdx.x == 0 && KP_ID < KP_MAX)"
+               f" kp[KP_ID * KP_SLOTS + {nstamp + 1}] = kp_now();")
+    stamped_body = ""
+    if body:
+        b0, b1 = _function(body, spec["body"][1], "template <")
+        stamped_body = (body[:b0] + "\n".join(_stamp_phases(body[b0:b1].split("\n"), spec))
+                        + body[b1:])
     prelude = f"""
 #define KP_MAX {MAX_BLOCKS}
 #define KP_SLOTS {nstamp + 3}
+#define KP_ID ((int)(blockIdx.y * gridDim.x + blockIdx.x))
 __device__ unsigned long long kp[KP_MAX * KP_SLOTS];
 __device__ __forceinline__ unsigned long long kp_now() {{
     unsigned long long t;
@@ -144,11 +173,10 @@ __device__ __forceinline__ unsigned kp_smid() {{
 #define KP_STAMP(i)                                                          \\
     do {{                                                                     \\
         __syncthreads();                                                     \\
-        if (threadIdx.x == 0 && kp_id < KP_MAX)                              \\
-            kp[kp_id * KP_SLOTS + (i)] = clock64();                          \\
+        if (threadIdx.x == 0 && KP_ID < KP_MAX)                              \\
+            kp[KP_ID * KP_SLOTS + (i)] = clock64();                          \\
     }} while (0)
 """
-    t0 = head.rindex("template <")
     getter = """
 extern "C" int kp_read(unsigned long long* out, int n) {
     return (int)cudaMemcpyFromSymbol(out, kp, sizeof(unsigned long long) * n);
@@ -166,7 +194,8 @@ extern "C" int kp_occupancy(int* blocks, int threads, int smem) {{
                                                               threads, (size_t)smem);
 }}
 """
-    return head[:t0] + prelude + head[t0:] + "\n".join(out) + tail + getter
+    # the prelude comes first: a stamped header uses its macros
+    return prelude + head + "\n".join(out) + tail + getter, stamped_body
 
 
 def make_case(kid, tile, seed):
@@ -259,10 +288,17 @@ def build(kid, spec, rounds):
     os.makedirs(bdir, exist_ok=True)
     stem = os.path.splitext(spec["source"])[0]
     src = os.path.join(bdir, f"{stem}_phases.cu")
+    body = ""
+    if "body" in spec:  # the stamped header sits beside the source, found first
+        with open(os.path.join(_cuda.CSRC, spec["body"][0])) as f:
+            body = f.read()
     with open(os.path.join(_cuda.CSRC, spec["source"])) as f:
-        text = stamped_source(f.read(), spec, rounds)
+        text, stamped_body = stamped_source(f.read(), spec, rounds, body)
     with open(src, "w") as f:
         f.write(text)
+    if body:
+        with open(os.path.join(bdir, spec["body"][0]), "w") as f:
+            f.write(stamped_body)
     lib = os.path.join(bdir, f"{stem}_phases.so")
     cmd = [_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o", lib, src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
