@@ -63,13 +63,17 @@
    them (caught by wrapping the wrappers during an extra run of those
    paths; B1/B4 exactly, B7/B9 <= 3e-5), each banded
    instantiation of B8/B10/B11/B12 against its plain version (<= 2e-5:
-   the tensor cores sum in another order), and B18 at the sharded path's
-   level-1 shapes (exactly).
+   the tensor cores sum in another order; B11 and B12 with the banded body
+   also equal to B8-mxu then B3 and B6 then B10-mxu on the frame, bit for
+   bit, and their registers and blocks an SM are printed), and B18 at the
+   sharded path's level-1 shapes (exactly).
 5. Times each kernel and its plain version with CUDA events (and the
    kernel's device time with the profiler, which leaves out the host's
    cost of issuing it), beside the card's bound for the same work; B11
    and B12's device time split into the strip phase (a launch with no
-   deep level) and the deep levels, beside B2 + B3 and B6 + B5; B3 and
+   deep level) and the deep levels, beside B2 + B3 and B6 + B5, and so
+   for their banded instantiations (the strip phase is B8/B10-mxu)
+   beside B3 and B6; B3 and
    B6 also beside one launch of B1/B4 per level (the same tile body,
    csrc/onelevel.cuh); the library yardsticks of the forward kernels
    (reflect padding by 4 and a stride-2 conv2d with the level's four 9x9
@@ -322,12 +326,15 @@ def spy_calls(module, names, run):
     return kept
 
 
-def strip_phase(a, wavelet, ty: int = 64, tx: int = 64):
+def strip_phase(a, wavelet, ty: int = 0, tx: int = 0, body: str = "poly"):
     """B11 (``a`` a frame) or B12 (``a`` a two-level pyramid (LL2, level-2
     bands, level-1 bands)) launched with no deep level, straight through its
     C entry point (the wrappers take three levels or more): the strip phase
-    alone.  Returns (launch, outputs): B11's seven bands in B2's order, or
-    B12's frame.  Launches are not counted."""
+    alone; ``body='mxu'`` the banded instantiation; the strip ty x tx, or
+    the body's default.  Returns (launch,
+    outputs, info): B11's seven bands in B2's order, or B12's frame; info
+    holds the last launch's (grid, co-resident blocks).  Launches are not
+    counted."""
     import ctypes
 
     import torch
@@ -335,7 +342,9 @@ def strip_phase(a, wavelet, ty: int = 64, tx: int = 64):
     from libdwt_torch.models.wavelets import get_wavelet
     from libdwt_torch.ops import _cuda
     from libdwt_torch.ops import fused as F
+    from libdwt_torch.ops import streamed as S
 
+    ty, tx = S.strip_shape(body, ty, tx)
     inverse = isinstance(a, (list, tuple))
     if inverse:
         ins = [a[0].contiguous()] + [b.contiguous() for t in a[1:] for b in t]
@@ -347,17 +356,38 @@ def strip_phase(a, wavelet, ty: int = 64, tx: int = 64):
         q = [torch.empty((h // 4, w // 4), dtype=a.dtype, device=a.device) for _ in range(4)]
         b = [torch.empty((h // 2, w // 2), dtype=a.dtype, device=a.device) for _ in range(3)]
         ptrs, first, outs = q + b, a, (q[0], tuple(q[1:]), tuple(b))
-    fn = _cuda.kernel_fn("dwt_sdeep_inv" if inverse else "dwt_sdeep_fwd",
-                         F._suffix(first.dtype))
+    name, extra = "dwt_sdeep_inv" if inverse else "dwt_sdeep_fwd", []
+    if body == "mxu":
+        from libdwt_torch.ops import banded
+
+        name += "_mxu"
+        extra = [ctypes.byref(banded.kernel_mats(wavelet, inverse, ty, tx, first.device))]
+    fn = _cuda.kernel_fn(name, F._suffix(first.dtype))
     params = F._lift_params(get_wavelet(wavelet), first.dtype == torch.int32, inverse)
     arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
     info = (ctypes.c_int * 2)()
 
     def launch():
         _cuda.check(fn(first.data_ptr(), arr, 0, h, w, ty, tx, F.TILE1, info,
-                       ctypes.byref(params), torch.cuda.current_stream().cuda_stream),
+                       ctypes.byref(params), *extra, torch.cuda.current_stream().cuda_stream),
                     "strip phase")
-    return launch, outs
+    return launch, outs, info
+
+
+def ptxas_registers(log: str, patterns) -> list:
+    """[(kernel, registers, spill line)] of the ``ptxas -v`` log's entry
+    functions whose mangled names hold one of ``patterns``."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            if any(p in name for p in patterns):
+                out.append((name, int(line.split("Used")[1].split()[0]), spill))
+            name = None
+    return out
 
 
 def require(ok: bool, what: str) -> None:
@@ -988,8 +1018,8 @@ def main() -> int:
     rec_f = F.fused_idwt2_2level(F.fused_deep_waverec2(sc[:-2], WV), sc[-2], sc[-1], WV)
     err = max_abs(streamed_cases["B12"][0](), rec_f)
     require(err == 0, f"B12 == B6 then B5 bit for bit on the {H}x{W} J={J} frame")
-    strips_fwd, strips_fwd_out = strip_phase(x, WV)
-    strips_inv, strips_inv_out = strip_phase(s2c, WV)
+    strips_fwd, strips_fwd_out, _ = strip_phase(x, WV)
+    strips_inv, strips_inv_out, _ = strip_phase(s2c, WV)
     strips_fwd()
     strips_inv()
     torch.cuda.synchronize()
@@ -1133,6 +1163,53 @@ def main() -> int:
         require(mxu_errs[k] <= 2e-5, f"{k} banded body (B13) vs plain at its path's shapes "
                 f"max|diff| {mxu_errs[k]:.3e} <= 2e-5")
     errs["B13"] = max(mxu_errs.values())
+    # B11/B12 with the banded body run B8/B10's (the same kernel with no
+    # deep level) and B3/B6's levels: on the frame they equal B8-mxu then
+    # B3, and B6 then B10-mxu, bit for bit
+    ll2m, b2m, b1m = S.streamed_dwt2_2level(x, WV, body="mxu")
+    err = max_abs(leaves(mxu_cases["B11"][0]()),
+                  leaves(list(F.fused_deep_wavedec2(ll2m, WV, J - 2)) + [b2m, b1m]))
+    require(err == 0, f"B11-mxu == B8-mxu then B3 bit for bit on the {H}x{W} J={J} frame")
+    ll2r = F.fused_deep_waverec2(mc[:-2], WV)
+    err = max_abs(mxu_cases["B12"][0](), S.streamed_idwt2_2level(ll2r, mc[-2], mc[-1], WV,
+                                                                 body="mxu"))
+    require(err == 0, f"B12-mxu == B6 then B10-mxu bit for bit on the {H}x{W} J={J} frame")
+    # each banded instantiation's registers (ptxas) and blocks an SM (the
+    # co-resident blocks of its launch at its shared memory over the SMs)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log = paths["streamed.cu"].with_suffix(".log").read_text()
+    occ = []
+    for k, inverse, a in (("B8", False, x), ("B10", True, m2c), ("B11", False, None),
+                          ("B12", True, None)):
+        if a is None:
+            grid, resident = S.LAST_GRID[k]
+        else:
+            launch, _, info = strip_phase(a, WV, body="mxu")
+            launch()
+            torch.cuda.synchronize()
+            grid, resident = info
+        kern = "sdeep_inv_mxu" if inverse else "sdeep_fwd_mxu"
+        regs = ptxas_registers(log, (f"{kern}ILi4ELb1E",))
+        occ.append(f"{k}-mxu {kern}<4, true> {regs[0][1] if regs else 'not found'} registers "
+                   f"({regs[0][2] if regs else ''}), grid {grid}, {resident} co-resident "
+                   f"blocks = {resident / sms:g} an SM")
+    print("banded instantiations: " + "; ".join(occ) + f" [{smi}]", flush=True)
+    for k, whole, strips, deep in (
+            ("B11", mxu_cases["B11"][0], lambda: S.streamed_dwt2_2level(x, WV, body="mxu"),
+             lambda: F.fused_deep_wavedec2(ll2m, WV, J - 2)),
+            ("B12", mxu_cases["B12"][0],
+             lambda: S.streamed_idwt2_2level(ll2r, mc[-2], mc[-1], WV, body="mxu"),
+             lambda: F.fused_deep_waverec2(mc[:-2], WV))):
+        t = {name: device_ms(fn) for name, fn in (("whole", whole), ("strips", strips),
+                                                   ("deep", deep))}
+        if None in t.values():
+            print(f"time {k}-mxu device split: not measured [{smi}]", flush=True)
+            continue
+        print(f"time {k}-mxu device split (J={J}, {H}x{W} f32): one launch "
+              f"{t['whole']:.4f} ms = strip phase {t['strips']:.4f} ms "
+              f"({'B8' if k == 'B11' else 'B10'}-mxu: the same kernel with no deep level) + "
+              f"deep levels {t['whole'] - t['strips']:.4f} ms; "
+              f"{'B3' if k == 'B11' else 'B6'} alone {t['deep']:.4f} ms [{smi}]", flush=True)
 
     # ---- the slice 2 kernels vs their plain versions at their paths' shapes
     b14_l1 = F3.fused_dwt3_level(v, WV)

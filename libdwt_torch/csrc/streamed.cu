@@ -79,16 +79,20 @@
 // for int32), so B11/B12 equal their plain versions, and B2 then B3 (B6
 // then B5), bit for bit in float32, float64 and int32.
 //
-// The banded-matmul body (B13, banded.cuh) replaces the polyphase lift of
-// the strip phases of B8/B10/B11/B12 in their MXU = true instantiations
-// (dwt_*_mxu_f32, float32 only): the matrices ride in the kernel's shared
-// memory after the float windows and the body's three data parts, copied
-// there once per block before its first strip.  Its one-launch pyramids
-// keep the first port's design (B8/B10's strips with TOP2, then each deep
-// level as tiles.cuh's one-level tile over a grid-stride loop, one tile
-// for all levels), and their deep levels stay polyphase, as in the
-// reference (streamed.py:1167-1169).  At the default 64x64 strip a forward
-// block then holds 177 KB and an inverse block 145 KB, one block per SM.
+// The banded-matmul body (B13, banded.cuh) in B8/B10/B11/B12 with
+// body='mxu' (dwt_*_mxu_f32, float32 only: sdeep_fwd_mxu and
+// sdeep_inv_mxu) runs on B11/B12's scaffold with banded.cuh's passes in
+// place of the line walks: the same persistent one-buffer strip walk (the
+// forward loads the next strip while its LL1 lifts), the windows of the
+// plain versions (forward TOP2 = 16 rows and HALO2 = 12 columns, LL1 halo
+// 4; inverse IH2 = 8, IH1 = 4) on row strides of 8 mod 16 words,
+// fused2l.cuh's loads, stores and LL1 windows (no scale: the matrices hold
+// it), and deep.cuh's level loop behind the grid sync: the deep levels stay
+// polyphase, as in the reference (streamed.py:1167-1169).  A launch with
+// no deep level is B8/B10-mxu.  The matrices' fragments stay in global
+// memory (a few KB, read through the read-only cache).  The first port's
+// design (two buffers, the data's bf16 parts in shared memory, the
+// fragments reloaded a tile) held one block an SM at 177 / 145 KB.
 // Scratch buffers are never read before the grid sync that follows their
 // writes, and no pointer is __restrict__, so no read can see a stale line.
 //
@@ -114,7 +118,6 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TOP = 8;     // the single levels' extended contract (rows)
 constexpr int TOP2 = 16;   // forward strip row halo
-constexpr int MAX_DEEP = 16;
 
 // Column bands of tx samples, each cut into nseg segments of sps strips of
 // ty rows; item = seg * nbands + band.
@@ -134,116 +137,57 @@ struct InvBands {
     T* out;
 };
 
-// One deep level.  Forward: (h, w) is the input LL's size, ll the input,
-// hl/lh/hh/out the outputs.  Inverse: (h, w) is the output size, ll the
-// coarser LL, hl/lh/hh the bands, out the reconstruction.
+// The strips of the two forward levels.
 template <typename T>
-struct Level {
-    int h, w;
-    const T* ll;
-    T *hl, *lh, *hh, *out;
-};
-
-template <typename T>
-struct Deep {
-    int n;
-    Level<T> lv[MAX_DEEP];
-};
-
-// Shared memory of the two-level strips: the float windows (``*_base``:
-// two buffers, and the forward's LL1 tile), and with the banded body the
-// elements of one of its data parts (``*_parts``: the larger window).
-template <typename T>
-__host__ __device__ size_t fwd_base(int ty, int tx) {
-    return sizeof(T) * (size_t)(2 * tiles::fwd2_elems(ty, tx, TOP2)
-                                + tiles::fwd2_ll1_elems(ty, tx));
-}
-__host__ __device__ inline int fwd_parts(int ty, int tx) {
-    const int a = banded::part_elems(ty + 2 * TOP2, tx + 2 * tiles::HALO2);
-    const int b = banded::part_elems(ty / 2 + 8, tx / 2 + 8);
-    return a > b ? a : b;
-}
-template <typename T>
-__host__ __device__ size_t inv_base(int ty, int tx) {
-    return sizeof(T) * 2 * (size_t)(tiles::inv2_l2_elems(ty, tx)
-                                    + tiles::inv2_l1_elems(ty, tx));
-}
-__host__ __device__ inline int inv_parts(int ty, int tx) {
-    const int a = banded::part_elems(ty / 2 + 2 * tiles::IH2, tx / 2 + 2 * tiles::IH2);
-    const int b = banded::part_elems(ty + 2 * tiles::IH1, tx + 2 * tiles::IH1);
-    return a > b ? a : b;
-}
-
-// The strips of the two forward levels.  MXU: the banded body (float32),
-// which first copies its matrices into shared memory.
-template <typename T, bool MXU>
 __device__ void fwd2_strips(const T* x, const FwdBands<T>& b, const Strips& g,
-                            const LiftParams& P, const banded::MxuMats& M,
-                            unsigned char* raw) {
-    T* smem = reinterpret_cast<T*>(raw);
+                            const LiftParams& P, T* smem) {
     const int buf = tiles::fwd2_elems(g.ty, g.tx, TOP2);
     T* sb[2] = {smem, smem + buf};
     T* s2 = smem + 2 * buf;
-    const banded::MxuLift lift =
-        banded::make_lift(M, raw, fwd_base<T>(g.ty, g.tx), fwd_parts(g.ty, g.tx));
-    if constexpr (MXU) banded::load_mats(M, lift.mats);
     for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
         const int x0 = (item % g.nbands) * g.tx;
         const int first = (item / g.nbands) * g.sps;
         const int last = min(g.nstrips, first + g.sps);
-        tiles::fwd2_load<true>(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx, TOP2);
+        tiles::fwd2_load(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx, TOP2);
         __pipeline_commit();
         for (int i = first; i < last; ++i) {
             const int k = (i - first) & 1;
             if (i + 1 < last)
-                tiles::fwd2_load<true>(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0, g.ty,
+                tiles::fwd2_load(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0, g.ty,
                                        g.tx, TOP2);
             __pipeline_commit();  // possibly empty: keeps wait_prior(1) exact
             __pipeline_wait_prior(1);
             __syncthreads();
-            if constexpr (MXU)
-                banded::fwd2_compute_mxu(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1,
-                                         b.lh1, b.hh1, g.h, g.w, i * g.ty, x0, g.ty, g.tx,
-                                         TOP2, lift);
-            else
-                tiles::fwd2_compute(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1,
-                                    b.hh1, g.h, g.w, i * g.ty, x0, g.ty, g.tx, TOP2, P);
+            tiles::fwd2_compute(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1,
+                                g.h, g.w, i * g.ty, x0, g.ty, g.tx, TOP2, P);
         }
     }
 }
 
-template <typename T, bool MXU>
+template <typename T>
 __device__ void inv2_strips(const InvBands<T>& b, const Strips& g, const LiftParams& P,
-                            const banded::MxuMats& M, unsigned char* raw) {
-    T* smem = reinterpret_cast<T*>(raw);
+                            T* smem) {
     const int n2 = tiles::inv2_l2_elems(g.ty, g.tx);
     const int stage = n2 + tiles::inv2_l1_elems(g.ty, g.tx);
     T* sb[2] = {smem, smem + stage};
-    const banded::MxuLift lift =
-        banded::make_lift(M, raw, inv_base<T>(g.ty, g.tx), inv_parts(g.ty, g.tx));
-    if constexpr (MXU) banded::load_mats(M, lift.mats);
     for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
         const int x0 = (item % g.nbands) * g.tx;
         const int first = (item / g.nbands) * g.sps;
         const int last = min(g.nstrips, first + g.sps);
-        tiles::inv2_load<true>(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1, sb[0],
+        tiles::inv2_load(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1, sb[0],
                                sb[0] + n2, g.h, g.w, first * g.ty, x0, g.ty, g.tx);
         __pipeline_commit();
         for (int i = first; i < last; ++i) {
             const int k = (i - first) & 1;
             if (i + 1 < last)
-                tiles::inv2_load<true>(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1,
+                tiles::inv2_load(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1,
                                        sb[k ^ 1], sb[k ^ 1] + n2, g.h, g.w,
                                        (i + 1) * g.ty, x0, g.ty, g.tx);
             __pipeline_commit();
             __pipeline_wait_prior(1);
             __syncthreads();
-            if constexpr (MXU)
-                banded::inv2_compute_mxu(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0,
-                                         g.ty, g.tx, lift);
-            else
-                tiles::inv2_compute(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0, g.ty,
-                                    g.tx, P);
+            tiles::inv2_compute(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0, g.ty, g.tx,
+                                P);
         }
     }
 }
@@ -336,20 +280,90 @@ __device__ __forceinline__ void inv2_line_strips(const InvBands<T>& b, const Str
     }
 }
 
-// One deep level over tiles of 2*tile samples, grid-stride (the banded
-// body's pyramids).
-template <typename T, bool INV>
-__device__ void deep_level(const Level<T>& L, int tile, const LiftParams& P, T* s) {
-    const int S = 2 * tile;
-    const int nx = (L.w + S - 1) / S, n = nx * ((L.h + S - 1) / S);
-    for (int item = blockIdx.x; item < n; item += gridDim.x) {
-        const int y0 = (item / nx) * S, x0 = (item % nx) * S;
-        if constexpr (INV)
-            tiles::inv1_tile<0>(L.ll, L.hl, L.lh, L.hh, L.out, L.h, L.w, y0, x0, S, S, P,
-                                s);
-        else
-            tiles::fwd1_tile<0>(L.ll, L.out, L.hl, L.lh, L.hh, L.h, L.w, y0, x0, S, S, P,
-                                s);
+// Lifting parameters with no scale, for the banded strips' stores (the
+// matrices hold the scale).
+__constant__ LiftParams NO_SCALE;
+
+// B8/B11's strips with the banded body (float32): each (band, segment)
+// item walked down strip by strip, as fwd2_line_strips walks it.  The
+// window of strip i starts at (y0 - TOP2, x0 - HALO2), which is
+// fwd2::load's window of y0 - (TOP2 - HALO2); its core and LL1 window are
+// fwd2's of the window from row TOP2 - HALO2 on.
+__device__ __forceinline__ void fwd2_mxu_strips(const float* x, const FwdBands<float>& b,
+                                                const Strips& g, const banded::MxuMats& M,
+                                                float* smem) {
+    using tiles::HALO2;
+    constexpr int DY = TOP2 - HALO2;
+    const int ty = g.ty, tx = g.tx;
+    const int EY = ty + 2 * TOP2, EX = tx + 2 * HALO2, E1Y = ty / 2 + 8, E1X = tx / 2 + 8;
+    const int RS = banded::stride(EX), RS1 = banded::stride(E1X);
+    float* const s1 = smem;
+    float* const s2 = s1 + EY * RS;  // RS % 8 == 0: 32-byte aligned
+    const bool vec = lines::aligned16(x) && g.w % 4 == 0;
+    float* const b1[3] = {b.hl1, b.lh1, b.hh1};
+    float* const b2[4] = {b.ll2, b.hl2, b.lh2, b.hh2};
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        fwd2::load(x, s1, RS, g.h, g.w, first * ty - DY, x0, EY, EX, vec);
+        __pipeline_commit();
+        for (int i = first; i < last; ++i) {
+            const int y0 = i * ty;
+            __pipeline_wait_prior(0);
+            __syncthreads();
+            banded::lift_fwd(s1, RS, EY, EX, M.m[0], M.m[1], M.frags);
+            fwd2::store_bands(s1 + DY * RS, RS, HALO2, b1, ty / 2, tx / 2, y0 / 2, x0 / 2,
+                              g.h / 2, g.w / 2, NO_SCALE);
+            fwd2::ll1_window(s1 + DY * RS, RS, s2, RS1, g.h, g.w, y0, x0, E1Y, E1X, NO_SCALE);
+            __syncthreads();
+            if (i + 1 < last) {
+                fwd2::load(x, s1, RS, g.h, g.w, y0 + ty - DY, x0, EY, EX, vec);
+                __pipeline_commit();
+            }
+            banded::lift_fwd(s2, RS1, E1Y, E1X, M.m[2], M.m[3], M.frags);
+            fwd2::store_bands(s2, RS1, 4, b2, ty / 4, tx / 4, y0 / 4, x0 / 4, g.h / 4, g.w / 4,
+                              NO_SCALE);
+        }
+    }
+}
+
+// B10/B12's strips with the banded body: one stage, the level-2 window and
+// the level-1 window after it, walked as inv2_line_strips walks them.
+__device__ __forceinline__ void inv2_mxu_strips(const InvBands<float>& b, const Strips& g,
+                                                const banded::MxuMats& M, float* smem) {
+    using tiles::IH1;
+    using tiles::IH2;
+    const int ty = g.ty, tx = g.tx;
+    const int E2Y = ty / 2 + 2 * IH2, E2X = tx / 2 + 2 * IH2;
+    const int E1Y = ty + 2 * IH1, E1X = tx + 2 * IH1;
+    const int RS2 = banded::stride(E2X), RS1 = banded::stride(E1X);
+    float* const s2 = smem;
+    float* const s1 = s2 + E2Y * RS2;
+    auto load = [&](int y0, int x0) {
+        inv2::load_level2(b.ll2, b.hl2, b.lh2, b.hh2, s2, RS2, E2Y, E2X, g.h, g.w, y0, x0);
+        __pipeline_commit();
+        inv2::load_level1(b.hl1, b.lh1, b.hh1, s1, RS1, E1Y, E1X, g.h, g.w, y0, x0);
+        __pipeline_commit();
+    };
+    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
+        const int x0 = (item % g.nbands) * tx;
+        const int first = (item / g.nbands) * g.sps;
+        const int last = min(g.nstrips, first + g.sps);
+        load(first * ty, x0);
+        for (int i = first; i < last; ++i) {
+            const int y0 = i * ty;
+            __pipeline_wait_prior(1);  // strip i's level 2
+            __syncthreads();
+            banded::lift_inv(s2, RS2, E2Y, E2X, M.m[0], M.m[1], M.frags);
+            inv2::ll1_window(s2, RS2, s1, RS1, g.h, g.w, y0, x0, E1Y / 2, E1X / 2);
+            __pipeline_wait_prior(0);  // its level-1 details
+            __syncthreads();
+            banded::lift_inv(s1, RS1, E1Y, E1X, M.m[2], M.m[3], M.frags);
+            inv2::store(s1, RS1, b.out, g.h, g.w, y0, x0, ty, tx);
+            __syncthreads();  // the stage is free for the next copies
+            if (i + 1 < last) load(y0 + ty, x0);
+        }
     }
 }
 
@@ -363,12 +377,12 @@ __device__ void fwd1_strips(const T* x, T* ll, T* hl, T* lh, T* hh, const Strips
         const int x0 = (item % g.nbands) * g.tx;
         const int first = (item / g.nbands) * g.sps;
         const int last = min(g.nstrips, first + g.sps);
-        tiles::fwd1_load<EXT, true>(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx);
+        tiles::fwd1_load<EXT>(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx);
         __pipeline_commit();
         for (int i = first; i < last; ++i) {
             const int k = (i - first) & 1;
             if (i + 1 < last)
-                tiles::fwd1_load<EXT, true>(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0,
+                tiles::fwd1_load<EXT>(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0,
                                             g.ty, g.tx);
             __pipeline_commit();
             __pipeline_wait_prior(1);
@@ -387,13 +401,13 @@ __device__ void inv1_strips(const T* ll, const T* hl, const T* lh, const T* hh, 
         const int x0 = (item % g.nbands) * g.tx;
         const int first = (item / g.nbands) * g.sps;
         const int last = min(g.nstrips, first + g.sps);
-        tiles::inv1_load<EXT, true>(ll, hl, lh, hh, sb[0], g.h, g.w, first * g.ty, x0,
+        tiles::inv1_load<EXT>(ll, hl, lh, hh, sb[0], g.h, g.w, first * g.ty, x0,
                                     g.ty, g.tx);
         __pipeline_commit();
         for (int i = first; i < last; ++i) {
             const int k = (i - first) & 1;
             if (i + 1 < last)
-                tiles::inv1_load<EXT, true>(ll, hl, lh, hh, sb[k ^ 1], g.h, g.w,
+                tiles::inv1_load<EXT>(ll, hl, lh, hh, sb[k ^ 1], g.h, g.w,
                                             (i + 1) * g.ty, x0, g.ty, g.tx);
             __pipeline_commit();
             __pipeline_wait_prior(1);
@@ -403,18 +417,18 @@ __device__ void inv1_strips(const T* ll, const T* hl, const T* lh, const T* hh, 
     }
 }
 
-template <typename T, bool MXU>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-sfwd2_kernel(const T* x, FwdBands<T> b, Strips g, LiftParams P, banded::MxuMats M) {
+sfwd2_kernel(const T* x, FwdBands<T> b, Strips g, LiftParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    fwd2_strips<T, MXU>(x, b, g, P, M, smem_raw);
+    fwd2_strips<T>(x, b, g, P, reinterpret_cast<T*>(smem_raw));
 }
 
-template <typename T, bool MXU>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-sinv2_kernel(InvBands<T> b, Strips g, LiftParams P, banded::MxuMats M) {
+sinv2_kernel(InvBands<T> b, Strips g, LiftParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    inv2_strips<T, MXU>(b, g, P, M, smem_raw);
+    inv2_strips<T>(b, g, P, reinterpret_cast<T*>(smem_raw));
 }
 
 template <int EXT, typename T>
@@ -430,37 +444,6 @@ sinv1_kernel(const T* ll, const T* hl, const T* lh, const T* hh, T* out, Strips 
              LiftParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     inv1_strips<EXT>(ll, hl, lh, hh, out, g, P, reinterpret_cast<T*>(smem_raw));
-}
-
-// B11/B12 with the banded body (the polyphase pyramids are sdeep_*_lines
-// below): B8/B10's strips and the deep levels as tiles.cuh's one-level
-// tiles.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sdeep_fwd_mxu(const T* x, FwdBands<T> b, Strips g, Deep<T> d, int tile,
-                 LiftParams P, banded::MxuMats M) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* s = reinterpret_cast<T*>(smem_raw);
-    cg::grid_group grid = cg::this_grid();
-    fwd2_strips<T, true>(x, b, g, P, M, smem_raw);
-    for (int k = 0; k < d.n; ++k) {
-        grid.sync();
-        deep_level<T, false>(d.lv[k], tile, P, s);
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sdeep_inv_mxu(InvBands<T> b, Strips g, Deep<T> d, int tile, LiftParams P,
-                 banded::MxuMats M) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* s = reinterpret_cast<T*>(smem_raw);
-    cg::grid_group grid = cg::this_grid();
-    for (int k = 0; k < d.n; ++k) {
-        deep_level<T, true>(d.lv[k], tile, P, s);
-        grid.sync();
-    }
-    inv2_strips<T, true>(b, g, P, M, smem_raw);
 }
 
 // B11 and B12 on the line walks: the strips above and deep.cuh's levels in
@@ -489,24 +472,50 @@ sdeep_inv_lines(Strips g, InvBands<T> b, deep::Deep<T> d, LiftParams P) {
     inv2_line_strips<ST, NST, SYM>(b, g, P, s);
 }
 
-// ------------------------------------------------------------ host side
-
-template <typename T, bool MXU>
-size_t fwd_smem(int ty, int tx, const banded::MxuMats& M) {
-    const size_t base = fwd_base<T>(ty, tx);
-    return MXU ? banded::smem_bytes(base, fwd_parts(ty, tx), M.elems) : base;
+// B11 and B12 with the banded body (float32): its strips, and deep.cuh's
+// polyphase levels across a grid sync.  d.n == 0 runs the strips alone
+// (B8/B10 with the banded body).  Compiled for MXU_BLOCKS blocks an SM:
+// the compiler's own choice has run from 122 to 188 registers as the
+// passes changed, and above 128 only one block fits an SM (their windows
+// take 74 / 62 KB of shared memory at the 96x96 strip).
+constexpr int MXU_BLOCKS = 2;
+template <int NST, bool SYM>
+__global__ void __launch_bounds__(THREADS, MXU_BLOCKS)
+sdeep_fwd_mxu(Strips g, const float* x, FwdBands<float> b, deep::Deep<float> d,
+              banded::MxuMats M, LiftParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* s = reinterpret_cast<float*>(smem_raw);
+    fwd2_mxu_strips(x, b, g, M, s);
+    if (d.n > 0) {
+        cg::this_grid().sync();
+        deep::fwd_levels<NST, SYM>(d, P, s);
+    }
 }
 
-template <typename T, bool MXU>
-size_t inv_smem(int ty, int tx, const banded::MxuMats& M) {
-    const size_t base = inv_base<T>(ty, tx);
-    return MXU ? banded::smem_bytes(base, inv_parts(ty, tx), M.elems) : base;
+template <int NST, bool SYM>
+__global__ void __launch_bounds__(THREADS, MXU_BLOCKS)
+sdeep_inv_mxu(Strips g, InvBands<float> b, deep::Deep<float> d, banded::MxuMats M,
+              LiftParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* s = reinterpret_cast<float*>(smem_raw);
+    if (d.n > 0) {
+        deep::inv_levels<NST, SYM>(d, P, s);
+        cg::this_grid().sync();
+    }
+    inv2_mxu_strips(b, g, M, s);
+}
+
+// ------------------------------------------------------------ host side
+
+template <typename T>
+size_t fwd_smem(int ty, int tx) {
+    return sizeof(T) * (size_t)(2 * tiles::fwd2_elems(ty, tx, TOP2)
+                                + tiles::fwd2_ll1_elems(ty, tx));
 }
 
 template <typename T>
-size_t deep_smem(int tile) {
-    const size_t e = 2 * tile + 2 * tiles::HALO;
-    return sizeof(T) * e * e;
+size_t inv_smem(int ty, int tx) {
+    return sizeof(T) * 2 * (size_t)(tiles::inv2_l2_elems(ty, tx) + tiles::inv2_l1_elems(ty, tx));
 }
 
 // Set the kernel's shared memory, then the blocks that can be resident at
@@ -539,49 +548,27 @@ int plan(K kernel, size_t smem, int h, int w, int ty, int tx, Strips* g,
     return 0;
 }
 
-// LL sizes from LL2 (h/4 x w/4) down, one more per deep level.
-void deep_sizes(int h, int w, int n, int* hs, int* ws) {
-    hs[0] = h / 4;
-    ws[0] = w / 4;
-    for (int k = 0; k < n; ++k) {
-        hs[k + 1] = (hs[k] + 1) / 2;
-        ws[k + 1] = (ws[k] + 1) / 2;
-    }
-}
-
 template <typename T>
-int grid_for(const Strips& g, const Deep<T>& d, int tile, int resident) {
-    int most = g.items();
-    const int S = 2 * tile;
-    for (int k = 0; k < d.n; ++k)
-        most = max(most, ((d.lv[k].h + S - 1) / S) * ((d.lv[k].w + S - 1) / S));
-    return min(most, resident);
-}
-
-// The polyphase instantiations take no matrices.
-const banded::MxuMats NO_MATS{};
-
-template <typename T, bool MXU>
 int launch_sfwd2(const T* x, FwdBands<T> b, int h, int w, int ty, int tx,
-                 const LiftParams* P, const banded::MxuMats* M, cudaStream_t stream) {
-    const size_t smem = fwd_smem<T, MXU>(ty, tx, *M);
+                 const LiftParams* P, cudaStream_t stream) {
+    const size_t smem = fwd_smem<T>(ty, tx);
     Strips g;
     int resident = 0;
-    const int err = plan(sfwd2_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
+    const int err = plan(sfwd2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
-    sfwd2_kernel<T, MXU><<<g.items(), THREADS, smem, stream>>>(x, b, g, *P, *M);
+    sfwd2_kernel<T><<<g.items(), THREADS, smem, stream>>>(x, b, g, *P);
     return (int)cudaGetLastError();
 }
 
-template <typename T, bool MXU>
+template <typename T>
 int launch_sinv2(InvBands<T> b, int h, int w, int ty, int tx, const LiftParams* P,
-                 const banded::MxuMats* M, cudaStream_t stream) {
-    const size_t smem = inv_smem<T, MXU>(ty, tx, *M);
+                 cudaStream_t stream) {
+    const size_t smem = inv_smem<T>(ty, tx);
     Strips g;
     int resident = 0;
-    const int err = plan(sinv2_kernel<T, MXU>, smem, h, w, ty, tx, &g, &resident);
+    const int err = plan(sinv2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
     if (err) return err;
-    sinv2_kernel<T, MXU><<<g.items(), THREADS, smem, stream>>>(b, g, *P, *M);
+    sinv2_kernel<T><<<g.items(), THREADS, smem, stream>>>(b, g, *P);
     return (int)cudaGetLastError();
 }
 
@@ -607,74 +594,6 @@ int launch_sinv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int
     if (err) return err;
     sinv1_kernel<EXT, T><<<g.items(), THREADS, smem, stream>>>(ll, hl, lh, hh, out, g, *P);
     return (int)cudaGetLastError();
-}
-
-// ptrs: ll2 scratch, hl2, lh2, hh2, hl1, lh1, hh1, then per deep level
-// (fine first) hl, lh, hh, ll.  info[0..1] <- grid, resident blocks.
-template <typename T>
-int launch_sdeep_fwd_mxu(const T* x, void* const* ptrs, int n, int h, int w, int ty,
-                         int tx, int tile, int* info, const LiftParams* P,
-                         const banded::MxuMats* M, cudaStream_t stream) {
-    if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
-    T* const* p = reinterpret_cast<T* const*>(ptrs);
-    FwdBands<T> b{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
-    int hs[MAX_DEEP + 1], ws[MAX_DEEP + 1];
-    deep_sizes(h, w, n, hs, ws);
-    Deep<T> d;
-    d.n = n;
-    for (int k = 0; k < n; ++k) {
-        T* const* q = p + 7 + 4 * k;
-        d.lv[k] = Level<T>{hs[k], ws[k], k ? p[7 + 4 * k - 1] : p[0], q[0], q[1], q[2],
-                           q[3]};
-    }
-    const size_t smem = std::max(fwd_smem<T, true>(ty, tx, *M), deep_smem<T>(tile));
-    Strips g;
-    int resident = 0;
-    int err = plan(sdeep_fwd_mxu<T>, smem, h, w, ty, tx, &g, &resident);
-    if (err) return err;
-    info[0] = grid_for(g, d, tile, resident);
-    info[1] = resident;
-    LiftParams Pv = *P;
-    banded::MxuMats Mv = *M;
-    void* args[] = {(void*)&x, (void*)&b,    (void*)&g,  (void*)&d,
-                    (void*)&tile, (void*)&Pv, (void*)&Mv};
-    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_fwd_mxu<T>, dim3(info[0]),
-                                           dim3(THREADS), args, smem, stream);
-    return err ? err : (int)cudaGetLastError();
-}
-
-// ptrs: LL_J, then per deep level (coarse first) hl, lh, hh, reconstruction
-// (the last one is the LL2 scratch), then hl2, lh2, hh2, hl1, lh1, hh1.
-template <typename T>
-int launch_sdeep_inv_mxu(T* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
-                         int tile, int* info, const LiftParams* P, const banded::MxuMats* M,
-                         cudaStream_t stream) {
-    if (n < 1 || n > MAX_DEEP) return (int)cudaErrorInvalidValue;
-    T* const* p = reinterpret_cast<T* const*>(ptrs);
-    int hs[MAX_DEEP + 1], ws[MAX_DEEP + 1];
-    deep_sizes(h, w, n, hs, ws);
-    Deep<T> d;
-    d.n = n;
-    for (int k = 0; k < n; ++k) {
-        T* const* q = p + 1 + 4 * k;
-        d.lv[k] = Level<T>{hs[n - 1 - k], ws[n - 1 - k], k ? p[4 * k] : p[0], q[0], q[1],
-                           q[2], q[3]};
-    }
-    T* const* s = p + 1 + 4 * n;
-    InvBands<T> b{p[4 * n], s[0], s[1], s[2], s[3], s[4], s[5], out};
-    const size_t smem = std::max(inv_smem<T, true>(ty, tx, *M), deep_smem<T>(tile));
-    Strips g;
-    int resident = 0;
-    int err = plan(sdeep_inv_mxu<T>, smem, h, w, ty, tx, &g, &resident);
-    if (err) return err;
-    info[0] = grid_for(g, d, tile, resident);
-    info[1] = resident;
-    LiftParams Pv = *P;
-    banded::MxuMats Mv = *M;
-    void* args[] = {(void*)&b, (void*)&g, (void*)&d, (void*)&tile, (void*)&Pv, (void*)&Mv};
-    err = (int)cudaLaunchCooperativeKernel((const void*)sdeep_inv_mxu<T>, dim3(info[0]),
-                                           dim3(THREADS), args, smem, stream);
-    return err ? err : (int)cudaGetLastError();
 }
 
 // The shared memory of B11/B12 on the line walks: the strips' windows (the
@@ -713,8 +632,10 @@ int launch_lines(K kernel, size_t smem, int h, int w, int ty, int tx, int most, 
     return err ? err : (int)cudaGetLastError();
 }
 
-// B11 on the line walks; ptrs as for launch_sdeep_fwd_mxu, n >= 0.  The steps
-// alternate d, s from d (1, 2 or 4 of them); a window line a thread.
+// B11 on the line walks.  ptrs: ll2 scratch, hl2, lh2, hh2, hl1, lh1, hh1,
+// then per deep level (fine first) hl, lh, hh, ll; n >= 0; info[0..1] <-
+// grid, resident blocks.  The steps alternate d, s from d (1, 2 or 4 of
+// them); a window line a thread.
 template <typename T>
 int launch_sdeep_fwd_lines(const T* x, void* const* ptrs, int n, int h, int w, int ty,
                            int tx, int tile, int* info, const LiftParams* P,
@@ -741,9 +662,11 @@ int launch_sdeep_fwd_lines(const T* x, void* const* ptrs, int n, int h, int w, i
     });
 }
 
-// B12 on the line walks; ptrs as for launch_sdeep_inv_mxu, n >= 0.  The steps
-// (already reversed and negated) alternate s, d from s (2 or 4 of them), or
-// are one d step; ``out`` 16-byte aligned (16-byte stores).
+// B12 on the line walks.  ptrs: LL_J, then per deep level (coarse first)
+// hl, lh, hh, reconstruction (the last one is the LL2 scratch), then hl2,
+// lh2, hh2, hl1, lh1, hh1; n >= 0.  The steps (already reversed and
+// negated) alternate s, d from s (2 or 4 of them), or are one d step;
+// ``out`` 16-byte aligned (16-byte stores).
 template <typename T>
 int launch_sdeep_inv_lines(T* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
                            int tile, int* info, const LiftParams* P, cudaStream_t stream) {
@@ -765,6 +688,70 @@ int launch_sdeep_inv_lines(T* out, void* const* ptrs, int n, int h, int w, int t
         return launch_lines(sdeep_inv_lines<T, decltype(st)::value, decltype(nst)::value,
                                             decltype(sym)::value>,
                             smem, h, w, ty, tx, most, info, P, stream, &b, &d);
+    });
+}
+
+// The shared memory of the banded strips: the forward's signal window and
+// LL1 window, the inverse's stage, on banded::stride's rows.
+size_t mxu_fwd_smem(int ty, int tx) {
+    return sizeof(float)
+           * ((size_t)(ty + 2 * TOP2) * banded::stride(tx + 2 * tiles::HALO2)
+              + (size_t)(ty / 2 + 8) * banded::stride(tx / 2 + 8));
+}
+size_t mxu_inv_smem(int ty, int tx) {
+    return sizeof(float)
+           * ((size_t)(ty / 2 + 2 * tiles::IH2) * banded::stride(tx / 2 + 2 * tiles::IH2)
+              + (size_t)(ty + 2 * tiles::IH1) * banded::stride(tx + 2 * tiles::IH1));
+}
+
+// B11 (n >= 1) or B8 (n == 0) with the banded body; ptrs as for
+// launch_sdeep_fwd_lines.  Every window fits a pass (<= 256 samples).
+int launch_sdeep_fwd_mxu(const float* x, void* const* ptrs, int n, int h, int w, int ty,
+                         int tx, int tile, int* info, const LiftParams* P,
+                         const banded::MxuMats* M, cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (s % 2 == 0)) return (int)cudaErrorInvalidValue;
+    if (n < 0 || n > deep::MAX_DEEP || ty + 2 * TOP2 > banded::NT * banded::MAX_TILES
+        || tx + 2 * tiles::HALO2 > banded::NT * banded::MAX_TILES)
+        return (int)cudaErrorInvalidValue;
+    float* const* p = reinterpret_cast<float* const*>(ptrs);
+    FwdBands<float> b{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+    void* dp[4 * deep::MAX_DEEP + 1] = {ptrs[0]};
+    std::copy(ptrs + 7, ptrs + 7 + 4 * n, dp + 1);
+    deep::Deep<float> d;
+    size_t dsmem = 0;
+    int most = 0, sms = 0;
+    const int err = deep::plan(d, dp, n, h / 4, w / 4, tile, false, &dsmem, &most, &sms);
+    if (err) return err;
+    const size_t smem = std::max(mxu_fwd_smem(ty, tx), dsmem);
+    return dispatch<float>(0, P, [&](auto, auto nst, auto sym) {
+        return launch_lines(sdeep_fwd_mxu<decltype(nst)::value, decltype(sym)::value>, smem, h,
+                            w, ty, tx, most, info, P, stream, &x, &b, &d, M);
+    });
+}
+
+// B12 (n >= 1) or B10 (n == 0) with the banded body; ptrs as for
+// launch_sdeep_inv_lines.
+int launch_sdeep_inv_mxu(float* out, void* const* ptrs, int n, int h, int w, int ty, int tx,
+                         int tile, int* info, const LiftParams* P, const banded::MxuMats* M,
+                         cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (P->n == 1 || s % 2 == 1)) return (int)cudaErrorInvalidValue;
+    if (n < 0 || n > deep::MAX_DEEP || std::max(ty, tx) + 2 * tiles::IH1 > THREADS
+        || reinterpret_cast<uintptr_t>(out) % 16)
+        return (int)cudaErrorInvalidValue;
+    float* const* p = reinterpret_cast<float* const*>(ptrs);
+    float* const* s = p + 1 + 4 * n;
+    InvBands<float> b{p[4 * n], s[0], s[1], s[2], s[3], s[4], s[5], out};
+    deep::Deep<float> d;
+    size_t dsmem = 0;
+    int most = 0, sms = 0;
+    const int err = deep::plan(d, ptrs, n, h / 4, w / 4, tile, true, &dsmem, &most, &sms);
+    if (err) return err;
+    const size_t smem = std::max(mxu_inv_smem(ty, tx), dsmem);
+    return dispatch<float>(0, P, [&](auto, auto nst, auto sym) {
+        return launch_lines(sdeep_inv_mxu<decltype(nst)::value, decltype(sym)::value>, smem, h,
+                            w, ty, tx, most, info, P, stream, &b, &d, M);
     });
 }
 
@@ -799,18 +786,15 @@ int launch_sdeep_inv_lines(T* out, void* const* ptrs, int n, int h, int w, int t
     extern "C" int dwt_sfwd2_##SUF(const T* x, T* ll2, T* hl2, T* lh2, T* hh2,      \
                                    T* hl1, T* lh1, T* hh1, int h, int w, int ty,   \
                                    int tx, const LiftParams* P, void* stream) {    \
-        return launch_sfwd2<T, false>(x, FwdBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, \
-                                                     hh1},                         \
-                                      h, w, ty, tx, P, &NO_MATS,                   \
-                                      (cudaStream_t)stream);                       \
+        return launch_sfwd2<T>(x, FwdBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1}, h, \
+                               w, ty, tx, P, (cudaStream_t)stream);                \
     }                                                                              \
     extern "C" int dwt_sinv2_##SUF(const T* ll2, const T* hl2, const T* lh2,        \
                                    const T* hh2, const T* hl1, const T* lh1,       \
                                    const T* hh1, T* out, int h, int w, int ty,     \
                                    int tx, const LiftParams* P, void* stream) {    \
-        return launch_sinv2<T, false>(                                             \
-            InvBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, h, w, ty, tx, P,  \
-            &NO_MATS, (cudaStream_t)stream);                                       \
+        return launch_sinv2<T>(InvBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, \
+                               h, w, ty, tx, P, (cudaStream_t)stream);             \
     }                                                                              \
     extern "C" int dwt_sdeep_fwd_##SUF(const T* x, void* const* ptrs, int n, int h, \
                                        int w, int ty, int tx, int tile, int* info, \
@@ -830,34 +814,38 @@ LIBDWT_STREAMED(i32, int)
 LIBDWT_STREAMED(f64, double)
 
 // The banded body (B13), float32 only: the same arguments, then the
-// matrices (ops/banded.py kernel_mats).
+// matrices (ops/banded.py kernel_mats).  B8/B10 are B11/B12's kernels with
+// no deep level.
 extern "C" int dwt_sfwd2_mxu_f32(const float* x, float* ll2, float* hl2, float* lh2,
                                  float* hh2, float* hl1, float* lh1, float* hh1, int h,
                                  int w, int ty, int tx, const LiftParams* P,
                                  const banded::MxuMats* M, void* stream) {
-    return launch_sfwd2<float, true>(x, FwdBands<float>{ll2, hl2, lh2, hh2, hl1, lh1, hh1},
-                                     h, w, ty, tx, P, M, (cudaStream_t)stream);
+    void* ptrs[7] = {ll2, hl2, lh2, hh2, hl1, lh1, hh1};
+    int info[2];
+    return launch_sdeep_fwd_mxu(x, ptrs, 0, h, w, ty, tx, deep::MIN_TILE, info, P, M,
+                                (cudaStream_t)stream);
 }
 extern "C" int dwt_sinv2_mxu_f32(const float* ll2, const float* hl2, const float* lh2,
                                  const float* hh2, const float* hl1, const float* lh1,
                                  const float* hh1, float* out, int h, int w, int ty, int tx,
                                  const LiftParams* P, const banded::MxuMats* M,
                                  void* stream) {
-    return launch_sinv2<float, true>(
-        InvBands<float>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, h, w, ty, tx, P, M,
-        (cudaStream_t)stream);
+    const void* ptrs[7] = {ll2, hl2, lh2, hh2, hl1, lh1, hh1};
+    int info[2];
+    return launch_sdeep_inv_mxu(out, const_cast<void* const*>(ptrs), 0, h, w, ty, tx,
+                                deep::MIN_TILE, info, P, M, (cudaStream_t)stream);
 }
 extern "C" int dwt_sdeep_fwd_mxu_f32(const float* x, void* const* ptrs, int n, int h,
                                      int w, int ty, int tx, int tile, int* info,
                                      const LiftParams* P, const banded::MxuMats* M,
                                      void* stream) {
-    return launch_sdeep_fwd_mxu<float>(x, ptrs, n, h, w, ty, tx, tile, info, P, M,
-                                       (cudaStream_t)stream);
+    return launch_sdeep_fwd_mxu(x, ptrs, n, h, w, ty, tx, tile, info, P, M,
+                                (cudaStream_t)stream);
 }
 extern "C" int dwt_sdeep_inv_mxu_f32(float* out, void* const* ptrs, int n, int h, int w,
                                      int ty, int tx, int tile, int* info,
                                      const LiftParams* P, const banded::MxuMats* M,
                                      void* stream) {
-    return launch_sdeep_inv_mxu<float>(out, ptrs, n, h, w, ty, tx, tile, info, P, M,
-                                       (cudaStream_t)stream);
+    return launch_sdeep_inv_mxu(out, ptrs, n, h, w, ty, tx, tile, info, P, M,
+                                (cudaStream_t)stream);
 }

@@ -28,11 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _MAX_STEPS = 4
-#: most 16-row blocks of one banded pass matrix (windows of <= 256
-#: samples), and the bf16 padding of each shared-memory canvas row:
-#: ``MAX_BLOCKS`` and ``PAD`` in csrc/banded.cuh.
-MXU_MAX_BLOCKS = 16
-MXU_ROW_PAD = 8
+#: output positions of one tile of the banded body (its mma N) and the most
+#: tiles of one pass matrix (windows of <= 256 samples): ``NT`` and
+#: ``MAX_TILES`` in csrc/banded.cuh.
+MXU_TILE = 8
+MXU_MAX_TILES = 32
 
 
 class LiftParams(ctypes.Structure):
@@ -62,26 +62,22 @@ class LiftParams(ctypes.Structure):
 
 class BandMat(ctypes.Structure):
     """Mirror of ``struct BandMat`` in csrc/banded.cuh: one banded pass
-    matrix (window length, contraction window, blocks, canvases, offset of
-    its canvases in the shared copy, and per block its canvas and k0)."""
+    matrix (window length, tiles of MXU_TILE positions, and the index of
+    its first tile's fragments)."""
     _fields_ = [
         ("n", ctypes.c_int),
-        ("kw", ctypes.c_int),
-        ("nblk", ctypes.c_int),
-        ("ncanvas", ctypes.c_int),
+        ("ntiles", ctypes.c_int),
         ("off", ctypes.c_int),
-        ("canvas", ctypes.c_ubyte * MXU_MAX_BLOCKS),
-        ("k0", ctypes.c_short * MXU_MAX_BLOCKS),
     ]
 
 
 class MxuMats(ctypes.Structure):
     """Mirror of ``struct MxuMats`` in csrc/banded.cuh: the four pass
-    matrices of a strip kernel with the banded body, their bf16 canvases
-    on the card laid out as the kernel copies them to shared memory."""
+    matrices of a strip kernel with the banded body and their fragments on
+    the card (32 lanes x 8 bf16 a tile)."""
     _fields_ = [
-        ("data", ctypes.c_void_p),
-        ("elems", ctypes.c_int),
+        ("frags", ctypes.c_void_p),
+        ("tiles", ctypes.c_int),
         ("m", BandMat * 4),
     ]
 

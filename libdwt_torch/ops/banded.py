@@ -19,11 +19,11 @@ frame), above the 2e-5 the kernels are held to against their plain
 versions.  With the exact split a pass is a continuous function of its
 input and the two orders differ by 9.5e-7 (``tools/mxu_split_divergence.py``).
 
-The CUDA body is ``csrc/banded.cuh``, instantiated in the four streamed
-strip kernels B8/B10/B11/B12 (``csrc/streamed.cu``, ``MXU = true``).  Their
-tile loads apply the whole-point border mirror through the source index, so
-every window already holds mirrored data and one matrix per (axis, level,
-direction, wavelet, window length) serves every tile:
+The CUDA body is ``csrc/banded.cuh``, run by the banded strip kernels of
+B8/B10/B11/B12 (``csrc/streamed.cu`` ``sdeep_fwd_mxu``/``sdeep_inv_mxu``).
+Their strip loads apply the whole-point border mirror through the source
+index, so every window already holds mirrored data and one matrix per
+(axis, level, direction, wavelet, window length) serves every strip:
 ``lift_matrix(n, edges=(False, False))``.  The window-edge positions it
 gets wrong (dropped neighbours) are the halo the kernels discard, as the
 polyphase body's stale edges are.  The forward applies the column pass,
@@ -37,12 +37,16 @@ Mosaic workarounds (its dot-emission modes, lane panels, 128-row padding
 and 480-row strip preference) and its per-strip mirror-fill matrices.
 Nothing here reads an environment variable.
 
-Blocking (:func:`banded_blocks`): 16 output rows per block (one
-``mma.m16n8k16`` row tile), each with a 16-aligned contraction window of
-:data:`KWIN` columns that covers its band; identical blocks (every interior
-block of a window) share one canvas.  The plain body
-(:func:`apply_packed_plain`) multiplies by the dense matrix rebuilt from
-those canvases, so it checks the blocking too.
+Blocking (:func:`banded_blocks`): 16 output rows per block, each with a
+16-aligned contraction window of :data:`KWIN` columns that covers its
+band; identical blocks (every interior block of a window) share one
+canvas.  The plain body (:func:`apply_packed_plain`) multiplies by the
+dense matrix rebuilt from those canvases, so it checks the blocking too.
+The CUDA body reads the same matrices cut finer (:func:`kernel_mats`):
+tiles of 8 output positions, each with the 16 samples from 4 before its
+first (every supported wavelet's band is +-4), packed per lane as
+``mma.m16n8k16`` B fragments in the kernel's K and N orders
+(:func:`tile_slots`).
 """
 from __future__ import annotations
 
@@ -56,11 +60,11 @@ import torch
 from libdwt_torch.models.wavelets import get_wavelet
 from libdwt_torch.ops import _cuda
 from libdwt_torch.ops.fused import fused_supported
-from libdwt_torch.ops._cuda import MXU_MAX_BLOCKS as MAX_BLOCKS, MXU_ROW_PAD as ROW_PAD
+from libdwt_torch.ops._cuda import MXU_MAX_TILES as MAX_TILES, MXU_TILE as TILE
 
 __all__ = ["mxu_supported", "lift_matrix", "banded_blocks", "split_bf16",
            "split_data", "pass_matrix", "apply_packed_plain", "analysis2d_packed",
-           "synthesis2d_packed", "kernel_mats", "BLOCK", "KWIN"]
+           "synthesis2d_packed", "kernel_mats", "tile_slots", "BLOCK", "KWIN"]
 
 #: output rows per block: the M (or N) tile of one tensor-core product.
 BLOCK = 16
@@ -288,43 +292,83 @@ def pass_lengths(inverse: bool, ty: int, tx: int) -> Tuple[int, int, int, int]:
     and the (ty/2 + 8) x (tx/2 + 8) LL1 window; inverse (level-2 rows,
     level-2 columns, level-1 rows, level-1 columns) over the
     (ty/2 + 16) x (tx/2 + 16) and (ty + 8) x (tx + 8) windows
-    (csrc/tiles.cuh)."""
+    (csrc/streamed.cu)."""
     if inverse:
         return tx // 2 + 16, ty // 2 + 16, tx + 8, ty + 8
     return ty + 32, tx + 24, ty // 2 + 8, tx // 2 + 8
+
+
+def pass_columns(inverse: bool) -> Tuple[bool, bool, bool, bool]:
+    """Which of the four passes run along columns (the order of
+    :func:`pass_lengths`)."""
+    return (False, True, False, True) if inverse else (True, False, True, False)
+
+
+def tile_slots(cols: bool) -> np.ndarray:
+    """The sample of its 16-sample window that each K slot of the CUDA
+    body's A fragment holds (slots 0-7 the lower half, 8-15 the upper);
+    slot s < 8 is also the output position of N slot s.  The fragment
+    gives lane t the slots 2t and 2t + 1 of each half: a row pass reads
+    them as the sample pair 2t, 2t + 1; a column pass as the samples t and
+    t + 4 (four consecutive window rows over the four lanes: no bank
+    conflicts at a row stride of 8 mod 16 words)."""
+    half = np.array([s // 2 + 4 * (s % 2) if cols else s for s in range(8)])
+    return np.concatenate([half, 8 + half])
+
+
+def _tile_fragments(hi: np.ndarray, lo: np.ndarray, cols: bool) -> np.ndarray:
+    """(32, 8) float32 per lane of one tile's (8 positions x 16 samples,
+    natural order) hi and lo matrices: the m16n8k16 B fragment registers
+    (Whi b0, Whi b1, Wlo b0, Wlo b1), each two bf16 values, low half
+    first.  Lane l = 4g + t holds B column g (output position slots[g])
+    at K slots 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1)."""
+    slots = tile_slots(cols)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    ks = slots[np.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], 1)]  # (32, 4)
+    rows = slots[g][:, None]
+    return np.concatenate([hi[rows, ks], lo[rows, ks]], 1)
 
 
 _kernel_cache: dict = {}
 
 
 def kernel_mats(wavelet, inverse: bool, ty: int, tx: int, device):
-    """The :class:`MxuMats` of a strip kernel (built on the host in
-    float64, split, uploaded once per wavelet, direction, strip and card;
-    cached).  Each canvas row is padded by ROW_PAD zeros; the whole block
-    is padded to 8 elements for 16-byte copies."""
+    """The :class:`MxuMats` of a strip kernel (built on the host from the
+    plain version's matrices, packed, uploaded once per wavelet, direction,
+    strip and card; cached): per pass, its tiles of 8 output positions,
+    each with its window of 16 samples from 4 before the tile's first, as
+    32 lanes x 8 bf16 of fragments (:func:`_tile_fragments`).  Raises
+    ``ValueError`` where a window is longer than 256 samples or a band
+    leaves its tile's window."""
     name = get_wavelet(wavelet).name
     device = torch.device(device)
     key = (name, inverse, ty, tx, str(device))
     if key not in _kernel_cache:
         mats = _cuda.MxuMats()
-        parts, off = [], 0
-        for i, n in enumerate(pass_lengths(inverse, ty, tx)):
-            pm = pass_matrix(n, name, inverse)
-            if len(pm.metas) > MAX_BLOCKS:
-                raise ValueError(f"banded body: a {n}-sample window needs "
-                                 f"{len(pm.metas)} blocks (at most {MAX_BLOCKS})")
+        frags, off = [], 0
+        for i, (n, cols) in enumerate(zip(pass_lengths(inverse, ty, tx),
+                                          pass_columns(inverse))):
+            nt = -(-n // TILE)
+            if nt > MAX_TILES:
+                raise ValueError(f"banded body: a {n}-sample window needs {nt} tiles "
+                                 f"(at most {MAX_TILES})")
+            # the dense hi and lo matrices, 4 zero columns before and 12 after
+            dense = [np.zeros((nt * TILE, n + 16), np.float32) for _ in range(2)]
+            for d, part in zip(dense, pass_matrix(n, name, inverse).dense()):
+                d[:n, 4:4 + n] = part.numpy()
+            for m in range(nt):
+                rows = slice(m * TILE, (m + 1) * TILE)
+                hi, lo = (d[rows, m * TILE: m * TILE + 16] for d in dense)
+                if any(np.count_nonzero(d[rows]) != np.count_nonzero(w)
+                       for d, w in zip(dense, (hi, lo))):
+                    raise ValueError(f"banded body: the band of a {n}-sample pass "
+                                     f"leaves tile {m}'s 16-sample window")
+                frags.append(_tile_fragments(hi, lo, cols))
             bm = mats.m[i]
-            bm.n, bm.kw, bm.nblk, bm.ncanvas, bm.off = (
-                n, pm.kw, len(pm.metas), pm.hi.shape[0], off)
-            for b, (idx, k0) in enumerate(pm.metas):
-                bm.canvas[b], bm.k0[b] = idx, k0
-            for part in (pm.hi, pm.lo):
-                padded = torch.nn.functional.pad(part.float(), (0, ROW_PAD))
-                parts.append(padded.reshape(-1))
-                off += padded.numel()
-        flat = torch.cat(parts)
-        flat = torch.nn.functional.pad(flat, (0, -flat.numel() % 8))
-        buf = flat.to(torch.bfloat16).to(device)
-        mats.data, mats.elems = buf.data_ptr(), buf.numel()
-        _kernel_cache[key] = (mats, buf)  # buf keeps the canvases alive
+            bm.n, bm.ntiles, bm.off = n, nt, off
+            off += nt
+        buf = torch.from_numpy(np.stack(frags)).to(torch.bfloat16).to(device)
+        mats.frags, mats.tiles = buf.data_ptr(), off
+        _kernel_cache[key] = (mats, buf)  # buf keeps the fragments alive
     return _kernel_cache[key][0]

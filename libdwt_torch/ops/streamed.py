@@ -71,6 +71,11 @@ MAX_STRIPS = 32
 #: the CUDA strips: ty rows of a column band of tx samples (both % 4 == 0).
 STRIP_TY = 64
 STRIP_TX = 64
+#: the banded body's (B13) square strip: its (96 + 32) x (96 + 24) level-1
+#: window is 8 blocks of 16 lines each way, one for each warp of a block
+#: (the fastest of the strips from 64 to 128 that
+#: tools/streamed_strip_sweep.py --mxu times).
+MXU_STRIP = 96
 
 KERNELS.update({
     "B7": KernelStat("B7", "streamed_dwt2_level", "libdwt_torch/csrc/streamed.cu",
@@ -104,6 +109,15 @@ def pick_strip(h: int, preferred: int = 256) -> int:
     preferred = max(64, (preferred // 32) * 32)
     ty = min(preferred, ((h // 2) // 32) * 32)
     return max(64, ty)
+
+
+def strip_shape(body: str = "poly", ty: int = 0, tx: int = 0):
+    """The CUDA strip of a two-level streamed kernel: ty x tx where given
+    (non-zero), else its body's default: STRIP_TY x STRIP_TX, or
+    MXU_STRIP square for the banded body."""
+    if body == "mxu":
+        return ty or MXU_STRIP, tx or MXU_STRIP
+    return ty or STRIP_TY, tx or STRIP_TX
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -292,34 +306,33 @@ def _window_lift(wavelet, body: str, inverse: bool):
     return lambda t: fn(t, wavelet)
 
 
-def streamed_dwt2_2level_plain(x, wavelet="cdf97", ty: int = STRIP_TY,
-                               tx: int = STRIP_TX, body: str = "poly"):
-    """Plain version of B8: the strips of ty x tx samples with their
-    TOP2-row and HALO2-column halos; ``body='mxu'`` lifts them with the
-    banded body (B13)."""
+def streamed_dwt2_2level_plain(x, wavelet="cdf97", ty: int = 0, tx: int = 0,
+                               body: str = "poly"):
+    """Plain version of B8: the strips of ty x tx samples (0: the body's
+    default, :func:`strip_shape`) with their TOP2-row and HALO2-column
+    halos; ``body='mxu'`` lifts them with the banded body (B13)."""
+    ty, tx = strip_shape(body, ty, tx)
     return dwt2_2level_tiles(x, wavelet, ty, tx, TOP2, _window_lift(wavelet, body, False))
 
 
-def streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet="cdf97",
-                                ty: int = STRIP_TY, tx: int = STRIP_TX,
-                                body: str = "poly"):
-    """Plain version of B10 (``body`` as in B8's)."""
+def streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet="cdf97", ty: int = 0,
+                                tx: int = 0, body: str = "poly"):
+    """Plain version of B10 (``ty``, ``tx`` and ``body`` as in B8's)."""
+    ty, tx = strip_shape(body, ty, tx)
     return idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty, tx,
                               _window_lift(wavelet, body, True))
 
 
-def streamed_wavedec2_deep_plain(x, wavelet="cdf97", level: int = 3,
-                                 ty: int = STRIP_TY, tx: int = STRIP_TX,
-                                 tile: int = TILE1, body: str = "poly"):
+def streamed_wavedec2_deep_plain(x, wavelet="cdf97", level: int = 3, ty: int = 0,
+                                 tx: int = 0, tile: int = TILE1, body: str = "poly"):
     """Plain version of B11: B8's strips, then the per-level tiles of the
     deep levels on LL2 (polyphase whatever the strips' body)."""
     ll2, b2, b1 = streamed_dwt2_2level_plain(x, wavelet, ty, tx, body)
     return fused_deep_wavedec2_plain(ll2, wavelet, level - 2, tile) + [b2, b1]
 
 
-def streamed_waverec2_deep_plain(coeffs, wavelet="cdf97", ty: int = STRIP_TY,
-                                 tx: int = STRIP_TX, tile: int = TILE1,
-                                 body: str = "poly"):
+def streamed_waverec2_deep_plain(coeffs, wavelet="cdf97", ty: int = 0, tx: int = 0,
+                                 tile: int = TILE1, body: str = "poly"):
     """Plain version of B12: the deep inverse levels up to LL2, then B10's
     strips."""
     ll2 = fused_deep_waverec2_plain(list(coeffs[:-2]), wavelet, tile)
@@ -443,12 +456,13 @@ def streamed_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
 
 
 def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "poly",
-                         ty: int = STRIP_TY, tx: int = STRIP_TX):
+                         ty: int = 0, tx: int = 0):
     """TWO forward levels in one streamed pass (B8).  Returns (LL2, (HL2,
     LH2, HH2), (HL1, LH1, HH1)); needs h, w divisible by 4.  Ragged last
     strips are taken, as the reference takes them in interpret mode.
     ``body='mxu'``: the strips lift with the banded-matmul body (B13;
-    float32, bf16-split, about 1e-5 from the polyphase body)."""
+    float32, bf16-split, about 1e-5 from the polyphase body).  The CUDA
+    strip is ty x tx, or the body's default (:func:`strip_shape`)."""
     wavelet = get_wavelet(wavelet)
     _check_fused_supported(wavelet)
     if x.ndim != 2:
@@ -458,6 +472,7 @@ def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "p
         raise ValueError("needs h, w divisible by 4")
     _check_body(body, wavelet, x.dtype)
     _fwd2_geometry(h, strip_rows)
+    ty, tx = strip_shape(body, ty, tx)
     _check_tile(ty, tx)
     _check_inputs("streamed_dwt2_2level", ty, x)
     _count(("B8",), body)
@@ -472,7 +487,7 @@ def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "p
 
 
 def streamed_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", strip_rows: int = 0,
-                          body: str = "auto", ty: int = STRIP_TY, tx: int = STRIP_TX):
+                          body: str = "auto", ty: int = 0, tx: int = 0):
     """TWO reconstruction levels in one streamed pass (B10), the inverse of
     :func:`streamed_dwt2_2level`."""
     wavelet = get_wavelet(wavelet)
@@ -486,6 +501,7 @@ def streamed_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", strip_rows: int 
     if [tuple(a.shape) for a in ins] != [(h // 4, w // 4)] * 4 + [(h // 2, w // 2)] * 3:
         raise ValueError("band shapes do not chain into a two-level pyramid")
     _inv2_geometry(h, strip_rows, deep=False)
+    ty, tx = strip_shape(body, ty, tx)
     _check_tile(ty, tx)
     _check_inputs("streamed_idwt2_2level", ty, *ins)
     _count(("B10",), body)
@@ -499,8 +515,7 @@ def streamed_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", strip_rows: int 
 
 
 def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int = 0,
-                           body: str = "poly", ty: int = STRIP_TY, tx: int = STRIP_TX,
-                           tile: int = TILE1):
+                           body: str = "poly", ty: int = 0, tx: int = 0, tile: int = TILE1):
     """The ENTIRE pyramid in ONE launch (B11): levels 1-2 stream through
     the strips while LL2 goes to a scratch buffer (in L2), then the
     remaining ``level - 2`` levels run on it after grid-wide syncs.
@@ -522,6 +537,7 @@ def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int =
     n = level - 2
     if min(cy2, cx2) >> (n - 1) <= 2 * HALO:
         raise ValueError("too many levels for this size")
+    ty, tx = strip_shape(body, ty, tx)
     _check_tile(ty, tx)
     _check_inputs("streamed_wavedec2_deep", tile, x)
     _count(("B11",), body)
@@ -545,8 +561,7 @@ def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int =
 
 
 def streamed_waverec2_deep(coeffs, wavelet="cdf97", strip_rows: int = 0,
-                           body: str = "auto", ty: int = STRIP_TY, tx: int = STRIP_TX,
-                           tile: int = TILE1):
+                           body: str = "auto", ty: int = 0, tx: int = 0, tile: int = TILE1):
     """The ENTIRE reconstruction in ONE launch (B12), the inverse of
     :func:`streamed_wavedec2_deep`: the deep levels rebuild LL2 into a
     scratch buffer, then after a grid-wide sync the level-2+1 strips
@@ -588,6 +603,7 @@ def streamed_waverec2_deep(coeffs, wavelet="cdf97", strip_rows: int = 0,
                              f"not match the {th}x{tw} level ({want})")
     body = _resolve_inv_body(body, wavelet, hl1.dtype)
     _inv2_geometry(h, strip_rows, deep=True)
+    ty, tx = strip_shape(body, ty, tx)
     _check_tile(ty, tx)
     flat = [coeffs[0]] + [b for lvl in coeffs[1:] for b in lvl]
     _check_inputs("streamed_waverec2_deep", tile, *flat)

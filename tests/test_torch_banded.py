@@ -140,43 +140,53 @@ def test_blocks_refuse_a_band_wider_than_the_window():
         tb.banded_blocks(m)
 
 
-def _emulate_pass(s, lines, ls, ks, bm, mats):
-    """The index arithmetic of csrc/banded.cuh banded_pass in numpy
-    (float64, exact products): the kernel's view of the matrices."""
-    kp = -(-bm.n // 16) * 16
-    wld, cst = bm.kw + _cuda.MXU_ROW_PAD, 16 * (bm.kw + _cuda.MXU_ROW_PAD)
-    whi = mats[bm.off:]
-    wlo = whi[bm.ncanvas * cst:]
-    x = np.zeros((lines, kp))
-    for line in range(lines):
-        x[line, :bm.n] = s[line * ls + np.arange(bm.n) * ks]
-    out = s.copy()
-    for pos in range(bm.n):
-        blk = pos // 16
-        row = bm.canvas[blk] * cst + (pos % 16) * wld
-        w = whi[row:row + bm.kw] + wlo[row:row + bm.kw]
-        k0 = bm.k0[blk]
-        out[np.arange(lines) * ls + pos * ks] = x[:, k0:k0 + bm.kw] @ w
+def _emulate_pass(x, bm, frags, cols):
+    """The index arithmetic of csrc/banded.cuh pass in numpy (float64,
+    exact products) on ``x`` (lines, n): each tile's lanes apply their B
+    fragments (hi + lo) to the samples their A fragments read, clamped into
+    the window as the kernel clamps them (a row pass reads sample pairs, a
+    column pass single samples)."""
+    n = bm.n
+    slots = tb.tile_slots(cols)
+    out = np.zeros_like(x)
+    for m in range(bm.ntiles):
+        # (32 lanes, 8): Whi at the lane's K slots 2t, 2t + 1, 2t + 8, 2t + 9
+        # (registers b0, b1, each a bf16 pair, low half first), then Wlo
+        f = frags[bm.off + m]
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            q = 8 * m + slots[g]  # the output position of B column g
+            if q >= n:
+                continue
+            for j, k in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+                base = 8 * (m + k // 8) - 4  # the half of K slot k
+                if cols:
+                    p = min(max(base + slots[k % 8], 0), n - 1)
+                else:
+                    p = min(max(base + 2 * t, 0), n - 2) + k % 2
+                out[:, q] += (f[lane, j] + f[lane, 4 + j]) * x[:, p]
     return out
 
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("ty,tx", [(64, 64), (32, 48), (16, 20)])
 def test_kernel_matrices_layout(inverse, ty, tx):
-    """The MxuMats the CUDA body reads (offsets, canvases, k0, row padding)
-    apply each of its four passes."""
+    """The MxuMats the CUDA body reads (offsets, tiles, each lane's B
+    fragments in its pass's K and N orders) apply each of its four
+    passes."""
     mats = tb.kernel_mats("cdf97", inverse, ty, tx, "cpu")
-    buf = tb._kernel_cache[("cdf97", inverse, ty, tx, "cpu")][1].double().numpy()
-    assert mats.elems == buf.size and mats.elems % 8 == 0
+    buf = tb._kernel_cache[("cdf97", inverse, ty, tx, "cpu")][1]
+    assert tuple(buf.shape) == (mats.tiles, 32, 8) and buf.dtype == torch.bfloat16
+    frags = buf.double().numpy()
     rng = np.random.default_rng(ty + tx)
-    for i, n in enumerate(tb.pass_lengths(inverse, ty, tx)):
+    for i, (n, cols) in enumerate(zip(tb.pass_lengths(inverse, ty, tx),
+                                      tb.pass_columns(inverse))):
         bm = mats.m[i]
-        assert (bm.n, bm.nblk) == (n, -(-n // 16))
-        lines = 5
-        s = rng.standard_normal(lines * n)
-        got = _emulate_pass(s, lines, 1, lines, bm, buf)  # column layout
+        assert (bm.n, bm.ntiles) == (n, -(-n // 8))
+        x = rng.standard_normal((5, n))
+        got = _emulate_pass(x, bm, frags, cols)
         whi, wlo = tb.pass_matrix(n, "cdf97", inverse).dense()
-        want = ((whi.double() + wlo.double()).numpy() @ s.reshape(n, lines)).reshape(-1)
+        want = x @ (whi.double() + wlo.double()).numpy().T
         assert np.abs(got - want).max() <= 1e-12
 
 

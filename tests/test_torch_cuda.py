@@ -19,7 +19,8 @@ border-only and mixed tiles, a misaligned input, tiles 32-128; B5 refuses
 a misaligned output), B3 and B6 bit for bit in every dtype (the main
 path's deep tail and the odd 541x1025 chain at 1-4 levels, tiles 4-96,
 one cooperative launch a call; a window too wide is refused); the banded body to 2e-5 (the tensor cores sum in
-another order than the plain version's matrix products).  The shapes cover several tiles with short last tiles,
+another order than the plain version's matrix products), and B11/B12 with it
+equal to B8/B10 with it and the deep tails B3/B6, bit for bit.  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
 extended-rows contracts of the single levels (4 rows fused, 8 streamed),
 2-D and 3-D tiles whose shared memory exceeds the 48 KB default, streamed
@@ -882,15 +883,18 @@ def _close_mxu(got, want):
 
 
 MXU_STREAMED = [
-    # (h, w, wavelet, ty, tx): ragged last strips (260, 204, 200 rows) and
-    # bands (132, 100 columns), short quarter tails; every window is padded
-    # to 16 (88, 40, 72, 44, ... samples); 64x96 strips take 224 KB
+    # (h, w, wavelet, ty, tx): ragged last strips (260, 204, 200, 520 rows)
+    # and bands (132, 100, 392 columns), short quarter tails; windows whose
+    # lengths are not multiples of 8 or 16 (88, 40, 72, 44, ... samples);
+    # 96x96, the banded body's default strip, and 128x128, its largest here
     (260, 128, "cdf97", 64, 64),
     (204, 132, "cdf97", 32, 48),
     (512, 384, "cdf53", 64, 96),
     (256, 256, "haar", 64, 64),
     (200, 100, "interp53", 16, 20),
     (288, 128, "cdf97", 16, 16),
+    (520, 392, "cdf97", 96, 96),
+    (512, 384, "cdf97", 128, 128),
 ]
 
 
@@ -914,6 +918,7 @@ MXU_DEEP = [
     (512, 384, 5, "cdf97", 32, 32),
     (1036, 128, 3, "cdf97", 64, 64),  # short quarter tail
     (260, 256, 3, "cdf53", 64, 48),
+    (520, 392, 4, "cdf97", 96, 96),  # the default strip, ragged
 ]
 
 
@@ -932,6 +937,23 @@ def test_b13_in_b11_b12_matches_plain(cuda_device, h, w, level, wavelet, ty, tx)
     for kid in ("B11", "B12"):  # the banded body's cooperative grid fits the card
         grid, resident = ts.LAST_GRID[kid]
         assert 1 <= grid <= resident
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,level,wavelet,ty,tx", MXU_DEEP)
+def test_b11_b12_mxu_equal_b8_b10_mxu_and_the_deep_tails(cuda_device, h, w, level, wavelet,
+                                                          ty, tx):
+    """B11 and B12 with the banded body run B8/B10's banded strips (the same
+    kernel with no deep level) and B3/B6's deep levels: B11-mxu equals
+    B8-mxu then B3, and B12-mxu B6 then B10-mxu, bit for bit."""
+    x = _img(h, w, torch.float32, cuda_device, seed=23)
+    d = ts.streamed_wavedec2_deep(x, wavelet, level, body="mxu", ty=ty, tx=tx)
+    ll2, b2, b1 = ts.streamed_dwt2_2level(x, wavelet, body="mxu", ty=ty, tx=tx)
+    _close(d, list(tf.fused_deep_wavedec2(ll2, wavelet, level - 2)) + [b2, b1], True)
+    rec = ts.streamed_waverec2_deep(d, wavelet, body="mxu", ty=ty, tx=tx)
+    ll2 = tf.fused_deep_waverec2(d[:-2], wavelet)
+    _close(rec, ts.streamed_idwt2_2level(ll2, d[-2], d[-1], wavelet, body="mxu", ty=ty, tx=tx),
+           True)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 """Compare the machine code (SASS) of the port's CUDA kernels between two
 source trees.
 
-    python3 tools/sass_diff.py OTHER_CSRC [SOURCE ...]
+    python3 tools/sass_diff.py OTHER_CSRC [SOURCE ...] [--kernels REGEX]
 
 Builds each named source of ``libdwt_torch/csrc`` (default: fused2l.cu,
 deep.cu, level.cu) and of OTHER_CSRC (another tree's csrc directory, for
@@ -15,7 +15,10 @@ header changes the mangled name, not the code).  An instruction is its
 text without its address or encoding.  Prints one line per source (kernels
 on each side, how many are identical) and the first differing lines of any
 kernel that differs; exits 1 if a kernel differs or exists on one side
-only.  Needs nvcc and cuobjdump (the CUDA toolkit), no GPU.
+only.  ``--kernels``: only the kernels whose normalized names match the
+regular expression (for example ``sdeep_.*_lines`` in streamed.cu, whose
+other kernels a change may mean to alter).  Needs nvcc and cuobjdump (the
+CUDA toolkit), no GPU.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="the other tree's csrc directory")
     ap.add_argument("sources", nargs="*", default=["fused2l.cu", "deep.cu", "level.cu"])
+    ap.add_argument("--kernels", default="", help="regex on the kernels' names")
     args = ap.parse_args()
     from libdwt_torch.ops import _cuda
 
@@ -90,7 +94,8 @@ def main() -> int:
             raise SystemExit(f"nvcc failed on the {side} {src}:\n{log}")
         sass = subprocess.run([tool("cuobjdump"), "-sass", str(cubin)], text=True,
                               capture_output=True, check=True).stdout
-        listing[side, src] = kernels(sass)
+        listing[side, src] = {k: v for k, v in kernels(sass).items()
+                              if re.search(args.kernels, k)}
     bad = 0
     for src in args.sources:
         a, b = listing["this", src], listing["other", src]

@@ -2,7 +2,7 @@
 """Time the streamed CUDA kernels of the PyTorch port over several CUDA
 strip and tile shapes on one GPU.
 
-    python3 tools/streamed_strip_sweep.py [--reps N]
+    python3 tools/streamed_strip_sweep.py [--reps N] [--mxu]
 
 2-D: B7, B9 (one level), B8, B10 (two levels), B11, B12 (J=5, one launch)
 on a 2144x4096 float32 frame (CDF 9/7, random data from numpy seed 0), per
@@ -11,8 +11,11 @@ float32 volume and its 32x256x256 second level, per core tile (tz, ty, tx).
 Prints one JSON line per shape: each kernel's time in ms (CUDA events,
 chip_smoke.time_ms), the cooperative grid of B11/B12 and its co-resident
 limit, and the largest difference from the default shape's result (0
-expected: the strips and tiles only move the halo).  Exits non-zero
-without a CUDA device.
+expected: the strips and tiles only move the halo).  ``--mxu``: instead,
+B8, B10, B11, B12 with the banded body (B13) on the frame per strip shape:
+CUDA-event and device (CUPTI) times, the cooperative grids, and the
+largest difference from each kernel's plain version at that shape (<= 2e-5
+expected).  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+MXU_SHAPES = [(64, 64), (64, 96), (96, 64), (96, 96), (64, 128), (128, 64), (96, 128),
+              (128, 96)]
 SHAPES = [(64, 64), (32, 64), (16, 64), (32, 128), (16, 128), (64, 32),
           (32, 32), (128, 64), (64, 128)]
 TILES3 = [(16, 16, 16), (16, 16, 32), (8, 16, 32), (8, 8, 32), (8, 16, 16),
@@ -32,6 +37,7 @@ TILES3 = [(16, 16, 16), (16, 16, 32), (8, 16, 32), (8, 8, 32), (8, 16, 16),
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--mxu", action="store_true", help="the banded body's strips")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -45,6 +51,8 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.random((2144, 4096), dtype=np.float32)).cuda()
+    if args.mxu:
+        return mxu_sweep(x, args.reps)
     c1 = S.streamed_dwt2_level(x)
     c2 = S.streamed_dwt2_2level(x)
     c5 = S.streamed_wavedec2_deep(x, "cdf97", 5)
@@ -78,6 +86,33 @@ def main() -> int:
                                      args.reps),
              "max_abs_vs_default": C.max_abs(C.leaves(S3.streamed_dwt3_level(v, tile=tile)),
                                              C.leaves(b1))}
+        print(json.dumps(r), flush=True)
+    return 0
+
+
+def mxu_sweep(x, reps: int) -> int:
+    import chip_smoke as C
+    from libdwt_torch.ops import streamed as S
+
+    c2 = S.streamed_dwt2_2level(x)
+    c5 = S.streamed_wavedec2_deep(x, "cdf97", 5)
+    print(C.nvidia_smi())
+    for ty, tx in MXU_SHAPES:
+        cases = {
+            "B8": (lambda: S.streamed_dwt2_2level(x, body="mxu", ty=ty, tx=tx),
+                   lambda: S.streamed_dwt2_2level_plain(x, "cdf97", ty, tx, body="mxu")),
+            "B10": (lambda: S.streamed_idwt2_2level(*c2, body="mxu", ty=ty, tx=tx),
+                    lambda: S.streamed_idwt2_2level_plain(*c2, "cdf97", ty, tx, body="mxu")),
+            "B11": (lambda: S.streamed_wavedec2_deep(x, "cdf97", 5, body="mxu", ty=ty, tx=tx),
+                    lambda: S.streamed_wavedec2_deep_plain(x, "cdf97", 5, ty, tx, body="mxu")),
+            "B12": (lambda: S.streamed_waverec2_deep(c5, body="mxu", ty=ty, tx=tx),
+                    lambda: S.streamed_waverec2_deep_plain(c5, "cdf97", ty, tx, body="mxu"))}
+        r = {"ty": ty, "tx": tx}
+        for k, (kern, plain) in cases.items():
+            r[k] = C.time_ms(kern, reps)
+            r[k + "_device"] = C.device_ms(kern)
+            r[k + "_max_abs_vs_plain"] = C.max_abs(C.leaves(kern()), C.leaves(plain()))
+        r["grid_B11"], r["grid_B12"] = S.LAST_GRID["B11"], S.LAST_GRID["B12"]
         print(json.dumps(r), flush=True)
     return 0
 
