@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused2l.cu", "deep.cu", "level.cu", "fused3d.cu", "streamed.cu",
            "streamed3d.cu", "remote_halo.cu")
 HEADERS = ("lifting.cuh", "lines.cuh", "onelevel.cuh", "deep.cuh", "fused2l.cuh",
-           "tiles.cuh", "tiles3.cuh", "banded.cuh")
+           "tiles.cuh", "tiles3.cuh", "banded.cuh", "zwalk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -168,6 +168,9 @@ _SIGS = {
     "dwt3_inv": [_P, _P] + [_I] * 6 + [_PP, _P],
     "dwt3_sfwd": [_P, _P] + [_I] * 6 + [_PP, _P],
     "dwt3_sinv": [_P, _P] + [_I] * 6 + [_PP, _P],
+    # inverse (0/1), tz, ty, tx, host int[4] <- (registers, blocks an SM,
+    # shared memory, threads) of the streamed volume kernel a launch runs
+    "dwt3_sinfo": [_I] * 4 + [_PP, _P],
     # image (or bands) in, bands (or image) out, h, w, strip rows, band
     # columns, extension rows (0 or 8)
     "dwt_sfwd1": [_P] * 5 + [_I] * 5 + [_PP, _P],
@@ -199,6 +202,7 @@ _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
               "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu",
               "dwt3_sfwd": "streamed3d.cu", "dwt3_sinv": "streamed3d.cu",
+              "dwt3_sinfo": "streamed3d.cu",
               "dwt_sfwd1": "streamed.cu", "dwt_sinv1": "streamed.cu",
               "dwt_sfwd2": "streamed.cu", "dwt_sinv2": "streamed.cu",
               "dwt_sdeep_fwd": "streamed.cu", "dwt_sdeep_inv": "streamed.cu",

@@ -3,23 +3,27 @@
 
 The JAX kernels stream (z, y) tiles of whole x rows through two VMEM slots
 with explicit async copies.  The CUDA kernels (``csrc/streamed3d.cu``) keep
-the semantics and the double buffering, not the TPU tiling: a persistent
-block walks a column of ty x tx samples down z in tiles of tz slabs and
-loads tile i+1 with cp.async while it lifts tile i, on the tile body of
-the fused volume kernels (``csrc/tiles3.cuh``).
+the semantics and the streaming, not the TPU tiling: a block owns a column
+of ty x tx samples (y, x) with a halo of 4 on y and x, and walks it down z
+two plane pairs a step, the z lifting in registers (``csrc/zwalk.cuh``)
+under line walks of each plane, the next step's planes loading while one
+lifts.  A column is cut into segments at multiples of tz planes, as many
+as fill the card.
 
 The reference's geometry rules are kept exactly (:func:`streamed3d_supported`,
 :func:`_tiles3`, :func:`_pick_tiles` with its 8 MB window budget), so the
 port accepts and refuses the same volumes with the same error classes;
-they do not size the CUDA tile, which is ``tile`` = (tz, ty, tx) core
-samples (default :data:`STILE3`).  ``approach`` ('interleaved' or 'poly')
-is checked and runs the same kernel, as for B14/B15.
+they do not size the CUDA tile, which is ``tile`` = (tz, ty, tx): the
+column's core and the planes its segments are cut at multiples of
+(default :data:`STILE3`, checked by :func:`_check_stile`).  ``approach``
+('interleaved' or 'poly') is checked and runs the same kernel, as for
+B14/B15.
 
 Ported kernels (TPU kernel ids of ROADMAP section B):
   B16 streamed_dwt3_level   -> csrc/streamed3d.cu dwt3_sfwd_*
   B17 streamed_idwt3_level  -> csrc/streamed3d.cu dwt3_sinv_*
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
-its plain version, with the CUDA tile's decomposition, for a CPU tensor.
+its plain version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -27,15 +31,15 @@ from typing import Dict
 
 from libdwt_torch.models.wavelets import get_wavelet
 from libdwt_torch.ops import UnsupportedGeometry
-from libdwt_torch.ops.fused import (KERNELS, KernelStat, _check_fused_supported,
+from libdwt_torch.ops.fused import (KERNELS, KernelStat, _cdiv, _check_fused_supported,
                                     _check_inputs, _empty, _launch, fused_supported)
-from libdwt_torch.ops.fused3d import (BANDS, CZ, HZ, TILE3, _band_ptrs,
-                                      _check_approach, _check_tile, dwt3_level_plain,
+from libdwt_torch.ops.fused3d import (_SMEM_MAX, BANDS, CZ, HALO, HZ, _band_ptrs,
+                                      _check_approach, dwt3_level_plain,
                                       idwt3_level_plain)
 
 __all__ = ["streamed3d_supported", "streamed_dwt3_level", "streamed_idwt3_level",
            "dwt3_level_streamed_plain", "idwt3_level_streamed_plain", "STILE3",
-           "STILE3_F64"]
+           "STILE3_F64", "plan_segments"]
 
 #: the reference's buffer halos (z and y, signal domain; channel domain).
 TZH = 4   # == HZ
@@ -48,19 +52,88 @@ MAX_TILES = 32
 #: input window (whole x rows); they decide which volumes are accepted.
 _HY = 8
 _VMEM_BUDGET_3D = 8 * 1024 * 1024
-#: default CUDA core tile (z, y, x): B14's 16x16x32, two 24x24x40 f32
-#: buffers, 184 KB of shared memory, one block of 512 threads per SM.
-#: 16x16x16 (108 KB, two blocks per SM) times the same at level 1 and 5%
-#: slower at level 2; cores of 8 slabs or rows read too much halo (PERF.md).
-STILE3 = TILE3
-#: the float64 default: x halved, so that its two 24x24x24 buffers of
-#: 8-byte samples (216 KB) fit the 227 KB a block may use (two 24x24x40
-#: would take 369 KB).
-STILE3_F64 = (16, 16, 16)
+#: default CUDA tile (z, y, x): columns of 32 x 32 samples (40 x 40
+#: windows a plane) cut at multiples of 8 planes, among the fastest tiles
+#: swept at both levels of 64x512x512 (PERF.md section 6).
+STILE3 = (8, 32, 32)
+#: the float64 default: a column of 16 x 32, so that a forward thread's
+#: four x samples and an inverse thread's four window positions cover it.
+STILE3_F64 = (8, 16, 32)
+#: csrc/streamed3d.cu: threads a block (forward, inverse), plane pairs a
+#: step, steps in the ring, lines of a pass a thread walks, core x samples
+#: a forward thread walks down z and window positions an inverse thread
+#: walks (both for 4-byte samples; half for float64).
+FWD_THREADS, INV_THREADS, STEP, RING, LINES, ZX, NQ = 128, 256, 2, 2, 2, 8, 8
+
+
+def _stride(n: int) -> int:
+    """csrc/lines.cuh ``lines::stride``: n or n + 2, whichever is 2 mod 4."""
+    return n if n % 4 else n + 2
+
+
+def _stride16(n: int) -> int:
+    """The forward's window rows (csrc/streamed3d.cu ``geometry``): n
+    rounded up to 4 mod 8, so that each row starts 16-byte aligned."""
+    return (-(-n // 4) * 4) | 4
+
+
+def _footprint(tile, itemsize: int, inverse: bool):
+    """(shared memory in bytes, whether every pass line and z chunk has a
+    thread) of the streamed volume kernel on ``tile``: csrc/streamed3d.cu
+    ``geometry`` (the windows; the forward's ring also has its barriers,
+    8 bytes a slot)."""
+    tz, ty, tx = tile
+    v, zx, nq = 16 // itemsize, ZX * 4 // itemsize, NQ * 4 // itemsize
+    ey, ex, planes = ty + 2 * HALO, tx + 2 * HALO, 2 * STEP
+    if not inverse:
+        fits = planes * ey <= LINES * FWD_THREADS and planes * tx <= LINES * FWD_THREADS \
+            and ty * _cdiv(tx, zx) <= FWD_THREADS
+        return itemsize * RING * planes * ey * _stride16(ex) + 8 * RING, fits
+    lead = (v - 2 % v) % v  # csrc/streamed3d.cu Cfg::LEAD
+    rsi = 2 * _cdiv(lead + ex // 2, v) * v
+    fits = planes * ex <= LINES * INV_THREADS and planes * ty <= LINES * INV_THREADS \
+        and ex <= INV_THREADS and _cdiv(ey, INV_THREADS // ex) <= nq
+    return itemsize * (RING * planes * ey * rsi + planes * ey * _stride(ex)), fits
+
+
+def _check_stile(tile, itemsize: int, inverse: bool) -> None:
+    """The CUDA tile: three positive even sizes whose windows fit the
+    kernel's shared memory and threads."""
+    if len(tile) != 3 or any(t <= 0 or t % 2 for t in tile):
+        raise ValueError("tile must be three positive even sizes (z, y, x)")
+    smem, fits = _footprint(tile, itemsize, inverse)
+    what = "inverse" if inverse else "forward"
+    if smem > _SMEM_MAX:
+        raise ValueError(f"the streamed volume {what} on tile {tuple(tile)} needs {smem} "
+                         f"bytes of shared memory, more than {_SMEM_MAX}")
+    if not fits:
+        raise ValueError(f"tile {tuple(tile)} is too wide for the streamed volume "
+                         f"{what}'s threads (csrc/streamed3d.cu geometry)")
+
+
+def plan_segments(shape3, tile, slots: int):
+    """The work items of csrc/streamed3d.cu ``plan`` for ``slots``
+    co-resident blocks: [(x0, y0, first plane, end plane)], column-fastest.
+    Each column is cut at multiples of tz planes into as many segments as
+    fill the slots (at least one a column); a segment also reads the
+    two plane pairs past each of its ends (mirrored at the volume's)."""
+    z, y, x = shape3
+    tz, ty, tx = tile
+    nx, ny, nz = _cdiv(x, tx), _cdiv(y, ty), _cdiv(z, tz)
+    nseg = max(1, min(nz, slots // (nx * ny)))
+    sps = _cdiv(nz, nseg)
+    nseg = _cdiv(nz, sps)
+    items = []
+    for item in range(nx * ny * nseg):
+        col, seg = item % (nx * ny), item // (nx * ny)
+        first, last = seg * sps, min(nz, seg * sps + sps)
+        items.append(((col % nx) * tx, (col // nx) * ty, first * tz,
+                      min(z, last * tz)))
+    return items
 
 
 def _default_tile(tile, itemsize: int):
-    """``tile``, or the default core tile for samples of ``itemsize`` bytes."""
+    """``tile``, or the default tile for samples of ``itemsize`` bytes."""
     if tile is not None:
         return tile
     return STILE3_F64 if itemsize > 4 else STILE3
@@ -139,12 +212,33 @@ def _check_reference_tiles(z, y, x, itemsize, strip_z, strip_y) -> None:
         raise UnsupportedGeometry("geometry outside the streamed kernel's range")
 
 
+def kernel_info(dtype, wavelet="cdf97", inverse: bool = False, tile=None) -> Dict:
+    """Registers, blocks an SM, shared memory and threads of the CUDA
+    kernel that B16 (or, ``inverse``, B17) runs for ``dtype`` and
+    ``wavelet`` on ``tile``: the card's own figures, for measurement."""
+    import ctypes
+
+    import torch
+
+    from libdwt_torch.ops import _cuda
+    from libdwt_torch.ops.fused import _lift_params, _suffix
+
+    wavelet = get_wavelet(wavelet)
+    tile = _default_tile(tile, torch.empty((), dtype=dtype).element_size())
+    out = (ctypes.c_int * 4)()
+    params = _lift_params(wavelet, dtype == torch.int32, inverse)
+    _cuda.check(_cuda.kernel_fn("dwt3_sinfo", _suffix(dtype))(
+        int(inverse), *tile, ctypes.byref(params), out), "dwt3_sinfo")
+    return dict(zip(("registers", "blocks_per_sm", "smem", "threads"), out))
+
+
 # ------------------------------------------------------ plain kernel versions
 
 
 def dwt3_level_streamed_plain(x, wavelet="cdf97", tile=None) -> Dict:
-    """Plain version of B16: the CUDA tiles' decomposition (the fused
-    tile algebra of B14 on ``tile``, default by the dtype's size)."""
+    """Plain version of B16: the fused tile algebra of B14 on tiles of
+    ``tile`` (a segment step of a column; default by the dtype's size),
+    whose values do not depend on the tile."""
     return dwt3_level_plain(x, wavelet, _default_tile(tile, x.element_size()))
 
 
@@ -161,8 +255,9 @@ def streamed_dwt3_level(x, wavelet="cdf97", strip_z: int = 0, strip_y: int = 0,
                         approach: str = "interleaved", tile=None):
     """Single-level streamed 3-D forward DWT (B16) -> dict of 8 subbands
     keyed 'LLL'..'HHH', the values of the separable ``dwt3_level``.
-    ``tile``: the CUDA core tile (default :data:`STILE3`, for float64
-    :data:`STILE3_F64`).
+    ``tile``: the CUDA tile (tz, ty, tx): columns of ty x tx samples, cut
+    into segments at multiples of tz planes (default :data:`STILE3`, for
+    float64 :data:`STILE3_F64`).
 
     Raises :class:`UnsupportedGeometry` for odd dims, a dim <= HZ or a
     tile count outside 2..32, and ValueError for ``strip_y`` not a
@@ -180,7 +275,7 @@ def streamed_dwt3_level(x, wavelet="cdf97", strip_z: int = 0, strip_y: int = 0,
                                   "use the oracle")
     _check_reference_tiles(z, y, w, x.element_size(), strip_z, strip_y)
     tile = _default_tile(tile, x.element_size())
-    _check_tile(tile, x.element_size(), buffers=2)
+    _check_stile(tile, x.element_size(), inverse=False)
     _check_inputs("streamed_dwt3_level", min(tile), x)
     KERNELS["B16"].calls += 1
     if not x.is_cuda:
@@ -216,7 +311,7 @@ def streamed_idwt3_level(bands: Dict, wavelet="cdf97", strip_z: int = 0,
                                   "use the oracle")
     _check_reference_tiles(2 * cz, 2 * cy, 2 * cx, lll.element_size(), strip_z, strip_y)
     tile = _default_tile(tile, lll.element_size())
-    _check_tile(tile, lll.element_size(), buffers=2)
+    _check_stile(tile, lll.element_size(), inverse=True)
     ins = [bands[n] for n in BANDS]
     _check_inputs("streamed_idwt3_level", min(tile), *ins)
     KERNELS["B17"].calls += 1

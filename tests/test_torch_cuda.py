@@ -820,8 +820,8 @@ def test_streamed_extended_rows_kernels_match_plain(cuda_device, h, w, dtype, wa
 
 
 SVOLUME = [
-    ((64, 128, 128), torch.float32, "cdf97", ts3.STILE3),  # 184 KB of shared memory
-    ((32, 64, 64), torch.float32, "cdf97", (16, 16, 16)),  # 108 KB
+    ((64, 128, 128), torch.float32, "cdf97", ts3.STILE3),  # 16 columns of 8 segments
+    ((32, 64, 64), torch.float32, "cdf97", (16, 16, 16)),
     ((30, 70, 66), torch.float32, "cdf97", (8, 16, 16)),   # ragged z, y, x tails
     ((10, 34, 32), torch.float32, "cdf53", (4, 8, 8)),
     ((16, 16, 16), torch.float32, "interp53", (16, 16, 16)),
@@ -829,23 +829,33 @@ SVOLUME = [
     ((30, 70, 66), torch.int32, "cdf53", (8, 16, 16)),
     ((32, 64, 64), torch.int32, "cdf97", ts3.STILE3),
     ((16, 24, 16), torch.int32, "haar", (2, 4, 4)),
+    # z segments cut mid-column with a short last segment (30 = 8 + 8 + 8 +
+    # 6 planes, 38 = 4 x 9 + 2), cross-sections that divide neither Y nor
+    # X, x cores that are not whole 16-byte chunks
+    ((30, 72, 100), torch.float32, "cdf97", (8, 16, 24)),
+    ((38, 50, 66), torch.float32, "cdf97", (4, 24, 40)),
+    ((30, 72, 100), torch.float64, "cdf97", (8, 16, 24)),
+    ((38, 50, 66), torch.float64, "cdf53", (4, 8, 12)),
+    ((30, 72, 100), torch.int32, "cdf97", (8, 16, 24)),
+    ((38, 50, 66), torch.int32, "cdf53", (4, 24, 10)),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,wavelet,tile", SVOLUME)
 def test_b16_b17_kernels_match_plain(cuda_device, shape, dtype, wavelet, tile):
-    x = _vol(shape, dtype, cuda_device, seed=17)
-    exact = dtype == torch.int32
+    """B16/B17 == their plain versions bit for bit in every dtype, one
+    launch a direction."""
+    x = _vol(shape, dtype, cuda_device, seed=17).to(dtype)
     tf.reset_counters()
     b = ts3.streamed_dwt3_level(x, wavelet, tile=tile)
     want = ts3.dwt3_level_streamed_plain(x, wavelet, tile)
-    _close([b[k] for k in t3.BANDS], [want[k] for k in t3.BANDS], exact)
+    _close([b[k] for k in t3.BANDS], [want[k] for k in t3.BANDS], True)
     rec = ts3.streamed_idwt3_level(b, wavelet, tile=tile)
-    _close(rec, ts3.idwt3_level_streamed_plain(b, wavelet, tile), exact)
+    _close(rec, ts3.idwt3_level_streamed_plain(b, wavelet, tile), True)
     torch.cuda.synchronize()
     assert (tf.KERNELS["B16"].launches, tf.KERNELS["B17"].launches) == (1, 1)
-    if exact:
+    if dtype == torch.int32:
         oracle = sep.dwt3_level(x, wavelet)
         _close([b[k] for k in t3.BANDS], [oracle[k] for k in t3.BANDS], True)
         assert torch.equal(rec, x)

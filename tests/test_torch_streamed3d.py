@@ -2,8 +2,11 @@
 
 The port's wrappers run their plain versions on CPU tensors; the JAX
 package's streamed volume kernels run in interpret mode, as its own tests
-run them.  Inputs come from a numpy seed.  float32 is held to 3e-5 per band
-(the two round differently, about 1e-6 apart), integers exactly.  The
+run them.  The port's tile (tz, ty, tx) is a column of ty x tx samples cut
+into segments at multiples of tz planes; its planner and footprint rules
+are checked here, the kernels on the card (tests/test_torch_cuda.py).
+Inputs come from a numpy seed.  float32 is held to 3e-5 per band (the two
+round differently, about 1e-6 apart), integers exactly.  The
 reference's ``strip_z``/``strip_y`` are validated by the port, whose CUDA
 tile is its own: small tiles here, so every volume spans several tiles
 with ragged z, y and x tails.
@@ -76,6 +79,31 @@ def test_b16_b17_match_reference(z, y, x, sz, sy, tile):
     assert {k: s.calls for k, s in tf.KERNELS.items() if s.calls} == {"B16": 1, "B17": 1}
 
 
+# (z, y, x, strip_z, strip_y, port tile, dtype): tiles whose z steps cut a
+# column into several segments with a short last one (30 = 7 x 4 + 2
+# planes) and whose cross-sections divide neither Y nor X
+CUT = [(30, 72, 100, 16, 32, (4, 16, 24), np.float32),
+       (30, 72, 100, 16, 32, (4, 24, 40), np.int32)]
+
+
+@pytest.mark.parametrize("z,y,x,sz,sy,tile,dtype", CUT)
+def test_b16_b17_cut_segments_match_reference(z, y, x, sz, sy, tile, dtype):
+    """On the card these tiles give each column several z segments (the
+    planner at 132 SMs x 4 blocks); the values are the reference's."""
+    columns = -(-y // tile[1]) * -(-x // tile[2])
+    plan = ts3.plan_segments((z, y, x), tile, 132 * 4)
+    assert len(plan) > columns and (plan[-1][3] - plan[-1][2]) % tile[0]
+    v = _rand(z, y, x, dtype, seed=z + x)
+    want = jst3.streamed_dwt3_level(v, "cdf97", strip_z=sz, strip_y=sy, interpret=True)
+    got = ts3.streamed_dwt3_level(torch.from_numpy(v), "cdf97", strip_z=sz, strip_y=sy,
+                                  tile=tile)
+    _close(got, want)
+    rec = ts3.streamed_idwt3_level(_t(want), "cdf97", strip_z=sz, strip_y=sy, tile=tile)
+    _close(rec, jst3.streamed_idwt3_level(want, "cdf97", strip_z=sz, strip_y=sy,
+                                          interpret=True))
+    assert {k: s.calls for k, s in tf.KERNELS.items() if s.calls} == {"B16": 1, "B17": 1}
+
+
 @pytest.mark.parametrize("wavelet", ["cdf53", "cdf97", "haar"])
 def test_b16_b17_int32_match_reference_exactly(wavelet):
     vi = _rand(30, 72, 64, np.int32, seed=4)
@@ -118,6 +146,54 @@ def test_plain_tiles_match_the_fused_tiles():
 
 
 # ------------------------------------------------------------ geometry
+
+
+@pytest.mark.parametrize("shape,tile,slots", [
+    ((64, 512, 512), ts3.STILE3, 132 * 4), ((32, 256, 256), ts3.STILE3, 132 * 4),
+    ((30, 72, 100), (4, 16, 24), 132 * 4), ((38, 50, 66), (4, 24, 10), 132 * 5),
+    ((64, 512, 512), ts3.STILE3, 1), ((6, 6, 6), (8, 32, 32), 528),
+    ((34, 18, 40), (6, 8, 16), 7)])
+def test_planner_covers_every_plane_once(shape, tile, slots):
+    """The Python copy of csrc/streamed3d.cu's planner: at least one
+    segment a column, the segments of a column cover its planes once in
+    whole plane pairs, and each segment's warm-up pairs (two past each end)
+    mirror onto planes of the volume."""
+    z, y, x = shape
+    items = ts3.plan_segments(shape, tile, slots)
+    columns = {(x0, y0) for x0, y0, _, _ in items}
+    assert columns == {(i * tile[2], j * tile[1]) for i in range(-(-x // tile[2]))
+                       for j in range(-(-y // tile[1]))}
+    assert len(items) >= len(columns)
+    for col in columns:
+        segs = sorted((a, b) for x0, y0, a, b in items if (x0, y0) == col)
+        covered = [p for a, b in segs for p in range(a, b)]
+        assert covered == list(range(z))
+        for a, b in segs:
+            assert a < b and a % 2 == 0 and b % 2 == 0 and (a % tile[0] == 0)
+            for p in list(range(a - 4, a)) + list(range(b, b + 4)):
+                q = -p if p < 0 else (2 * z - 2 - p if p >= z else p)
+                assert 0 <= q < z
+    if len(columns) > 1:  # neighbouring items take neighbouring columns
+        assert items[0][2:] == items[1][2:] and items[0][:2] != items[1][:2]
+
+
+def test_tile_footprint():
+    """The default tiles fit both kernels; the rules of csrc/streamed3d.cu
+    geometry() raise ValueError before any launch."""
+    for tile, itemsize in ((ts3.STILE3, 4), (ts3.STILE3_F64, 8)):
+        for inverse in (False, True):
+            smem, fits = ts3._footprint(tile, itemsize, inverse)
+            assert fits and smem <= t3._SMEM_MAX
+    # a ring of 2 steps of 4 planes of 40 rows (44 apart; the inverse's
+    # split rows 48 apart, and 4 planes of the z walk's output, 42 apart);
+    # the forward's barriers, 8 bytes a slot
+    assert ts3._footprint((8, 32, 32), 4, False) == (4 * 2 * 4 * 40 * 44 + 16, True)
+    assert ts3._footprint((8, 32, 32), 4, True) == (4 * (2 * 4 * 40 * 48 + 4 * 40 * 42), True)
+    v = torch.zeros((32, 64, 128))
+    with pytest.raises(ValueError, match="threads"):
+        ts3.streamed_dwt3_level(v, tile=(8, 64, 32))  # 288 window rows a step
+    with pytest.raises(ValueError, match="even"):
+        ts3.streamed_dwt3_level(v, tile=(8, 32, 30 + 1))
 
 
 def test_geometry_gate_matches_reference():
@@ -167,4 +243,4 @@ def test_value_errors_where_reference_raises():
                 lambda: ts3.streamed_idwt3_level(_t(small)),
                 lambda: jst3.streamed_idwt3_level(small, interpret=True))
     with pytest.raises(ValueError, match="shared memory"):
-        ts3.streamed_dwt3_level(torch.from_numpy(v), tile=(16, 32, 32))
+        ts3.streamed_dwt3_level(torch.from_numpy(v), tile=(16, 96, 120))

@@ -3,9 +3,11 @@
 one-level kernels of csrc/level.cu), B2, B5 (the two-level kernels of
 csrc/fused2l.cu), B3, B6 (the deep tails of csrc/deep.cu), B13F, B13I (the
 banded tensor-core body B13 in the two-level strips of csrc/streamed.cu,
-forward as B8-mxu runs it, inverse as B10-mxu).
+forward as B8-mxu runs it, inverse as B10-mxu), and the streamed volume
+kernels B16, B17 (csrc/streamed3d.cu).
 
-    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B13F B13I] [--tile N] [--reps 200] [--seed 0]
+    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B13F B13I B16 B17] [--tile N]
+                                   [--tile3 TZ,TY,TX] [--reps 200] [--seed 0]
 
 For each kernel named, on the main path's shapes (2144x4096 float32 CDF
 9/7: B1 and B2 on the frame, B4 on its one-level bands, B5 on its
@@ -36,6 +38,16 @@ three levels' bands):
    body from its ``git archive`` (run this file from that tree's root).
    Prints the registers of each banded instantiation from the build's
    ``ptxas -v`` log.
+4. B16, B17 (``--tile3``: the CUDA tile, by default the tree's) on the
+   64x512x512 float32 volume and its level-1 bands: a block walks its
+   column segment down z, so each phase's cycles are added up over the
+   walk as for B13.  The present kernels' phases are a step's load wait
+   and the next step's load issue, then its x lift, y lift, and the z step
+   with its stores (forward), or its z step, y lift, x lift and stores
+   (inverse);
+   a parent's 3-D tile kernels (tiles3.cuh) are found as the second
+   variant: a tile's load wait, scale (inverse), the x, y and z lifts,
+   and its stores.
 
 A kernel is data here: its source, kernel function, entry point, phase
 markers (each after or before one line of a function), the variable that
@@ -55,8 +67,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 H, W, WV, DEEP_LEVELS = 2144, 4096, "cdf97", 3
+VOLUME = (64, 512, 512)
 MAX_BLOCKS = 1 << 14
-#: threads a block of every kernel here (THREADS in their sources)
+#: threads a block of the 2-D kernels here (THREADS in their sources); a
+#: spec's "threads" overrides it
 THREADS = 256
 
 KERNELS = {
@@ -190,6 +204,74 @@ B13_VARIANTS = {
 for _kid, _entry in (("B13F", "dwt_sfwd2_mxu"), ("B13I", "dwt_sinv2_mxu")):
     KERNELS[_kid] = {"source": "streamed.cu", "entry": _entry, "tile": 0, "round": None,
                      "acc": True, "tol": 2e-5, "variants": B13_VARIANTS[_kid]}
+
+
+def _tile3_smem(tile):
+    """A parent's streamed volume kernel: two tiles of (tz+8)(ty+8)(tx+8)
+    float32 samples."""
+    return 4 * 2 * (tile[0] + 8) * (tile[1] + 8) * (tile[2] + 8)
+
+
+def _stream3_smem(inverse):
+    def smem(tile):
+        from libdwt_torch.ops import streamed3d as S3
+
+        return S3._footprint(tile, 4, inverse)[0]
+    return smem
+
+
+# B16, B17 by variant: the column walk, then the 3-D tile body of
+# tiles3.cuh that it replaced.
+_WAIT = "__pipeline_wait_prior(RING - 2);"
+_TOP = "fence_async();  // the z step of st - 1 before the copies into its slot"
+_COMMIT = "__pipeline_commit();  // possibly empty: keeps wait_prior exact"
+B3D_VARIANTS = {
+    "B16": (
+        {"kernel": "sfwd3_kernel", "instance": "sfwd3_kernel<float, 4, true>", "threads": 128,
+         "registers": ("sfwd3_kernelIfLi4ELb1E",),
+         "phases": ((_TOP, "z step, stores (step before)", "before"),
+                    (_WAIT, "load wait"),
+                    (_COMMIT, "next load issue"),
+                    ("walk_lines<NST, SYM, false, LINES>(ln, xm, g.EX / 2, P);", "x lift"),
+                    ("walk_lines<NST, SYM, false, LINES>(ln, ym, g.EY / 2, P);", "y lift")),
+         "smem3": _stream3_smem(False)},
+        {"kernel": "sfwd3_kernel", "instance": "sfwd3_kernel<float>", "threads": 512,
+         "registers": ("sfwd3_kernelIfE",), "tol": 3e-5,
+         "regions": (("streamed3d.cu", "sfwd3_kernel", "__global__"),
+                     ("tiles3.cuh", "fwd3_compute", "template <")),
+         "phases": (("__pipeline_wait_prior(1);", "next load issue, wait"),
+                    ("lift_lines(s, ex, ez * ey, 1, 1, ex, P);", "x lift"),
+                    ("lift_lines(s, ey, ez * ex, ex, ex, ey * ex, P);", "y lift"),
+                    ("lift_lines(s, ez, ey * ex, ey * ex, ey * ex, 0, P);", "z lift"),
+                    ("<end>fwd3_compute", "scale, stores", "before")),
+         "smem3": _tile3_smem},
+    ),
+    "B17": (
+        {"kernel": "sinv3_kernel", "instance": "sinv3_kernel<float, 4, true>", "threads": 256,
+         "registers": ("sinv3_kernelIfLi4ELb1E",),
+         "phases": ((_WAIT, "stores (step before)", "before"),
+                    (_WAIT, "load wait"),
+                    (_COMMIT, "next load issue"),
+                    ("if (!emit) continue;", "z step", "before"),
+                    ("walk_lines<NST, SYM, SF, LINES>(ln, ym, g.EY / 2, P);", "y lift"),
+                    ("walk_lines<NST, SYM, SF, LINES>(ln, xm, g.EX / 2, P);", "x lift")),
+         "smem3": _stream3_smem(True)},
+        {"kernel": "sinv3_kernel", "instance": "sinv3_kernel<float>", "threads": 512,
+         "registers": ("sinv3_kernelIfE",), "tol": 3e-5,
+         "regions": (("streamed3d.cu", "sinv3_kernel", "__global__"),
+                     ("tiles3.cuh", "inv3_compute", "template <")),
+         "phases": (("__pipeline_wait_prior(1);", "next load issue, wait"),
+                    ("lift_lines(s, ez, ey * ex, ey * ex, ey * ex, 0, P);", "scale", "before"),
+                    ("lift_lines(s, ez, ey * ex, ey * ex, ey * ex, 0, P);", "z lift"),
+                    ("lift_lines(s, ey, ez * ex, ex, ex, ey * ex, P);", "y lift"),
+                    ("lift_lines(s, ex, ez * ey, 1, 1, ex, P);", "x lift"),
+                    ("<end>inv3_compute", "stores", "before")),
+         "smem3": _tile3_smem},
+    ),
+}
+for _kid, _entry in (("B16", "dwt3_sfwd"), ("B17", "dwt3_sinv")):
+    KERNELS[_kid] = {"source": "streamed3d.cu", "entry": _entry, "tile": 0, "round": None,
+                     "acc": True, "variants": B3D_VARIANTS[_kid]}
 
 
 def window_smem(tile: int) -> int:
@@ -388,7 +470,27 @@ def make_case(kid, tile, seed):
     P = F._lift_params(F.get_wavelet(WV), False, kid in ("B4", "B5", "B6"))
     info = (ctypes.c_int * 2)()
     extra = []
-    if kid in ("B13F", "B13I"):
+    if kid in ("B16", "B17"):
+        from libdwt_torch.ops import streamed3d as S3
+        from libdwt_torch.ops.fused3d import BANDS, _band_ptrs
+
+        tile = tuple(tile) if tile else S3.STILE3
+        P = F._lift_params(F.get_wavelet(WV), False, kid == "B17")
+        v = torch.from_numpy(rng.random(VOLUME, dtype=np.float32)).cuda()
+        bands = S3.dwt3_level_streamed_plain(v, WV, tile)
+        if kid == "B16":
+            ins, outs = [v], [torch.empty_like(bands[n]) for n in BANDS]
+            want = [bands[n] for n in BANDS]
+            keep = _band_ptrs(outs)
+            args = [v.data_ptr(), keep]
+        else:
+            ins, outs = [bands[n].contiguous() for n in BANDS], [torch.empty_like(v)]
+            want = [S3.idwt3_level_streamed_plain(bands, WV, tile)]
+            keep = _band_ptrs(ins)
+            args = [keep, outs[0].data_ptr()]
+        args += [*VOLUME, *tile]
+        blocks = 0  # counted from the stamps
+    elif kid in ("B13F", "B13I"):
         from libdwt_torch.ops import banded
         from libdwt_torch.ops import streamed as S
 
@@ -593,11 +695,16 @@ def report(kid, spec, case, lib, smi):
           f"an SM", flush=True)
     if "instance" in spec:
         occ, regs = ctypes.c_int(), ctypes.c_int()
-        smem = (spec["smem"](case["tile"], case["tile"], case["mats"]) if "smem" in spec
-                else window_smem(case["tile"]))
-        _cuda.check(lib.kp_occupancy(ctypes.byref(occ), THREADS, smem), "kp_occupancy")
+        threads = spec.get("threads", THREADS)
+        if "smem3" in spec:
+            smem = spec["smem3"](case["tile"])
+        elif "smem" in spec:
+            smem = spec["smem"](case["tile"], case["tile"], case["mats"])
+        else:
+            smem = window_smem(case["tile"])
+        _cuda.check(lib.kp_occupancy(ctypes.byref(occ), threads, smem), "kp_occupancy")
         _cuda.check(lib.kp_registers(ctypes.byref(regs)), "kp_registers")
-        print(f"occupancy query: {occ.value} blocks of {THREADS} threads an SM at {smem} "
+        print(f"occupancy query: {occ.value} blocks of {threads} threads an SM at {smem} "
               f"bytes of shared memory (the stamped {spec['instance']}, {regs.value} "
               f"registers)", flush=True)
 
@@ -625,6 +732,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernels", nargs="*", default=["B3", "B6"], choices=sorted(KERNELS))
     ap.add_argument("--tile", type=int, default=0, help="default: the kernel's own")
+    ap.add_argument("--tile3", default="", help="B16/B17: tz,ty,tx (default: the tree's)")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -642,7 +750,10 @@ def main() -> int:
     cases, builds, specs = {}, {}, {}
     for kid in args.kernels:
         specs[kid] = spec = resolve(kid, texts)
-        cases[kid] = make_case(kid, args.tile or spec["tile"], args.seed)
+        tile = args.tile or spec["tile"]
+        if kid in ("B16", "B17"):
+            tile = tuple(int(t) for t in args.tile3.split(",")) if args.tile3 else None
+        cases[kid] = make_case(kid, tile, args.seed)
         builds[kid] = build(kid, spec, cases[kid]["rounds"], texts)
     for kid, case in cases.items():
         spec = specs[kid]

@@ -2,16 +2,19 @@
 """Time the streamed CUDA kernels of the PyTorch port over several CUDA
 strip and tile shapes on one GPU.
 
-    python3 tools/streamed_strip_sweep.py [--reps N] [--mxu]
+    python3 tools/streamed_strip_sweep.py [--reps N] [--mxu | --volume]
 
 2-D: B7, B9 (one level), B8, B10 (two levels), B11, B12 (J=5, one launch)
 on a 2144x4096 float32 frame (CDF 9/7, random data from numpy seed 0), per
 strip shape (ty rows x tx band columns).  3-D: B16, B17 on a 64x512x512
-float32 volume and its 32x256x256 second level, per core tile (tz, ty, tx).
-Prints one JSON line per shape: each kernel's time in ms (CUDA events,
-chip_smoke.time_ms), the cooperative grid of B11/B12 and its co-resident
-limit, and the largest difference from the default shape's result (0
-expected: the strips and tiles only move the halo).  ``--mxu``: instead,
+float32 volume and its 32x256x256 second level, per tile (tz, ty, tx): the
+segment step in planes and the column's core, each tile that fits both
+kernels.  Prints one JSON line per shape: each kernel's time in ms (CUDA
+events, chip_smoke.time_ms; the volume kernels' device time too), the
+cooperative grid of B11/B12 and its co-resident limit, the volume
+kernels' blocks an SM, and the largest difference from the default
+shape's result (0 expected: the strips and tiles only move the halo).
+``--volume``: the 3-D sweep alone.  ``--mxu``: instead,
 B8, B10, B11, B12 with the banded body (B13) on the frame per strip shape:
 CUDA-event and device (CUPTI) times, the cooperative grids, and the
 largest difference from each kernel's plain version at that shape (<= 2e-5
@@ -30,14 +33,15 @@ MXU_SHAPES = [(64, 64), (64, 96), (96, 64), (96, 96), (64, 128), (128, 64), (96,
               (128, 96)]
 SHAPES = [(64, 64), (32, 64), (16, 64), (32, 128), (16, 128), (64, 32),
           (32, 32), (128, 64), (64, 128)]
-TILES3 = [(16, 16, 16), (16, 16, 32), (8, 16, 32), (8, 8, 32), (8, 16, 16),
-          (16, 8, 32), (4, 16, 32)]
+TILES3 = [(8, 32, 32), (4, 32, 32), (16, 32, 32), (32, 32, 32), (8, 16, 32), (8, 16, 64),
+          (8, 32, 16), (8, 24, 32), (8, 16, 48), (8, 8, 64), (16, 16, 64)]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--mxu", action="store_true", help="the banded body's strips")
+    ap.add_argument("--volume", action="store_true", help="the volume kernels alone")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -53,6 +57,9 @@ def main() -> int:
     x = torch.from_numpy(rng.random((2144, 4096), dtype=np.float32)).cuda()
     if args.mxu:
         return mxu_sweep(x, args.reps)
+    if args.volume:
+        print(C.nvidia_smi())
+        return volume_sweep(rng, args.reps)
     c1 = S.streamed_dwt2_level(x)
     c2 = S.streamed_dwt2_2level(x)
     c5 = S.streamed_wavedec2_deep(x, "cdf97", 5)
@@ -73,19 +80,37 @@ def main() -> int:
                       C.leaves(c5)),
             C.max_abs(list(S.streamed_dwt2_level(x, ty=ty, tx=tx)), list(c1)))
         print(json.dumps(r), flush=True)
+    return volume_sweep(rng, args.reps)
+
+
+def volume_sweep(rng, reps: int) -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from libdwt_torch.ops import streamed3d as S3
+
     v = torch.from_numpy(rng.random((64, 512, 512), dtype=np.float32)).cuda()
     b1 = S3.streamed_dwt3_level(v)
     ll = b1["LLL"]
     b2 = S3.streamed_dwt3_level(ll)
+    r1 = S3.streamed_idwt3_level(b1)
     for tile in TILES3:
-        r = {"tile": tile,
-             "B16": C.time_ms(lambda: S3.streamed_dwt3_level(v, tile=tile), args.reps),
-             "B17": C.time_ms(lambda: S3.streamed_idwt3_level(b1, tile=tile), args.reps),
-             "B16_level2": C.time_ms(lambda: S3.streamed_dwt3_level(ll, tile=tile), args.reps),
-             "B17_level2": C.time_ms(lambda: S3.streamed_idwt3_level(b2, tile=tile),
-                                     args.reps),
-             "max_abs_vs_default": C.max_abs(C.leaves(S3.streamed_dwt3_level(v, tile=tile)),
-                                             C.leaves(b1))}
+        if not all(S3._footprint(tile, 4, inv)[1] for inv in (False, True)):
+            continue
+        runs = {"B16": lambda: S3.streamed_dwt3_level(v, tile=tile),
+                "B17": lambda: S3.streamed_idwt3_level(b1, tile=tile),
+                "B16_level2": lambda: S3.streamed_dwt3_level(ll, tile=tile),
+                "B17_level2": lambda: S3.streamed_idwt3_level(b2, tile=tile)}
+        r = {"tile": tile}
+        for k, fn in runs.items():
+            r[k] = C.time_ms(fn, reps)
+            r[k + "_device"] = C.device_ms(fn)
+        r["blocks_per_sm"] = [S3.kernel_info(torch.float32, inverse=inv, tile=tile)
+                              ["blocks_per_sm"] for inv in (False, True)]
+        r["max_abs_vs_default"] = max(
+            C.max_abs(C.leaves(S3.streamed_dwt3_level(v, tile=tile)), C.leaves(b1)),
+            C.max_abs(S3.streamed_idwt3_level(b1, tile=tile), r1))
         print(json.dumps(r), flush=True)
     return 0
 
