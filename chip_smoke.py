@@ -54,8 +54,10 @@
    version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5; B1-B6, B11, B12, B16 and B17 exactly, bit for bit (B16/B17's
-   registers and blocks an SM are printed), B11 and B12 also
+   <= 3e-5; B1-B6, B11, B12 and B14-B17 exactly, bit for bit (the volume
+   kernels' registers, blocks an SM and shared memory are printed, and
+   the feed B14 took on each volume: 3-D tensor boxes or copies),
+   B11 and B12 also
    equal to B2 then B3 and B6 then B5 on the frame and, launched with no
    deep level, to B2 and B5; B1 also at the odd pyramid's
    2161x4097 and 1081x2049 and the 513x511 gate, B1/B4 with extended
@@ -280,6 +282,18 @@ def profile_path(label: str, run, smi: str) -> None:
         print(f"profile   {us:10.1f} us  x{n:<3d} {key[:90]}")
 
 
+def volume_feed(label: str, shape3, itemsize: int) -> None:
+    """Print the feed of the last B14 launch (a ``shape3`` volume), which
+    must be the one ops/fused3d.py's feed_of names (B15 has one feed, B17's
+    chunk copies)."""
+    from libdwt_torch.ops import fused3d as F3
+
+    got = F3.LAST_FEED["B14"]
+    want = F3.feed_of(shape3, F3._default_tile(None, itemsize), itemsize)
+    print(f"volume feeds {label}: B14 {got}, B15 copies", flush=True)
+    require(got == want, f"{label}: B14 took the feed feed_of names, {want}")
+
+
 #: the single-level kernels on the line walks of csrc/lines.cuh, held to
 #: their plain versions bit for bit (B7/B9 to 3e-5)
 EXACT_LEVELS = ("B1", "B4")
@@ -287,10 +301,10 @@ EXACT_LEVELS = ("B1", "B4")
 #: and deep.cuh's levels), held to their plain versions bit for bit (B8/B10
 #: to 3e-5)
 EXACT_STREAMED = ("B11", "B12")
-#: the streamed volume kernels, a z walk in registers under the line walks
-#: (csrc/zwalk.cuh, lines.cuh), held to their plain versions bit for bit
-#: at both levels (B14/B15 to 3e-5)
-EXACT_VOLUME = ("B16", "B17")
+#: the volume kernels on the column z walk (csrc/volwalk.cuh: a z walk in
+#: registers under the line walks of zwalk.cuh and lines.cuh), held to
+#: their plain versions bit for bit at both levels
+EXACT_VOLUME = ("B14", "B15", "B16", "B17")
 #: the single-level kernel wrappers (B1, B4, B7, B9) that the sharded kernel
 #: bodies and the explicit-'auto' pyramid call
 LEVEL_WRAPPERS = ("fused_dwt2_level", "fused_idwt2_level", "streamed_dwt2_level",
@@ -927,6 +941,7 @@ def main() -> int:
     torch.cuda.synchronize()
     require((F.KERNELS["B14"].launches, F.KERNELS["B15"].launches) == (J3, J3),
             "'auto' on the CUDA volume takes B14 and B15")
+    volume_feed(f"{'x'.join(map(str, VOL))} f32 level {J3}", tuple(s // 2 for s in VOL), 4)
     vi = torch.from_numpy(rng.integers(-255, 256, (32, 64, 64)).astype(np.int32)).to(dev)
     got = F3.fused_dwt3_level(vi, "cdf53")
     require(max_abs(leaves(got), leaves(F3.dwt3_level_plain(vi, "cdf53"))) == 0
@@ -935,6 +950,7 @@ def main() -> int:
     back = F3.fused_idwt3_level(got, "cdf53")
     require(max_abs(back, F3.idwt3_level_plain(got, "cdf53")) == 0 and max_abs(back, vi) == 0,
             "int32 cdf53 32x64x64 B15 inverse == plain == input")
+    volume_feed("32x64x64 int32", (32, 64, 64), 4)
 
     # ---- the streamed path: wavedec2/waverec2 impl='streamed' at 2144x4096,
     # J=5 (one launch each: B11, B12) and J=2 (B8, B10)
@@ -1275,15 +1291,19 @@ def main() -> int:
             require(err == 0, f"{k} kernel == plain bit for bit {at}")
         else:
             require(err <= 3e-5, f"{k} kernel vs plain {at} max|diff| {err:.3e} <= 3e-5")
-    # B16/B17's registers and blocks an SM, by dtype at its default tile
+    # the volume kernels' registers, blocks an SM and shared memory, by dtype
+    # at their default tiles (B14/B15 also their feed at 64x512x512)
     for k in EXACT_VOLUME:
         for dt in (torch.float32, torch.float64, torch.int32):
-            info = S3.kernel_info(dt, WV, inverse=k == "B17")
-            tile = S3.STILE3_F64 if dt == torch.float64 else S3.STILE3
+            fused = k in ("B14", "B15")
+            mod = F3 if fused else S3
+            info = mod.kernel_info(dt, WV, inverse=k in ("B15", "B17"))
+            tile = mod._default_tile(None, torch.empty((), dtype=dt).element_size())
+            feed = f", feed {info['feed']}" if fused else ""
             print(f"volume instantiation {k} {str(dt)[6:]} {WV} tile {tile}: "
                   f"{info['registers']} registers, {info['blocks_per_sm']} blocks of "
-                  f"{info['threads']} threads an SM at {info['smem']} bytes of shared memory "
-                  f"[{smi}]", flush=True)
+                  f"{info['threads']} threads an SM at {info['smem']} bytes of shared memory"
+                  f"{feed} [{smi}]", flush=True)
 
     # ---- the sharded path: 2048x4096 f32 CDF 9/7 J=5 on a mesh of eight
     # shards of this card, halo_impl='rdma' (B18 once per forward level and
@@ -1467,6 +1487,7 @@ def main() -> int:
         ("B17", S3.streamed_idwt3_level(w64, WV), S3.idwt3_level_streamed_plain(w64, WV)),
     )
     torch.cuda.synchronize()
+    volume_feed("32x128x128 f64", tuple(v64.shape), 8)
     for k, got64, plain64 in f64_checks:
         require(all(a.dtype == torch.float64 for a in leaves(got64))
                 and max_abs(leaves(got64), leaves(plain64)) == 0,

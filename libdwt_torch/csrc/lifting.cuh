@@ -182,37 +182,3 @@ __device__ __forceinline__ void band_put(T* ll, T* hl, T* lh, T* hh,
         if (x & 1) hl[r * fw + c] = v; else if (ll) ll[r * cw + c] = v;
     }
 }
-
-// All steps of P along ``lines`` lines of ``len`` samples at ``stride``;
-// line l starts at (l / inner) * outer + l % inner.  The one helper
-// serves the x (stride 1), y and z axes of a 3-D tile.  For stride 1
-// neighbouring threads take neighbouring positions of one line, else the
-// same position of neighbouring lines, so a warp reads consecutive words.
-template <typename T>
-__device__ void lift_lines(T* t, int len, int lines, int stride, int inner,
-                           int outer, const LiftParams& P) {
-    for (int s = 0; s < P.n; ++s) {
-        const int start = P.is_d[s] ? 1 : 2;
-        const int count = (len - start) / 2;  // positions start, start+2, .. <= len-2
-        const int total = count * lines;
-        for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-            const int line = stride == 1 ? idx / count : idx % lines;
-            const int k = stride == 1 ? idx % count : idx / lines;
-            T* base = t + (line / inner) * outer + line % inner;
-            const int pos = (start + 2 * k) * stride;
-            base[pos] = lift_one(base[pos], base[pos - stride], base[pos + stride], P, s);
-        }
-        __syncthreads();
-    }
-}
-
-// A 3-D sample at parities (z, y, x) times its per-axis factors, applied
-// z, then y, then x (floats only; the plain version multiplies in the
-// same order).
-template <typename T>
-__device__ __forceinline__ T scale3(T v, int z, int y, int x, const LiftParams& P) {
-    if (!P.has_scale) return v;
-    v = scale_one(v, P, 4 + (z & 1));
-    v = scale_one(v, P, 4 + (y & 1));
-    return scale_one(v, P, 4 + (x & 1));
-}

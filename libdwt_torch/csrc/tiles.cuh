@@ -5,8 +5,6 @@
 // streams strips through two buffers loads strip i+1 with cp.async while it
 // lifts strip i: the loads are cp.async copies of one element (4 or 8
 // bytes) into shared memory that the caller commits and waits for.
-// ``copy_elem``'s ``ASYNC`` (tiles3.cuh's volumes load both ways) picks
-// that or a plain load and store.
 //
 // Tiles start at even global rows and columns (see lifting.cuh).  Reads go
 // through whole-point mirror indices, which equal the reference's signal
@@ -26,13 +24,9 @@ constexpr int HALO2 = 12;  // two levels forward: column halo (signal samples)
 constexpr int IH2 = 8;     // two levels inverse: level-2 halo (LL1 samples)
 constexpr int IH1 = 4;     // two levels inverse: level-1 halo (signal samples)
 
-template <bool ASYNC, typename T>
+template <typename T>
 __device__ __forceinline__ void copy_elem(T* dst, const T* src) {
-    if constexpr (ASYNC) {
-        __pipeline_memcpy_async(dst, src, sizeof(T));
-    } else {
-        *dst = *src;
-    }
+    __pipeline_memcpy_async(dst, src, sizeof(T));
 }
 
 // Address of the interleaved coefficient sample at (in-range) global
@@ -70,11 +64,11 @@ __device__ void fwd1_load(const T* x, T* s, int h, int w, int y0, int x0, int ty
             // signal row y0 - HALO + r is row y0 - HALO + r + EXT of x
             const int q = y0 - HALO + EXT + r;
             if (q < h + 2 * EXT)
-                copy_elem<true>(s + i, x + (size_t)q * w + cx);
+                copy_elem(s + i, x + (size_t)q * w + cx);
             else
                 s[i] = T(0);
         } else {
-            copy_elem<true>(s + i, x + (size_t)mirror_idx(y0 - HALO + r, h) * w + cx);
+            copy_elem(s + i, x + (size_t)mirror_idx(y0 - HALO + r, h) * w + cx);
         }
     }
 }
@@ -110,11 +104,11 @@ __device__ void inv1_load(const T* ll, const T* hl, const T* lh, const T* hh, T*
         if constexpr (EXT > 0) {
             const int q = y0 - HALO + 2 * EXT + r;
             if (q < h + 4 * EXT)
-                copy_elem<true>(s + i, band_ptr(ll, hl, lh, hh, q, cx, w));
+                copy_elem(s + i, band_ptr(ll, hl, lh, hh, q, cx, w));
             else
                 s[i] = T(0);
         } else {
-            copy_elem<true>(s + i, band_ptr(ll, hl, lh, hh, mirror_idx(y0 - HALO + r, h),
+            copy_elem(s + i, band_ptr(ll, hl, lh, hh, mirror_idx(y0 - HALO + r, h),
                                              cx, w));
         }
     }
@@ -155,7 +149,7 @@ __device__ void fwd2_load(const T* x, T* s1, int h, int w, int y0, int x0, int t
     const int EX = tx + 2 * HALO2, n = (ty + 2 * hy) * EX;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const int r = i / EX, c = i % EX;
-        copy_elem<true>(s1 + i, x + (size_t)mirror_idx(y0 - hy + r, h) * w
+        copy_elem(s1 + i, x + (size_t)mirror_idx(y0 - hy + r, h) * w
                                      + mirror_idx(x0 - HALO2 + c, w));
     }
 }
@@ -254,14 +248,14 @@ __device__ void inv2_load(const T* ll2, const T* hl2, const T* lh2, const T* hh2
     const int by = y0 / 2 - IH2, bx = x0 / 2 - IH2;
     for (int i = threadIdx.x; i < n2; i += blockDim.x) {
         const int r = i / E2X, c = i % E2X;
-        copy_elem<true>(s2 + i, band_ptr(ll2, hl2, lh2, hh2, mirror_idx(by + r, N),
+        copy_elem(s2 + i, band_ptr(ll2, hl2, lh2, hh2, mirror_idx(by + r, N),
                                           mirror_idx(bx + c, M), M));
     }
     const int EX = tx + 2 * IH1, n1 = (ty + 2 * IH1) * EX;
     for (int i = threadIdx.x; i < n1; i += blockDim.x) {
         const int py = y0 - IH1 + i / EX, px = x0 - IH1 + i % EX;
         if ((py | px) & 1)
-            copy_elem<true>(s1 + i, band_ptr<T>(nullptr, hl1, lh1, hh1, mirror_idx(py, h),
+            copy_elem(s1 + i, band_ptr<T>(nullptr, hl1, lh1, hh1, mirror_idx(py, h),
                                                  mirror_idx(px, w), w));
     }
 }

@@ -4,12 +4,13 @@
 - separable  — N-dim separable MRA (the port's correctness oracle)
 - fused      — the 2-D tile kernels (CUDA on the card, plain torch on
                the CPU) and the fused pyramid functions
-- fused3d    — the 3-D tile kernels (one fused level, forward and inverse)
+- fused3d    — the fused volume levels (one level, forward and inverse, on
+               the column walk fed by 3-D tensor boxes)
 - streamed   — the streamed strip kernels (one level, two levels per
                pass, and the whole pyramid in one cooperative launch) and
                the streamed pyramid functions
-- streamed3d — the streamed 3-D tile kernels (one level, forward and
-               inverse)
+- streamed3d — the streamed volume levels (one level, forward and
+               inverse, on the same column walk)
 - interleaved — transforms in the interleaved (dwt-simple) layout and the
                conversions to and from the packed one
 - conv       — centred strided convolution with saturated borders,

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused2l.cu", "deep.cu", "level.cu", "fused3d.cu", "streamed.cu",
            "streamed3d.cu", "remote_halo.cu")
 HEADERS = ("lifting.cuh", "lines.cuh", "onelevel.cuh", "deep.cuh", "fused2l.cuh",
-           "tiles.cuh", "tiles3.cuh", "banded.cuh", "zwalk.cuh")
+           "tiles.cuh", "tiles3.cuh", "banded.cuh", "zwalk.cuh", "volwalk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -162,10 +162,14 @@ _SIGS = {
     "dwt_deep_fwd": [_P] + [_I] * 4 + [_P, _PP, _P],
     "dwt_deep_inv": [_P] + [_I] * 4 + [_P, _PP, _P],
     "dwt_inv1": [_P] * 5 + [_I] * 4 + [_PP, _P],
-    # input, host array of the 8 band pointers, Z, Y, X, tz, ty, tx
-    "dwt3_fwd": [_P, _P] + [_I] * 6 + [_PP, _P],
+    # input, host array of the 8 band pointers, Z, Y, X, tz, ty, tx, host
+    # int <- the feed (1: tensor boxes, 0: copies)
+    "dwt3_fwd": [_P, _P] + [_I] * 6 + [_P, _PP, _P],
     # host array of the 8 band pointers, output, Z, Y, X, tz, ty, tx
     "dwt3_inv": [_P, _P] + [_I] * 6 + [_PP, _P],
+    # inverse (0/1), Z, Y, X, tz, ty, tx, host int[5] <- (registers, blocks
+    # an SM, shared memory, threads, feed) of the fused volume kernel
+    "dwt3_finfo": [_I] * 7 + [_PP, _P],
     "dwt3_sfwd": [_P, _P] + [_I] * 6 + [_PP, _P],
     "dwt3_sinv": [_P, _P] + [_I] * 6 + [_PP, _P],
     # inverse (0/1), tz, ty, tx, host int[4] <- (registers, blocks an SM,
@@ -200,7 +204,7 @@ _UNTYPED = ("halo_extend_rows", "halo_enable_peer")
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_deep_fwd": "deep.cu", "dwt_deep_inv": "deep.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
-              "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu",
+              "dwt3_fwd": "fused3d.cu", "dwt3_inv": "fused3d.cu", "dwt3_finfo": "fused3d.cu",
               "dwt3_sfwd": "streamed3d.cu", "dwt3_sinv": "streamed3d.cu",
               "dwt3_sinfo": "streamed3d.cu",
               "dwt_sfwd1": "streamed.cu", "dwt_sinv1": "streamed.cu",

@@ -7,8 +7,9 @@ the semantics and the streaming, not the TPU tiling: a block owns a column
 of ty x tx samples (y, x) with a halo of 4 on y and x, and walks it down z
 two plane pairs a step, the z lifting in registers (``csrc/zwalk.cuh``)
 under line walks of each plane, the next step's planes loading while one
-lifts.  A column is cut into segments at multiples of tz planes, as many
-as fill the card.
+lifts: the column walk of ``csrc/volwalk.cuh``, shared with B14/B15.  A
+column is cut into segments at multiples of tz planes, as many as fill the
+card.
 
 The reference's geometry rules are kept exactly (:func:`streamed3d_supported`,
 :func:`_tiles3`, :func:`_pick_tiles` with its 8 MB window budget), so the
@@ -33,9 +34,9 @@ from libdwt_torch.models.wavelets import get_wavelet
 from libdwt_torch.ops import UnsupportedGeometry
 from libdwt_torch.ops.fused import (KERNELS, KernelStat, _cdiv, _check_fused_supported,
                                     _check_inputs, _empty, _launch, fused_supported)
-from libdwt_torch.ops.fused3d import (_SMEM_MAX, BANDS, CZ, HALO, HZ, _band_ptrs,
-                                      _check_approach, dwt3_level_plain,
-                                      idwt3_level_plain)
+from libdwt_torch.ops.fused3d import (_SMEM_MAX, BANDS, CZ, HZ, TILE3, TILE3_F64, _band_ptrs,
+                                      _check_approach, _default_tile, _footprint,
+                                      dwt3_level_plain, idwt3_level_plain, plan_segments)
 
 __all__ = ["streamed3d_supported", "streamed_dwt3_level", "streamed_idwt3_level",
            "dwt3_level_streamed_plain", "idwt3_level_streamed_plain", "STILE3",
@@ -52,48 +53,9 @@ MAX_TILES = 32
 #: input window (whole x rows); they decide which volumes are accepted.
 _HY = 8
 _VMEM_BUDGET_3D = 8 * 1024 * 1024
-#: default CUDA tile (z, y, x): columns of 32 x 32 samples (40 x 40
-#: windows a plane) cut at multiples of 8 planes, among the fastest tiles
-#: swept at both levels of 64x512x512 (PERF.md section 6).
-STILE3 = (8, 32, 32)
-#: the float64 default: a column of 16 x 32, so that a forward thread's
-#: four x samples and an inverse thread's four window positions cover it.
-STILE3_F64 = (8, 16, 32)
-#: csrc/streamed3d.cu: threads a block (forward, inverse), plane pairs a
-#: step, steps in the ring, lines of a pass a thread walks, core x samples
-#: a forward thread walks down z and window positions an inverse thread
-#: walks (both for 4-byte samples; half for float64).
-FWD_THREADS, INV_THREADS, STEP, RING, LINES, ZX, NQ = 128, 256, 2, 2, 2, 8, 8
-
-
-def _stride(n: int) -> int:
-    """csrc/lines.cuh ``lines::stride``: n or n + 2, whichever is 2 mod 4."""
-    return n if n % 4 else n + 2
-
-
-def _stride16(n: int) -> int:
-    """The forward's window rows (csrc/streamed3d.cu ``geometry``): n
-    rounded up to 4 mod 8, so that each row starts 16-byte aligned."""
-    return (-(-n // 4) * 4) | 4
-
-
-def _footprint(tile, itemsize: int, inverse: bool):
-    """(shared memory in bytes, whether every pass line and z chunk has a
-    thread) of the streamed volume kernel on ``tile``: csrc/streamed3d.cu
-    ``geometry`` (the windows; the forward's ring also has its barriers,
-    8 bytes a slot)."""
-    tz, ty, tx = tile
-    v, zx, nq = 16 // itemsize, ZX * 4 // itemsize, NQ * 4 // itemsize
-    ey, ex, planes = ty + 2 * HALO, tx + 2 * HALO, 2 * STEP
-    if not inverse:
-        fits = planes * ey <= LINES * FWD_THREADS and planes * tx <= LINES * FWD_THREADS \
-            and ty * _cdiv(tx, zx) <= FWD_THREADS
-        return itemsize * RING * planes * ey * _stride16(ex) + 8 * RING, fits
-    lead = (v - 2 % v) % v  # csrc/streamed3d.cu Cfg::LEAD
-    rsi = 2 * _cdiv(lead + ex // 2, v) * v
-    fits = planes * ex <= LINES * INV_THREADS and planes * ty <= LINES * INV_THREADS \
-        and ex <= INV_THREADS and _cdiv(ey, INV_THREADS // ex) <= nq
-    return itemsize * (RING * planes * ey * rsi + planes * ey * _stride(ex)), fits
+#: default CUDA tile (z, y, x) and its float64 form: the column walk's,
+#: shared with B14/B15 (:data:`libdwt_torch.ops.fused3d.TILE3`).
+STILE3, STILE3_F64 = TILE3, TILE3_F64
 
 
 def _check_stile(tile, itemsize: int, inverse: bool) -> None:
@@ -108,35 +70,8 @@ def _check_stile(tile, itemsize: int, inverse: bool) -> None:
                          f"bytes of shared memory, more than {_SMEM_MAX}")
     if not fits:
         raise ValueError(f"tile {tuple(tile)} is too wide for the streamed volume "
-                         f"{what}'s threads (csrc/streamed3d.cu geometry)")
+                         f"{what}'s threads (csrc/volwalk.cuh geometry)")
 
-
-def plan_segments(shape3, tile, slots: int):
-    """The work items of csrc/streamed3d.cu ``plan`` for ``slots``
-    co-resident blocks: [(x0, y0, first plane, end plane)], column-fastest.
-    Each column is cut at multiples of tz planes into as many segments as
-    fill the slots (at least one a column); a segment also reads the
-    two plane pairs past each of its ends (mirrored at the volume's)."""
-    z, y, x = shape3
-    tz, ty, tx = tile
-    nx, ny, nz = _cdiv(x, tx), _cdiv(y, ty), _cdiv(z, tz)
-    nseg = max(1, min(nz, slots // (nx * ny)))
-    sps = _cdiv(nz, nseg)
-    nseg = _cdiv(nz, sps)
-    items = []
-    for item in range(nx * ny * nseg):
-        col, seg = item % (nx * ny), item // (nx * ny)
-        first, last = seg * sps, min(nz, seg * sps + sps)
-        items.append(((col % nx) * tx, (col // nx) * ty, first * tz,
-                      min(z, last * tz)))
-    return items
-
-
-def _default_tile(tile, itemsize: int):
-    """``tile``, or the default tile for samples of ``itemsize`` bytes."""
-    if tile is not None:
-        return tile
-    return STILE3_F64 if itemsize > 4 else STILE3
 
 KERNELS["B16"] = KernelStat("B16", "streamed_dwt3_level",
                             "libdwt_torch/csrc/streamed3d.cu",

@@ -18,7 +18,8 @@ window too wide is refused), B2 and B5 bit for bit in every dtype (main-path fra
 border-only and mixed tiles, a misaligned input, tiles 32-128; B5 refuses
 a misaligned output), B3 and B6 bit for bit in every dtype (the main
 path's deep tail and the odd 541x1025 chain at 1-4 levels, tiles 4-96,
-one cooperative launch a call; a window too wide is refused); the banded body to 2e-5 (the tensor cores sum in
+one cooperative launch a call; a window too wide is refused), the volume levels B14-B17 bit for
+bit in every dtype (B14 on both of its feeds); the banded body to 2e-5 (the tensor cores sum in
 another order than the plain version's matrix products), and B11/B12 with it
 equal to B8/B10 with it and the deep tails B3/B6, bit for bit.  The shapes cover several tiles with short last tiles,
 odd deep-tail sizes, every wavelet ``fused_supported`` accepts, the
@@ -570,34 +571,77 @@ def _vol(shape, dtype, device, seed=0):
 
 
 VOLUME = [
-    ((64, 128, 128), torch.float32, "cdf97", t3.TILE3),  # 92 KB of shared memory
-    ((32, 64, 64), torch.float32, "cdf97", (16, 16, 64)),  # 166 KB
+    ((64, 128, 128), torch.float32, "cdf97", t3.TILE3),  # 16 columns of 8 segments
+    ((32, 64, 64), torch.float32, "cdf97", (16, 16, 64)),
     ((10, 34, 32), torch.float32, "cdf97", (4, 8, 8)),
-    ((6, 6, 6), torch.float32, "cdf53", (2, 2, 2)),
+    ((6, 6, 6), torch.float32, "cdf53", (2, 2, 2)),  # no tensor map: copies
     ((16, 16, 16), torch.float32, "interp53", (16, 16, 16)),
     ((16, 24, 16), torch.float32, "haar", (4, 8, 8)),
     ((8, 24, 48), torch.int32, "cdf53", (4, 8, 16)),
     ((32, 64, 64), torch.int32, "cdf97", t3.TILE3),
+    # ragged y and x tails (X % 4 != 0: copies); z segments cut mid-column
+    # with a short last segment (30 = 8 + 8 + 8 + 6 planes, 38 = 4 x 9 + 2),
+    # cross-sections that divide neither Y nor X
+    ((30, 70, 66), torch.float32, "cdf97", (8, 16, 16)),
+    ((30, 72, 100), torch.float32, "cdf97", (8, 16, 24)),
+    ((38, 50, 66), torch.float32, "cdf97", (4, 24, 40)),
+    ((30, 72, 100), torch.float64, "cdf97", (8, 16, 24)),
+    ((38, 50, 66), torch.float64, "cdf53", (4, 8, 12)),
+    ((30, 72, 100), torch.int32, "cdf97", (8, 16, 24)),
+    ((38, 50, 66), torch.int32, "cdf53", (4, 24, 10)),
+    # x cores that are not whole 16-byte chunks, on aligned rows: a box
+    # would start misaligned at x0 - 4, so copies
+    ((32, 64, 64), torch.int32, "cdf53", (4, 24, 10)),
+    # B14 on boxes; B15's band rows (X / 2 = 34) not 16-byte multiples
+    ((64, 64, 68), torch.float32, "cdf97", t3.TILE3),
+    # B14's window planes not 128-byte multiples (ty = 10): copies
+    ((32, 64, 64), torch.float32, "cdf97", (4, 10, 16)),
+    ((32, 64, 64), torch.float64, "cdf97", t3.TILE3_F64),
+    # B15's band rows start mid-chunk (tx / 2 = 6); B14 boxes from x = -4
+    ((32, 64, 64), torch.float32, "cdf53", (4, 16, 12)),
 ]
+#: B14's feed in some VOLUME cases, by index
+VOLUME_FEEDS = {0: "boxes", 3: "copies", 9: "boxes", 12: "boxes", 15: "copies", 16: "boxes",
+                17: "copies", 18: "boxes", 19: "boxes"}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,wavelet,tile", VOLUME)
 def test_b14_b15_kernels_match_plain(cuda_device, shape, dtype, wavelet, tile):
-    x = _vol(shape, dtype, cuda_device, seed=6)
-    exact = dtype == torch.int32
+    """B14/B15 == their plain versions bit for bit in every dtype, one
+    launch a direction."""
+    x = _vol(shape, dtype, cuda_device, seed=6).to(dtype)
     tf.reset_counters()
     b = t3.fused_dwt3_level(x, wavelet, tile=tile)
     want = t3.dwt3_level_plain(x, wavelet, tile)
-    _close([b[k] for k in t3.BANDS], [want[k] for k in t3.BANDS], exact)
+    _close([b[k] for k in t3.BANDS], [want[k] for k in t3.BANDS], True)
     rec = t3.fused_idwt3_level(b, wavelet, tile=tile)
-    _close(rec, t3.idwt3_level_plain(b, wavelet, tile), exact)
+    _close(rec, t3.idwt3_level_plain(b, wavelet, tile), True)
     torch.cuda.synchronize()
     assert (tf.KERNELS["B14"].launches, tf.KERNELS["B15"].launches) == (1, 1)
-    if exact:
+    if dtype == torch.int32:
         oracle = sep.dwt3_level(x, wavelet)
         _close([b[k] for k in t3.BANDS], [oracle[k] for k in t3.BANDS], True)
         assert torch.equal(rec, x)
+
+
+@pytest.mark.cuda
+def test_b14_b15_feeds(cuda_device):
+    """Each VOLUME case takes the feed that fused3d.feed_of names for B14:
+    tensor boxes where a tensor map serves the volume and tile, else B16's
+    row copies; both feeds occur.  B15 reports B17's chunk copies."""
+    seen = set()
+    for i, (shape, dtype, wavelet, tile) in enumerate(VOLUME):
+        x = _vol(shape, dtype, cuda_device, seed=6).to(dtype)
+        t3.fused_dwt3_level(x, wavelet, tile=tile)
+        got = t3.LAST_FEED["B14"]
+        assert got == t3.feed_of(shape, tile, x.element_size())
+        assert got == VOLUME_FEEDS.get(i, got)
+        assert t3.kernel_info(dtype, wavelet, False, tile, shape)["feed"] == got
+        assert t3.kernel_info(dtype, wavelet, True, tile, shape)["feed"] == "copies"
+        seen.add(got)
+    assert seen == {"boxes", "copies"}
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -120,8 +120,12 @@ def test_unsupported_geometry_inverse():
                                   approach="planar"), "approach"),
     (lambda: t3.fused_dwt3_level(torch.zeros(16, 16, 16), "cdf97", strip_y=24), "strip_y"),
     (lambda: t3.fused_dwt3_level(torch.zeros(16, 16, 16), "cdf97", tile=(4, 8, 5)), "even"),
+    (lambda: t3.fused_dwt3_level(torch.zeros(16, 16, 16, dtype=torch.float64), "cdf97",
+                                 tile=(64, 64, 64)), "shared memory"),
     (lambda: t3.fused_dwt3_level(torch.zeros(16, 16, 16), "cdf97", tile=(64, 64, 64)),
-     "shared memory"),
+     "threads"),
+    (lambda: t3.fused_idwt3_level({k: torch.zeros(8, 8, 8) for k in t3.BANDS}, "cdf97",
+                                  tile=(8, 8, 256)), "threads"),
     (lambda: t3.fused_dwt3_level(torch.zeros(2, 16, 16, 16), "cdf97"), "3-D"),
     (lambda: t3.fused_dwt3_level(torch.zeros(16, 16, 16), "d4"), "asymmetric"),
 ])

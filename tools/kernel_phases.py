@@ -3,10 +3,10 @@
 one-level kernels of csrc/level.cu), B2, B5 (the two-level kernels of
 csrc/fused2l.cu), B3, B6 (the deep tails of csrc/deep.cu), B13F, B13I (the
 banded tensor-core body B13 in the two-level strips of csrc/streamed.cu,
-forward as B8-mxu runs it, inverse as B10-mxu), and the streamed volume
-kernels B16, B17 (csrc/streamed3d.cu).
+forward as B8-mxu runs it, inverse as B10-mxu), and the volume kernels B14,
+B15 (csrc/fused3d.cu) and B16, B17 (csrc/streamed3d.cu).
 
-    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B13F B13I B16 B17] [--tile N]
+    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B13F B13I B14 B15 B16 B17] [--tile N]
                                    [--tile3 TZ,TY,TX] [--reps 200] [--seed 0]
 
 For each kernel named, on the main path's shapes (2144x4096 float32 CDF
@@ -38,16 +38,16 @@ three levels' bands):
    body from its ``git archive`` (run this file from that tree's root).
    Prints the registers of each banded instantiation from the build's
    ``ptxas -v`` log.
-4. B16, B17 (``--tile3``: the CUDA tile, by default the tree's) on the
-   64x512x512 float32 volume and its level-1 bands: a block walks its
-   column segment down z, so each phase's cycles are added up over the
-   walk as for B13.  The present kernels' phases are a step's load wait
-   and the next step's load issue, then its x lift, y lift, and the z step
-   with its stores (forward), or its z step, y lift, x lift and stores
-   (inverse);
-   a parent's 3-D tile kernels (tiles3.cuh) are found as the second
-   variant: a tile's load wait, scale (inverse), the x, y and z lifts,
-   and its stores.
+4. B14, B15, B16, B17 (``--tile3``: the CUDA tile, by default the tree's)
+   on the 64x512x512 float32 volume and its level-1 bands: a block walks
+   its column segment down z (csrc/volwalk.cuh), so each phase's cycles are
+   added up over the walk as for B13.  The phases are a step's load wait
+   (B14: the tensor-box wait and the edge fix-up) and the next step's
+   load issue, then its x lift, y lift, and the z step with its stores
+   (forward), or its z step, y lift, x lift and stores (inverse).  A
+   parent's kernels are found as later variants: B16/B17's walk while it
+   lived in streamed3d.cu, and the 3-D tile bodies of tiles3.cuh that the
+   walk replaced: a tile's load, the x, y and z lifts, and its stores.
 
 A kernel is data here: its source, kernel function, entry point, phase
 markers (each after or before one line of a function), the variable that
@@ -220,13 +220,40 @@ def _stream3_smem(inverse):
     return smem
 
 
-# B16, B17 by variant: the column walk, then the 3-D tile body of
-# tiles3.cuh that it replaced.
+# The column walk of csrc/volwalk.cuh (since the fused and streamed volume
+# kernels share it): forward (B14, B16) phases with each feed's wait (B14 on
+# boxes: the box wait and the edge fix-up) and next issue, and inverse (B15,
+# B17) phases, one feed.
+_WALK_FWD = (("volwalk.cuh", "fwd_walk", "template <"),)
+_WALK_INV = (("volwalk.cuh", "inv_walk", "template <"),)
+_FWAIT = "feed.wait(sg, st, sl, s);"
+_FISSUE = "feed.issue(sg, sn, steps, ring + (sn % RING) * SL, sn % RING);"
+_XF = "walk_lines<NST, SYM, false, LINES>(ln, xm, g.EX / 2, P);"
+_YF = "walk_lines<NST, SYM, false, LINES>(ln, ym, g.EY / 2, P);"
 _WAIT = "__pipeline_wait_prior(RING - 2);"
 _TOP = "fence_async();  // the z step of st - 1 before the copies into its slot"
 _COMMIT = "__pipeline_commit();  // possibly empty: keeps wait_prior exact"
+_INV_PHASES = ((_WAIT, "stores (step before)", "before"),
+               (_WAIT, "load wait"),
+               (_COMMIT, "next load issue"),
+               ("if (!emit) continue;", "z step", "before"),
+               ("walk_lines<NST, SYM, SF, LINES>(ln, ym, g.EY / 2, P);", "y lift"),
+               ("walk_lines<NST, SYM, SF, LINES>(ln, xm, g.EX / 2, P);", "x lift"))
+
+
+def _fwd_walk_phases(wait):
+    return ((_FWAIT, "z step, stores (step before)", "before"), (_FWAIT, wait),
+            (_FISSUE, "next load issue"), (_XF, "x lift"), (_YF, "y lift"))
+
+
+# B16, B17 by variant: the column walk of volwalk.cuh, the same walk in
+# streamed3d.cu before it moved to the header, then the 3-D tile body of
+# tiles3.cuh that it replaced.
 B3D_VARIANTS = {
     "B16": (
+        {"kernel": "sfwd3_kernel", "instance": "sfwd3_kernel<float, 4, true>", "threads": 128,
+         "registers": ("sfwd3_kernelIfLi4ELb1E",), "regions": _WALK_FWD,
+         "phases": _fwd_walk_phases("load wait"), "smem3": _stream3_smem(False)},
         {"kernel": "sfwd3_kernel", "instance": "sfwd3_kernel<float, 4, true>", "threads": 128,
          "registers": ("sfwd3_kernelIfLi4ELb1E",),
          "phases": ((_TOP, "z step, stores (step before)", "before"),
@@ -248,13 +275,10 @@ B3D_VARIANTS = {
     ),
     "B17": (
         {"kernel": "sinv3_kernel", "instance": "sinv3_kernel<float, 4, true>", "threads": 256,
-         "registers": ("sinv3_kernelIfLi4ELb1E",),
-         "phases": ((_WAIT, "stores (step before)", "before"),
-                    (_WAIT, "load wait"),
-                    (_COMMIT, "next load issue"),
-                    ("if (!emit) continue;", "z step", "before"),
-                    ("walk_lines<NST, SYM, SF, LINES>(ln, ym, g.EY / 2, P);", "y lift"),
-                    ("walk_lines<NST, SYM, SF, LINES>(ln, xm, g.EX / 2, P);", "x lift")),
+         "registers": ("sinv3_kernelIfLi4ELb1E",), "regions": _WALK_INV,
+         "phases": _INV_PHASES, "smem3": _stream3_smem(True)},
+        {"kernel": "sinv3_kernel", "instance": "sinv3_kernel<float, 4, true>", "threads": 256,
+         "registers": ("sinv3_kernelIfLi4ELb1E",), "phases": _INV_PHASES,
          "smem3": _stream3_smem(True)},
         {"kernel": "sinv3_kernel", "instance": "sinv3_kernel<float>", "threads": 512,
          "registers": ("sinv3_kernelIfE",), "tol": 3e-5,
@@ -269,8 +293,43 @@ B3D_VARIANTS = {
          "smem3": _tile3_smem},
     ),
 }
-for _kid, _entry in (("B16", "dwt3_sfwd"), ("B17", "dwt3_sinv")):
-    KERNELS[_kid] = {"source": "streamed3d.cu", "entry": _entry, "tile": 0, "round": None,
+# B14, B15 by variant: the column walk (B14 on tensor boxes), then the
+# parent's 3-D tile body (tiles3.cuh), one tile a block.
+B3D_VARIANTS["B14"] = (
+    {"kernel": "fwd3_kernel", "instance": "fwd3_kernel<float, 4, true, true>", "threads": 128,
+     "registers": ("fwd3_kernelIfLi4ELb1ELb1E",), "regions": _WALK_FWD,
+     "phases": _fwd_walk_phases("box wait, edge fix-up"), "smem3": _stream3_smem(False)},
+    {"kernel": "fwd3_kernel", "instance": "fwd3_kernel<float>", "threads": 512,
+     "registers": ("fwd3_kernelIfE",), "tol": 3e-5, "acc": False, "round": None,
+     "regions": (("fused3d.cu", "fwd3_kernel", "__global__"),
+                 ("tiles3.cuh", "fwd3_compute", "template <")),
+     "phases": (("tiles::fwd3_load<false>(x, s, Z, Y, X, z0, y0, x0, tz, ty, tx);", "load"),
+                ("lift_lines(s, ex, ez * ey, 1, 1, ex, P);", "x lift"),
+                ("lift_lines(s, ey, ez * ex, ex, ex, ey * ex, P);", "y lift"),
+                ("lift_lines(s, ez, ey * ex, ey * ex, ey * ex, 0, P);", "z lift"),
+                ("<end>fwd3_compute", "scale, stores", "before")),
+     "smem3": lambda tile: 4 * (tile[0] + 8) * (tile[1] + 8) * (tile[2] + 8)},
+)
+B3D_VARIANTS["B15"] = (
+    {"kernel": "inv3_kernel", "instance": "inv3_kernel<float, 4, true>", "threads": 256,
+     "registers": ("inv3_kernelIfLi4ELb1E",), "regions": _WALK_INV,
+     "phases": _INV_PHASES, "smem3": _stream3_smem(True)},
+    {"kernel": "inv3_kernel", "instance": "inv3_kernel<float>", "threads": 512,
+     "registers": ("inv3_kernelIfE",), "tol": 3e-5, "acc": False, "round": None,
+     "regions": (("fused3d.cu", "inv3_kernel", "__global__"),
+                 ("tiles3.cuh", "inv3_compute", "template <")),
+     "phases": (("tiles::inv3_load<false>(in, s, Z, Y, X, z0, y0, x0, tz, ty, tx, P);",
+                 "load, scale"),
+                ("lift_lines(s, ez, ey * ex, ey * ex, ey * ex, 0, P); // z", "z lift"),
+                ("lift_lines(s, ey, ez * ex, ex, ex, ey * ex, P);     // y", "y lift"),
+                ("lift_lines(s, ex, ez * ey, 1, 1, ex, P);            // x", "x lift"),
+                ("<end>inv3_compute", "stores", "before")),
+     "smem3": lambda tile: 4 * (tile[0] + 8) * (tile[1] + 8) * (tile[2] + 8)},
+)
+for _kid, _src, _entry in (("B16", "streamed3d.cu", "dwt3_sfwd"),
+                           ("B17", "streamed3d.cu", "dwt3_sinv"),
+                           ("B14", "fused3d.cu", "dwt3_fwd"), ("B15", "fused3d.cu", "dwt3_inv")):
+    KERNELS[_kid] = {"source": _src, "entry": _entry, "tile": 0, "round": None,
                      "acc": True, "variants": B3D_VARIANTS[_kid]}
 
 
@@ -397,7 +456,7 @@ def stamped_sources(texts: dict, spec: dict, rounds: int) -> dict:
     prelude = f"""
 #define KP_MAX {MAX_BLOCKS}
 #define KP_SLOTS {nstamp + 3}
-#define KP_ID ((int)(blockIdx.y * gridDim.x + blockIdx.x))
+#define KP_ID ((int)((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x))
 __device__ unsigned long long kp_slots[KP_MAX * KP_SLOTS];
 __device__ __forceinline__ unsigned long long kp_now() {{
     unsigned long long t;
@@ -470,25 +529,33 @@ def make_case(kid, tile, seed):
     P = F._lift_params(F.get_wavelet(WV), False, kid in ("B4", "B5", "B6"))
     info = (ctypes.c_int * 2)()
     extra = []
-    if kid in ("B16", "B17"):
+    if kid in ("B14", "B15", "B16", "B17"):
+        from libdwt_torch.ops import _cuda
+        from libdwt_torch.ops import fused3d as F3
         from libdwt_torch.ops import streamed3d as S3
         from libdwt_torch.ops.fused3d import BANDS, _band_ptrs
 
-        tile = tuple(tile) if tile else S3.STILE3
-        P = F._lift_params(F.get_wavelet(WV), False, kid == "B17")
+        if kid in ("B16", "B17"):
+            tile = tuple(tile) if tile else S3.STILE3
+        else:  # the tree's default (a parent's TILE3 is its 3-D tile)
+            tile = tuple(tile) if tile else F3.TILE3
+        P = F._lift_params(F.get_wavelet(WV), False, kid in ("B15", "B17"))
         v = torch.from_numpy(rng.random(VOLUME, dtype=np.float32)).cuda()
-        bands = S3.dwt3_level_streamed_plain(v, WV, tile)
-        if kid == "B16":
+        bands = F3.dwt3_level_plain(v, WV, tile)
+        if kid in ("B14", "B16"):
             ins, outs = [v], [torch.empty_like(bands[n]) for n in BANDS]
             want = [bands[n] for n in BANDS]
             keep = _band_ptrs(outs)
             args = [v.data_ptr(), keep]
         else:
             ins, outs = [bands[n].contiguous() for n in BANDS], [torch.empty_like(v)]
-            want = [S3.idwt3_level_streamed_plain(bands, WV, tile)]
+            want = [F3.idwt3_level_plain(bands, WV, tile)]
             keep = _band_ptrs(ins)
             args = [keep, outs[0].data_ptr()]
         args += [*VOLUME, *tile]
+        entry = KERNELS[kid]["entry"]
+        if len(_cuda._SIGS[entry]) > 10:  # B14/B15 on the walk report their feed
+            args.append((ctypes.c_int * 1)())
         blocks = 0  # counted from the stamps
     elif kid in ("B13F", "B13I"):
         from libdwt_torch.ops import banded
@@ -732,7 +799,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernels", nargs="*", default=["B3", "B6"], choices=sorted(KERNELS))
     ap.add_argument("--tile", type=int, default=0, help="default: the kernel's own")
-    ap.add_argument("--tile3", default="", help="B16/B17: tz,ty,tx (default: the tree's)")
+    ap.add_argument("--tile3", default="", help="B14-B17: tz,ty,tx (default: the tree's)")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -751,7 +818,7 @@ def main() -> int:
     for kid in args.kernels:
         specs[kid] = spec = resolve(kid, texts)
         tile = args.tile or spec["tile"]
-        if kid in ("B16", "B17"):
+        if kid in ("B14", "B15", "B16", "B17"):
             tile = tuple(int(t) for t in args.tile3.split(",")) if args.tile3 else None
         cases[kid] = make_case(kid, tile, args.seed)
         builds[kid] = build(kid, spec, cases[kid]["rounds"], texts)

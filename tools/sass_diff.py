@@ -10,8 +10,8 @@ example a parent commit unpacked with ``git archive``) to a cubin with the
 port's nvcc flags, in parallel, under ``build/sass_diff/``; disassembles
 both with ``cuobjdump -sass``; and compares them kernel by kernel.
 Kernels are matched by their demangled names with the namespaces
-``(anonymous namespace)::`` (``<unnamed>::``) and ``deep::`` left out (moving a type into a
-header changes the mangled name, not the code).  An instruction is its
+``(anonymous namespace)::`` (``<unnamed>::``), ``deep::`` and ``volwalk::`` left out (moving a
+type into a header changes the mangled name, not the code).  An instruction is its
 text without its address or encoding.  Prints one line per source (kernels
 on each side, how many are identical) and the first differing lines of any
 kernel that differs; exits 1 if a kernel differs or exists on one side
@@ -34,7 +34,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
-QUALIFIERS = re.compile(r"\(anonymous namespace\)::|<unnamed>::|\bdeep::")
+QUALIFIERS = re.compile(r"\(anonymous namespace\)::|<unnamed>::|\b(deep|volwalk)::")
 
 
 def cubin_flags(nvcc_flags) -> list:

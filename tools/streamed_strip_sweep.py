@@ -2,7 +2,7 @@
 """Time the streamed CUDA kernels of the PyTorch port over several CUDA
 strip and tile shapes on one GPU.
 
-    python3 tools/streamed_strip_sweep.py [--reps N] [--mxu | --volume]
+    python3 tools/streamed_strip_sweep.py [--reps N] [--mxu | --volume | --fused]
 
 2-D: B7, B9 (one level), B8, B10 (two levels), B11, B12 (J=5, one launch)
 on a 2144x4096 float32 frame (CDF 9/7, random data from numpy seed 0), per
@@ -14,7 +14,9 @@ events, chip_smoke.time_ms; the volume kernels' device time too), the
 cooperative grid of B11/B12 and its co-resident limit, the volume
 kernels' blocks an SM, and the largest difference from the default
 shape's result (0 expected: the strips and tiles only move the halo).
-``--volume``: the 3-D sweep alone.  ``--mxu``: instead,
+``--volume``: the 3-D sweep alone.  ``--fused``: the same sweep of the
+fused volume kernels B14, B15 (the same column walk, their feeds), with
+the feed each took.  ``--mxu``: instead,
 B8, B10, B11, B12 with the banded body (B13) on the frame per strip shape:
 CUDA-event and device (CUPTI) times, the cooperative grids, and the
 largest difference from each kernel's plain version at that shape (<= 2e-5
@@ -42,6 +44,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--mxu", action="store_true", help="the banded body's strips")
     ap.add_argument("--volume", action="store_true", help="the volume kernels alone")
+    ap.add_argument("--fused", action="store_true", help="the fused volume kernels B14/B15")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -57,9 +60,9 @@ def main() -> int:
     x = torch.from_numpy(rng.random((2144, 4096), dtype=np.float32)).cuda()
     if args.mxu:
         return mxu_sweep(x, args.reps)
-    if args.volume:
+    if args.volume or args.fused:
         print(C.nvidia_smi())
-        return volume_sweep(rng, args.reps)
+        return volume_sweep(rng, args.reps, args.fused)
     c1 = S.streamed_dwt2_level(x)
     c2 = S.streamed_dwt2_2level(x)
     c5 = S.streamed_wavedec2_deep(x, "cdf97", 5)
@@ -83,34 +86,42 @@ def main() -> int:
     return volume_sweep(rng, args.reps)
 
 
-def volume_sweep(rng, reps: int) -> int:
+def volume_sweep(rng, reps: int, fused: bool = False) -> int:
     import numpy as np
     import torch
 
     import chip_smoke as C
+    from libdwt_torch.ops import fused3d as F3
     from libdwt_torch.ops import streamed3d as S3
 
+    if fused:
+        fwd, inv, names = F3.fused_dwt3_level, F3.fused_idwt3_level, ("B14", "B15")
+    else:
+        fwd, inv, names = S3.streamed_dwt3_level, S3.streamed_idwt3_level, ("B16", "B17")
     v = torch.from_numpy(rng.random((64, 512, 512), dtype=np.float32)).cuda()
-    b1 = S3.streamed_dwt3_level(v)
+    b1 = fwd(v)
     ll = b1["LLL"]
-    b2 = S3.streamed_dwt3_level(ll)
-    r1 = S3.streamed_idwt3_level(b1)
+    b2 = fwd(ll)
+    r1 = inv(b1)
     for tile in TILES3:
-        if not all(S3._footprint(tile, 4, inv)[1] for inv in (False, True)):
+        try:
+            fwd(ll, tile=tile), inv(b2, tile=tile)
+        except ValueError:  # a tile too wide for a kernel's threads or memory
             continue
-        runs = {"B16": lambda: S3.streamed_dwt3_level(v, tile=tile),
-                "B17": lambda: S3.streamed_idwt3_level(b1, tile=tile),
-                "B16_level2": lambda: S3.streamed_dwt3_level(ll, tile=tile),
-                "B17_level2": lambda: S3.streamed_idwt3_level(b2, tile=tile)}
+        runs = {names[0]: lambda: fwd(v, tile=tile), names[1]: lambda: inv(b1, tile=tile),
+                names[0] + "_level2": lambda: fwd(ll, tile=tile),
+                names[1] + "_level2": lambda: inv(b2, tile=tile)}
         r = {"tile": tile}
         for k, fn in runs.items():
             r[k] = C.time_ms(fn, reps)
             r[k + "_device"] = C.device_ms(fn)
-        r["blocks_per_sm"] = [S3.kernel_info(torch.float32, inverse=inv, tile=tile)
-                              ["blocks_per_sm"] for inv in (False, True)]
-        r["max_abs_vs_default"] = max(
-            C.max_abs(C.leaves(S3.streamed_dwt3_level(v, tile=tile)), C.leaves(b1)),
-            C.max_abs(S3.streamed_idwt3_level(b1, tile=tile), r1))
+        mod = F3 if fused else S3
+        infos = [mod.kernel_info(torch.float32, inverse=i, tile=tile) for i in (False, True)]
+        r["blocks_per_sm"] = [i["blocks_per_sm"] for i in infos]
+        if fused:
+            r["feeds"] = [i["feed"] for i in infos]
+        r["max_abs_vs_default"] = max(C.max_abs(C.leaves(fwd(v, tile=tile)), C.leaves(b1)),
+                                      C.max_abs(inv(b1, tile=tile), r1))
         print(json.dumps(r), flush=True)
     return 0
 
