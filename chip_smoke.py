@@ -54,10 +54,11 @@
    version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5; B1-B6, B11, B12 and B14-B17 exactly, bit for bit (the volume
-   kernels' registers, blocks an SM and shared memory are printed, and
-   the feed B14 took on each volume: 3-D tensor boxes or copies),
-   B11 and B12 also
+   <= 3e-5; B1-B6, B8, B10-B12 and B14-B17 exactly, bit for bit (the
+   volume kernels' registers, blocks an SM and shared memory are printed,
+   and the feed B14 took on each volume: 3-D tensor boxes or copies; so
+   are B8/B10's registers, blocks an SM and grid), B8 and B10 also equal
+   to B2 and B5 on the frame, B11 and B12
    equal to B2 then B3 and B6 then B5 on the frame and, launched with no
    deep level, to B2 and B5; B1 also at the odd pyramid's
    2161x4097 and 1081x2049 and the 513x511 gate, B1/B4 with extended
@@ -72,9 +73,11 @@
    sharded path's level-1 shapes (exactly).
 5. Times each kernel and its plain version with CUDA events (and the
    kernel's device time with the profiler, which leaves out the host's
-   cost of issuing it), beside the card's bound for the same work; B11
+   cost of issuing it), beside the card's bound for the same work; B8
+   beside B2 and B10 beside B5 (device time, alternating); B11
    and B12's device time split into the strip phase (a launch with no
-   deep level) and the deep levels, beside B2 + B3 and B6 + B5, and so
+   deep level) and the deep levels, beside B2 + B3 and B6 + B5 and the
+   two kernels B8 then B3 and B6 then B10, and so
    for their banded instantiations (the strip phase is B8/B10-mxu)
    beside B3 and B6; B3 and
    B6 also beside one launch of B1/B4 per level (the same tile body,
@@ -297,10 +300,10 @@ def volume_feed(label: str, shape3, itemsize: int) -> None:
 #: the single-level kernels on the line walks of csrc/lines.cuh, held to
 #: their plain versions bit for bit (B7/B9 to 3e-5)
 EXACT_LEVELS = ("B1", "B4")
-#: the streamed kernels on lines.cuh's walks (B11/B12: fused2l.cuh's bodies
-#: and deep.cuh's levels), held to their plain versions bit for bit (B8/B10
-#: to 3e-5)
-EXACT_STREAMED = ("B11", "B12")
+#: the streamed kernels on lines.cuh's walks (B8/B10: fused2l.cuh's bodies
+#: in a strip walk; B11/B12: the same and deep.cuh's levels), held to their
+#: plain versions bit for bit
+EXACT_STREAMED = ("B8", "B10", "B11", "B12")
 #: the volume kernels on the column z walk (csrc/volwalk.cuh: a z walk in
 #: registers under the line walks of zwalk.cuh and lines.cuh), held to
 #: their plain versions bit for bit at both levels
@@ -1047,15 +1050,42 @@ def main() -> int:
     require(max_abs(leaves(strips_fwd_out), leaves(F.fused_dwt2_2level(x, WV))) == 0
             and max_abs(strips_inv_out, F.fused_idwt2_2level(*s2c, WV)) == 0,
             "B11/B12 with no deep level (the strip phase alone) == B2 / B5 bit for bit")
+    # B8/B10 run that strip phase alone, in kernels of their own
+    err = max_abs(leaves(streamed_cases["B8"][0]()), leaves(F.fused_dwt2_2level(x, WV)))
+    require(err == 0, f"B8 == B2 bit for bit on the {H}x{W} frame")
+    err = max_abs(streamed_cases["B10"][0](), F.fused_idwt2_2level(*s2c, WV))
+    require(err == 0, f"B10 == B5 bit for bit on the {H}x{W} frame")
+    occ = []
+    for dt, wv in ((torch.float32, WV), (torch.float64, WV), (torch.int32, "cdf53")):
+        for k, inverse in (("B8", False), ("B10", True)):
+            i = S.strip_kernel_info(dt, wv, inverse, (H, W))
+            occ.append(f"{k} {str(dt)[6:]} {wv}: {i['registers']} registers, "
+                       f"{i['blocks_per_sm']} blocks an SM, grid {i['grid']}, "
+                       f"{i['smem']} B of shared memory")
+    print(f"strip instantiations ({H}x{W}, strip {S.STRIP_TY}x{S.STRIP_TX}): "
+          + "; ".join(occ) + f" [{smi}]", flush=True)
+    pair_dev = {}
+    for kid, fn in (("B8", streamed_cases["B8"][0]), ("B2", lambda: F.fused_dwt2_2level(x, WV)),
+                    ("B10", streamed_cases["B10"][0]),
+                    ("B5", lambda: F.fused_idwt2_2level(*s2c, WV))) * 2:
+        pair_dev.setdefault(kid, []).append(device_ms(fn))
+    print(f"time B8 beside B2, B10 beside B5 (device, {H}x{W} f32, two passes each): "
+          + ", ".join(f"{k} " + " / ".join("not measured" if t is None else f"{t:.4f} ms"
+                                           for t in ts) for k, ts in pair_dev.items())
+          + f" [{smi}]", flush=True)
     fmt_dev = "{:.4f}".format
-    for k, whole, strips, fused_pair in (
+    for k, whole, strips, fused_pair, streamed_pair in (
             ("B11", streamed_cases["B11"][0], strips_fwd,
-             lambda: F.fused_deep_wavedec2(F.fused_dwt2_2level(x, WV)[0], WV, J - 2)),
+             lambda: F.fused_deep_wavedec2(F.fused_dwt2_2level(x, WV)[0], WV, J - 2),
+             lambda: F.fused_deep_wavedec2(S.streamed_dwt2_2level(x, WV)[0], WV, J - 2)),
             ("B12", streamed_cases["B12"][0], strips_inv,
              lambda: F.fused_idwt2_2level(F.fused_deep_waverec2(sc[:-2], WV), sc[-2], sc[-1],
-                                          WV))):
+                                          WV),
+             lambda: S.streamed_idwt2_2level(F.fused_deep_waverec2(sc[:-2], WV), sc[-2],
+                                             sc[-1], WV))):
         t = {name: device_ms(fn) for name, fn in (("whole", whole), ("strips", strips),
-                                                   ("fused", fused_pair))}
+                                                   ("fused", fused_pair),
+                                                   ("streamed", streamed_pair))}
         if None in t.values():
             print(f"time {k} device split: not measured [{smi}]", flush=True)
             continue
@@ -1063,7 +1093,9 @@ def main() -> int:
               f"ms = strip phase {fmt_dev(t['strips'])} ms (a launch with no deep level) + "
               f"deep levels {fmt_dev(t['whole'] - t['strips'])} ms; the fused kernels it "
               f"runs ({'B2 + B3' if k == 'B11' else 'B6 + B5'}, two launches) "
-              f"{fmt_dev(t['fused'])} ms [{smi}]", flush=True)
+              f"{fmt_dev(t['fused'])} ms; the strip kernel and the deep tail as two "
+              f"kernels ({'B8 then B3' if k == 'B11' else 'B6 then B10'}) "
+              f"{fmt_dev(t['streamed'])} ms [{smi}]", flush=True)
 
     # ---- the single streamed levels: dwt2/idwt2 'streamed' at 2144x4096 (B7/B9)
     F.reset_counters()

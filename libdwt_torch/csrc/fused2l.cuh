@@ -1,7 +1,7 @@
 // The two-level 2-D window bodies on the line walks of lines.cuh, shared by
-// fused2l.cu (B2/B5: one tile a block) and streamed.cu (B11/B12: strips
-// walked down a column band by a persistent block, the next strip's
-// window in flight while this one lifts).  fused2l.cu's header says what
+// fused2l.cu (B2/B5: one tile a block) and streamed.cu (B8/B10 and the
+// strip phase of B11/B12: strips walked down a column band by a persistent
+// block, the next strip's window in flight while this one lifts).  fused2l.cu's header says what
 // each step does and why.
 //
 // A window holds the ty x tx samples of one tile or strip (both multiples
@@ -95,7 +95,8 @@ __device__ __forceinline__ void store_bands(const T* s, int RS, int core,
 // LL1 with halo 4 (E1Y x E1X samples, row stride RS1) from the lifted
 // level-1 window (row stride RS), times the LL scale, with the whole-point
 // re-mirror past the bottom/right edge in the source index: the values
-// tiles::fwd2_lifted copies and then rewrites.
+// that the plain version (ops/fused.py dwt2_2level_tiles) copies and then
+// rewrites.
 template <typename T>
 __device__ __forceinline__ void ll1_window(const T* s1, int RS, T* s2, int RS1, int h,
                                            int w, int y0, int x0, int E1Y, int E1X,
@@ -173,8 +174,9 @@ __device__ __forceinline__ void load_level1(const T* hl1, const T* lh1, const T*
 // LL1 from the lifted level-2 window (row stride RS2) into the even/even
 // samples of the level-1 window (row stride RS1, n1y x n1x samples of each
 // parity), with the level-1 channel rule s[N+m] = s[N-1-m] past the
-// bottom/right edge in the source index: the values tiles::inv2_lifted
-// rewrites in two passes and then interleaves.  Level-1 sample (2i, 2j) is
+// bottom/right edge in the source index: the values that the plain version
+// (ops/fused.py idwt2_2level_tiles) rewrites in two passes and then
+// interleaves.  Level-1 sample (2i, 2j) is
 // LL1 (y0/2 - IH1/2 + i, x0/2 - IH1/2 + j), level-2 sample (c + i, c + j)
 // with c = IH2 - IH1/2.
 template <typename T>

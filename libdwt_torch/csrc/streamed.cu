@@ -1,6 +1,6 @@
-// Streamed 2-D DWT kernels for Hopper (sm_90a): strips through two shared-
-// memory buffers, the next strip's load in flight while the current one
-// lifts.
+// Streamed 2-D DWT kernels for Hopper (sm_90a): a persistent block walks
+// strips down a column band, the next strip's load in flight while the
+// current one lifts.
 //
 // dwt_sfwd1_*      replaces libdwt_tpu/ops/streamed.py streamed_dwt2_level
 //                  (:257, kernel :300; TPU kernel id B7): one level.
@@ -17,22 +17,29 @@
 // lifting is ~16 flops per pixel over both levels, far below 67 TFLOP/s.
 //
 // B7-B10.  The TPU kernels stream full-width strips because its lane axis
-// needs no halo; a 4096-wide f32 strip with its halo does not fit twice in
-// the 227 KB a block may hold.  Here the frame is cut into column bands of
-// tx samples, each band into segments of strips of ty rows, and one work
-// item is a (band, segment).  A persistent block walks down its item strip
-// by strip: before it lifts strip i it issues the cp.async loads of strip
-// i+1's halo'd window into the other buffer (one copy per element,
-// so the border mirror is just the source index), and it waits for strip
-// i+1 only after strip i's outputs are written.  B8/B10's halos: forward
-// TOP2 = 16 rows (streamed.py:400) and HALO2 = 12 columns; inverse 8 LL1
-// samples at level 2 and 4 signal samples at level 1, on both axes.  Their
-// tile arithmetic is tiles.cuh's, so a strip's values are bit for bit those
-// of the plain versions in ops/streamed.py.
+// needs no halo; a 4096-wide f32 strip with its halo does not fit a block's
+// 227 KB.  Here the frame is cut into column bands of tx samples, each band
+// into segments of strips of ty rows, and one work item is a (band,
+// segment).  A persistent block walks down its item strip by strip.
+//
+// The two levels B8/B10 (sstrip_fwd_lines, sstrip_inv_lines) run the strip
+// phase of B11/B12 below and nothing else: fused2l.cuh's B2/B5 bodies on
+// one buffer a block, in an ordinary launch, so that the compiler sizes
+// the registers for the strip walk alone (B11/B12's cooperative kernels
+// carry deep.cuh's level loop too).  Their halos are B2/B5's (HALO2 = 12
+// on both axes forward; IH2 = 8 and IH1 = 4 inverse), so B8 equals B2 and
+// B10 equals B5 bit for bit, and both equal their plain versions in
+// ops/streamed.py, which do not depend on the strip.  The first port ran
+// them on tiles.cuh's two-level tile with lift_tile and two buffers a
+// block: 0.5044 / 0.4420 ms on an H100 at 2144x4096 f32, 21-24x the bound.
 //
 // The single levels B7/B9 walk the same (band, segment) items with
-// tiles.cuh's one-level body (fwd1_*/inv1_*): a halo of 4 on both
-// axes, so a 64x64 strip is a 72x72 window and the two buffers take 41 KB.
+// tiles.cuh's one-level body (fwd1_*/inv1_*) through two buffers: before
+// it lifts strip i a block issues the cp.async loads of strip i+1's
+// halo'd window into the other buffer (one copy per element, so the border
+// mirror is just the source index), and waits for strip i+1 only after
+// strip i's outputs are written.  A halo of 4 on both axes, so a 64x64
+// strip is a 72x72 window and the two buffers take 41 KB.
 // The inverse reads the interleaved coefficients through the mirror, which
 // for equal band shapes is exactly _fix_strip's channel rules.  Under
 // boundary_rows='extended' the input carries TOP = 8 rows (forward) or
@@ -42,12 +49,12 @@
 // B11/B12, the one-launch pyramids (dwt_sdeep_*: sdeep_fwd_lines and
 // sdeep_inv_lines).  Bound: bytes, 70.3 MB at 2144x4096 f32 J=5 (21 us at
 // 3.35 TB/s; the deep levels' 5.8 MB stays in the 50 MB L2).  Their first
-// port ran B8/B10's strips on tiles.cuh's lift_tile and the deep levels on
+// port ran the two-level strips on tiles.cuh's lift_tile and the deep levels on
 // tiles::fwd1_tile/inv1_tile: 0.6531 / 0.5971 ms on an H100 (31x / 28x the
 // bound), in lift_tile's 16- to 32-way column bank conflicts, per-update
 // index arithmetic, a barrier a step, idle threads, and ~48 us a deep
 // level.  Now one cooperative launch of two phases, a grid sync between:
-//   * The strips walk B8/B10's (band, segment) items, each window lifted
+//   * The strips walk the (band, segment) items, each window lifted
 //     by fused2l.cuh's B2/B5 body: cp.async loads with every row in flight
 //     and rows mirrored only in strips that cross an edge, one thread a
 //     line with every step in registers (lines.cuh, rows x columns), the
@@ -97,10 +104,9 @@
 // writes, and no pointer is __restrict__, so no read can see a stale line.
 //
 // The float64 (f64) instantiations double every buffer: at the default
-// 64x64 strip a two-level forward block of B8 holds 148 KB and an inverse
-// one 120 KB (one block per SM); B11/B12's windows take 77 KB and 62 KB.
-// Shared memory and the cooperative grids are sized with sizeof(T), so the
-// occupancy calculator sees the real footprint.
+// 64x64 strip the two-level windows (B8/B10, B11/B12's strips) take 77 KB
+// forward and 62 KB inverse.  Shared memory and the grids are sized with
+// sizeof(T), so the occupancy calculator sees the real footprint.
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -117,7 +123,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TOP = 8;     // the single levels' extended contract (rows)
-constexpr int TOP2 = 16;   // forward strip row halo
+constexpr int TOP2 = 16;   // the banded forward strips' row halo
 
 // Column bands of tx samples, each cut into nseg segments of sps strips of
 // ty rows; item = seg * nbands + band.
@@ -136,61 +142,6 @@ struct InvBands {
     const T *ll2, *hl2, *lh2, *hh2, *hl1, *lh1, *hh1;
     T* out;
 };
-
-// The strips of the two forward levels.
-template <typename T>
-__device__ void fwd2_strips(const T* x, const FwdBands<T>& b, const Strips& g,
-                            const LiftParams& P, T* smem) {
-    const int buf = tiles::fwd2_elems(g.ty, g.tx, TOP2);
-    T* sb[2] = {smem, smem + buf};
-    T* s2 = smem + 2 * buf;
-    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
-        const int x0 = (item % g.nbands) * g.tx;
-        const int first = (item / g.nbands) * g.sps;
-        const int last = min(g.nstrips, first + g.sps);
-        tiles::fwd2_load(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx, TOP2);
-        __pipeline_commit();
-        for (int i = first; i < last; ++i) {
-            const int k = (i - first) & 1;
-            if (i + 1 < last)
-                tiles::fwd2_load(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0, g.ty,
-                                       g.tx, TOP2);
-            __pipeline_commit();  // possibly empty: keeps wait_prior(1) exact
-            __pipeline_wait_prior(1);
-            __syncthreads();
-            tiles::fwd2_compute(sb[k], s2, b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1,
-                                g.h, g.w, i * g.ty, x0, g.ty, g.tx, TOP2, P);
-        }
-    }
-}
-
-template <typename T>
-__device__ void inv2_strips(const InvBands<T>& b, const Strips& g, const LiftParams& P,
-                            T* smem) {
-    const int n2 = tiles::inv2_l2_elems(g.ty, g.tx);
-    const int stage = n2 + tiles::inv2_l1_elems(g.ty, g.tx);
-    T* sb[2] = {smem, smem + stage};
-    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
-        const int x0 = (item % g.nbands) * g.tx;
-        const int first = (item / g.nbands) * g.sps;
-        const int last = min(g.nstrips, first + g.sps);
-        tiles::inv2_load(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1, sb[0],
-                               sb[0] + n2, g.h, g.w, first * g.ty, x0, g.ty, g.tx);
-        __pipeline_commit();
-        for (int i = first; i < last; ++i) {
-            const int k = (i - first) & 1;
-            if (i + 1 < last)
-                tiles::inv2_load(b.ll2, b.hl2, b.lh2, b.hh2, b.hl1, b.lh1, b.hh1,
-                                       sb[k ^ 1], sb[k ^ 1] + n2, g.h, g.w,
-                                       (i + 1) * g.ty, x0, g.ty, g.tx);
-            __pipeline_commit();
-            __pipeline_wait_prior(1);
-            __syncthreads();
-            tiles::inv2_compute(sb[k], sb[k] + n2, b.out, g.h, g.w, i * g.ty, x0, g.ty, g.tx,
-                                P);
-        }
-    }
-}
 
 // B11's strips on fused2l.cuh's two-level body (the B2 window with halo
 // HALO2 on both axes): each (band, segment) item walked down strip by
@@ -368,7 +319,7 @@ __device__ __forceinline__ void inv2_mxu_strips(const InvBands<float>& b, const 
 }
 
 // The single levels (B7, B9): strips of ty x tx samples with a halo of 4 on
-// both axes, walked down each item's column band like fwd2_strips.
+// both axes, walked down each item's column band through two buffers.
 template <int EXT, typename T>
 __device__ void fwd1_strips(const T* x, T* ll, T* hl, T* lh, T* hh, const Strips& g,
                             const LiftParams& P, T* smem) {
@@ -417,20 +368,6 @@ __device__ void inv1_strips(const T* ll, const T* hl, const T* lh, const T* hh, 
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sfwd2_kernel(const T* x, FwdBands<T> b, Strips g, LiftParams P) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    fwd2_strips<T>(x, b, g, P, reinterpret_cast<T*>(smem_raw));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sinv2_kernel(InvBands<T> b, Strips g, LiftParams P) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    inv2_strips<T>(b, g, P, reinterpret_cast<T*>(smem_raw));
-}
-
 template <int EXT, typename T>
 __global__ void __launch_bounds__(THREADS)
 sfwd1_kernel(const T* x, T* ll, T* hl, T* lh, T* hh, Strips g, LiftParams P) {
@@ -472,6 +409,30 @@ sdeep_inv_lines(Strips g, InvBands<T> b, deep::Deep<T> d, LiftParams P) {
     inv2_line_strips<ST, NST, SYM>(b, g, P, s);
 }
 
+// B8 and B10 on the line walks: B11/B12's strip phase alone, in an
+// ordinary launch (no deep level, no grid sync).  Compiled for
+// STRIP_FWD_BLOCKS / STRIP_INV_BLOCKS blocks an SM (64 / 80 registers):
+// the fastest floors that tools/strip_blocks.py timed at the default
+// 64x64 float32 strip, where the windows (38 KB forward, 30 KB inverse)
+// would let 5 / 7 blocks share an SM.  Left to itself the compiler gives
+// the walks 148 / 101 registers, one / two blocks an SM; higher floors
+// spill more than they gain.
+constexpr int STRIP_FWD_BLOCKS = 4;
+constexpr int STRIP_INV_BLOCKS = 3;
+template <typename T, int ST, int NST, bool SYM>
+__global__ void __launch_bounds__(THREADS, STRIP_FWD_BLOCKS)
+sstrip_fwd_lines(Strips g, const T* x, FwdBands<T> b, LiftParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    fwd2_line_strips<ST, NST, SYM>(x, b, g, P, reinterpret_cast<T*>(smem_raw));
+}
+
+template <typename T, int ST, int NST, bool SYM>
+__global__ void __launch_bounds__(THREADS, STRIP_INV_BLOCKS)
+sstrip_inv_lines(Strips g, InvBands<T> b, LiftParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    inv2_line_strips<ST, NST, SYM>(b, g, P, reinterpret_cast<T*>(smem_raw));
+}
+
 // B11 and B12 with the banded body (float32): its strips, and deep.cuh's
 // polyphase levels across a grid sync.  d.n == 0 runs the strips alone
 // (B8/B10 with the banded body).  Compiled for MXU_BLOCKS blocks an SM:
@@ -507,17 +468,6 @@ sdeep_inv_mxu(Strips g, InvBands<float> b, deep::Deep<float> d, banded::MxuMats 
 
 // ------------------------------------------------------------ host side
 
-template <typename T>
-size_t fwd_smem(int ty, int tx) {
-    return sizeof(T) * (size_t)(2 * tiles::fwd2_elems(ty, tx, TOP2)
-                                + tiles::fwd2_ll1_elems(ty, tx));
-}
-
-template <typename T>
-size_t inv_smem(int ty, int tx) {
-    return sizeof(T) * 2 * (size_t)(tiles::inv2_l2_elems(ty, tx) + tiles::inv2_l1_elems(ty, tx));
-}
-
 // Set the kernel's shared memory, then the blocks that can be resident at
 // once over the card, and the strip plan: as many segments per band as fill
 // the resident blocks (at least one, at most one strip each).
@@ -548,30 +498,6 @@ int plan(K kernel, size_t smem, int h, int w, int ty, int tx, Strips* g,
     return 0;
 }
 
-template <typename T>
-int launch_sfwd2(const T* x, FwdBands<T> b, int h, int w, int ty, int tx,
-                 const LiftParams* P, cudaStream_t stream) {
-    const size_t smem = fwd_smem<T>(ty, tx);
-    Strips g;
-    int resident = 0;
-    const int err = plan(sfwd2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
-    if (err) return err;
-    sfwd2_kernel<T><<<g.items(), THREADS, smem, stream>>>(x, b, g, *P);
-    return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_sinv2(InvBands<T> b, int h, int w, int ty, int tx, const LiftParams* P,
-                 cudaStream_t stream) {
-    const size_t smem = inv_smem<T>(ty, tx);
-    Strips g;
-    int resident = 0;
-    const int err = plan(sinv2_kernel<T>, smem, h, w, ty, tx, &g, &resident);
-    if (err) return err;
-    sinv2_kernel<T><<<g.items(), THREADS, smem, stream>>>(b, g, *P);
-    return (int)cudaGetLastError();
-}
-
 template <int EXT, typename T>
 int launch_sfwd1(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w, int ty, int tx,
                  const LiftParams* P, cudaStream_t stream) {
@@ -596,9 +522,9 @@ int launch_sinv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int
     return (int)cudaGetLastError();
 }
 
-// The shared memory of B11/B12 on the line walks: the strips' windows (the
-// forward's signal window, then its LL1 window; the inverse's stage), or
-// the deep levels' window where that is larger.
+// The shared memory of the strips on the line walks (B8/B10, and B11/B12
+// where the deep levels' window is not larger): the forward's signal
+// window, then its LL1 window; the inverse's stage.
 template <typename T>
 size_t lines_fwd_smem(int ty, int tx) {
     const int EY = ty + 2 * tiles::HALO2, EX = tx + 2 * tiles::HALO2;
@@ -610,6 +536,67 @@ size_t lines_inv_smem(int ty, int tx) {
     const int E2Y = ty / 2 + 2 * tiles::IH2, E2X = tx / 2 + 2 * tiles::IH2;
     const int E1Y = ty + 2 * tiles::IH1, E1X = tx + 2 * tiles::IH1;
     return sizeof(T) * ((size_t)E2Y * lines::stride(E2X) + (size_t)E1Y * lines::stride(E1X));
+}
+
+// B8 or B10 on the line walks: ``kernel``'s strips planned at its own
+// occupancy, then one ordinary launch with ``args`` after its Strips; or,
+// where ``info`` is set, no launch but info[0..3] <- the kernel's
+// registers, blocks an SM, grid and shared memory (bytes).
+template <typename K, typename... Args>
+int launch_strips(K kernel, size_t smem, int h, int w, int ty, int tx, int* info,
+                  cudaStream_t stream, Args... args) {
+    Strips g;
+    int resident = 0;
+    int err = plan(kernel, smem, h, w, ty, tx, &g, &resident);
+    if (err) return err;
+    if (info) {
+        cudaFuncAttributes a;
+        if ((err = (int)cudaFuncGetAttributes(&a, kernel))) return err;
+        if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kernel,
+                                                                      THREADS, smem)))
+            return err;
+        info[0] = a.numRegs;
+        info[2] = g.items();
+        info[3] = (int)smem;
+        return 0;
+    }
+    kernel<<<g.items(), THREADS, smem, stream>>>(g, args...);
+    return (int)cudaGetLastError();
+}
+
+// B8 on the line walks: the steps alternate d, s from d (1, 2 or 4 of
+// them); a window line a thread (ty, tx <= 232).  info as for
+// launch_strips.
+template <typename T>
+int launch_sstrip_fwd(const T* x, FwdBands<T> b, int h, int w, int ty, int tx, int* info,
+                      const LiftParams* P, cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (s % 2 == 0)) return (int)cudaErrorInvalidValue;
+    if (std::max(ty, tx) + 2 * tiles::HALO2 > THREADS) return (int)cudaErrorInvalidValue;
+    return dispatch<T>(ty == tx ? ty : 0, P, [&](auto st, auto nst, auto sym) {
+        return launch_strips(sstrip_fwd_lines<T, decltype(st)::value, decltype(nst)::value,
+                                              decltype(sym)::value>,
+                             lines_fwd_smem<T>(ty, tx), h, w, ty, tx, info, stream, x, b, *P);
+    });
+}
+
+// B10 on the line walks: the steps (already reversed and negated)
+// alternate s, d from s (2 or 4 of them), or are one d step; ty, tx <=
+// 248; ``out`` 16-byte aligned (16-byte stores).  info as for
+// launch_strips.
+template <typename T>
+int launch_sstrip_inv(InvBands<T> b, int h, int w, int ty, int tx, int* info,
+                      const LiftParams* P, cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (P->n == 1 || s % 2 == 1)) return (int)cudaErrorInvalidValue;
+    if (std::max(ty, tx) + 2 * tiles::IH1 > THREADS
+        || reinterpret_cast<uintptr_t>(b.out) % 16)
+        return (int)cudaErrorInvalidValue;
+    return dispatch<T>(ty == tx ? ty : 0, P, [&](auto st, auto nst, auto sym) {
+        return launch_strips(sstrip_inv_lines<T, decltype(st)::value, decltype(nst)::value,
+                                              decltype(sym)::value>,
+                             lines_inv_smem<T>(ty, tx), h, w, ty, tx, info, stream, b, *P);
+    });
 }
 
 // One cooperative launch of B11 or B12 on the line walks: ``args`` point to
@@ -760,7 +747,9 @@ int launch_sdeep_inv_mxu(float* out, void* const* ptrs, int n, int h, int w, int
 // h, w: the frame's size (divisible by 4; even for the single levels, and
 // without the extension when ext_rows is set); ty, tx: the strip rows and
 // band columns (divisible by 4); tile: the deep levels' per-level tile;
-// ext_rows: 0, or TOP for boundary_rows='extended'.
+// ext_rows: 0, or TOP for boundary_rows='extended'.  dwt_s2info_*: what a
+// launch of B8 (inverse 0) or B10 (1) with these arguments runs, out[0..3]
+// <- its kernel's registers, blocks an SM, grid and shared memory (bytes).
 #define LIBDWT_STREAMED(SUF, T)                                                    \
     extern "C" int dwt_sfwd1_##SUF(const T* x, T* ll, T* hl, T* lh, T* hh, int h,   \
                                    int w, int ty, int tx, int ext_rows,            \
@@ -786,15 +775,22 @@ int launch_sdeep_inv_mxu(float* out, void* const* ptrs, int n, int h, int w, int
     extern "C" int dwt_sfwd2_##SUF(const T* x, T* ll2, T* hl2, T* lh2, T* hh2,      \
                                    T* hl1, T* lh1, T* hh1, int h, int w, int ty,   \
                                    int tx, const LiftParams* P, void* stream) {    \
-        return launch_sfwd2<T>(x, FwdBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1}, h, \
-                               w, ty, tx, P, (cudaStream_t)stream);                \
+        return launch_sstrip_fwd<T>(x, FwdBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1}, \
+                                    h, w, ty, tx, nullptr, P, (cudaStream_t)stream); \
     }                                                                              \
     extern "C" int dwt_sinv2_##SUF(const T* ll2, const T* hl2, const T* lh2,        \
                                    const T* hh2, const T* hl1, const T* lh1,       \
                                    const T* hh1, T* out, int h, int w, int ty,     \
                                    int tx, const LiftParams* P, void* stream) {    \
-        return launch_sinv2<T>(InvBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, \
-                               h, w, ty, tx, P, (cudaStream_t)stream);             \
+        return launch_sstrip_inv<T>(InvBands<T>{ll2, hl2, lh2, hh2, hl1, lh1, hh1, out}, \
+                                    h, w, ty, tx, nullptr, P, (cudaStream_t)stream); \
+    }                                                                              \
+    extern "C" int dwt_s2info_##SUF(int inverse, int h, int w, int ty, int tx,     \
+                                    const LiftParams* P, int* out) {               \
+        if (inverse)                                                               \
+            return launch_sstrip_inv<T>(InvBands<T>{}, h, w, ty, tx, out, P, nullptr); \
+        return launch_sstrip_fwd<T>(nullptr, FwdBands<T>{}, h, w, ty, tx, out, P,  \
+                                    nullptr);                                      \
     }                                                                              \
     extern "C" int dwt_sdeep_fwd_##SUF(const T* x, void* const* ptrs, int n, int h, \
                                        int w, int ty, int tx, int tile, int* info, \

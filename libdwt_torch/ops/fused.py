@@ -426,8 +426,9 @@ def _lift2d(t, table, scales, inverse: bool, lift2d):
 
 def dwt2_2level_tiles(x, wavelet, ty: int, tx: int, hy: int = HALO2, lift2d=None):
     """Two forward levels on ty x tx tiles with a halo of ``hy`` rows and
-    HALO2 columns (the tile algebra of csrc/tiles.cuh fwd2_*, shared by B2
-    and the streamed B8/B11).  Returns (LL2, (HL2, LH2, HH2), (HL1, LH1, HH1)).
+    HALO2 columns (the tile algebra of csrc/fused2l.cuh's fwd2 body, which
+    B2 and the streamed B8/B11 run with HALO2 rows).  Returns (LL2, (HL2,
+    LH2, HH2), (HL1, LH1, HH1)).
     ``lift2d``: the 2-D lift of a batch of windows, if not the polyphase
     steps (B13's banded body)."""
     wavelet = get_wavelet(wavelet)
@@ -462,7 +463,7 @@ def fused_dwt2_2level_plain(x, wavelet="cdf97", tile: int = TILE2):
 
 def idwt2_2level_tiles(ll2, bands2, bands1, wavelet, ty: int, tx: int, lift2d=None):
     """Two inverse levels on ty x tx output tiles (the tile algebra of
-    csrc/tiles.cuh inv2_*, shared by B5 and the streamed B10/B12);
+    csrc/fused2l.cuh's inv2 body, shared by B5 and the streamed B10/B12);
     ``lift2d`` as in :func:`dwt2_2level_tiles`."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(ll2.dtype), True)

@@ -3,10 +3,11 @@
 
 The JAX kernels stream full-width strips of ``strip_rows`` rows through two
 VMEM buffers with explicit async copies.  The CUDA kernels
-(``csrc/streamed.cu``) keep the semantics and the double buffering, not
-the TPU tiling: a persistent block walks a column band of ``tx`` samples
-down the frame in strips of ``ty`` rows and loads strip i+1 with cp.async
-while it lifts strip i.  ``strip_rows`` is validated exactly as the
+(``csrc/streamed.cu``) keep the semantics and the streaming, not the TPU
+tiling: a persistent block walks a column band of ``tx`` samples down the
+frame in strips of ``ty`` rows and has strip i+1's load in flight while it
+lifts strip i (the single levels through two buffers, the two-level
+strips on one).  ``strip_rows`` is validated exactly as the
 reference validates it (:func:`pick_strip`, the 2..32 strip range, the
 window checks), so the port raises ``ValueError`` on the same geometries,
 but it does not size the CUDA strip.
@@ -15,8 +16,11 @@ Ported kernels (TPU kernel ids of ROADMAP section B):
   B7  streamed_dwt2_level     -> csrc/streamed.cu dwt_sfwd1_* (one level;
                                  the 8-row extended contract)
   B9  streamed_idwt2_level    -> csrc/streamed.cu dwt_sinv1_*
-  B8  streamed_dwt2_2level    -> csrc/streamed.cu dwt_sfwd2_*
-  B10 streamed_idwt2_2level   -> csrc/streamed.cu dwt_sinv2_*
+  B8  streamed_dwt2_2level    -> csrc/streamed.cu dwt_sfwd2_* (the strip
+                                 phase of B11 alone, on B2's line-walk
+                                 body: == B2 bit for bit)
+  B10 streamed_idwt2_2level   -> csrc/streamed.cu dwt_sinv2_* (B12's strip
+                                 phase alone, on B5's body: == B5)
   B11 streamed_wavedec2_deep  -> csrc/streamed.cu dwt_sdeep_fwd_* (one
                                  cooperative launch: strips, then the deep
                                  levels on an L2-resident LL2)
@@ -63,8 +67,8 @@ __all__ = [
 TOP = 8
 #: the reference's channel-domain mirror depth of the single levels.
 CMIR = 4
-#: the reference's forward two-level strip halo; also the CUDA forward
-#: strips' row halo.
+#: the reference's forward two-level strip halo; also the row halo of the
+#: banded body's CUDA forward strips (the polyphase ones take B2's HALO2).
 TOP2 = 16
 #: the reference's unrolled-strip budget.
 MAX_STRIPS = 32
@@ -309,8 +313,11 @@ def _window_lift(wavelet, body: str, inverse: bool):
 def streamed_dwt2_2level_plain(x, wavelet="cdf97", ty: int = 0, tx: int = 0,
                                body: str = "poly"):
     """Plain version of B8: the strips of ty x tx samples (0: the body's
-    default, :func:`strip_shape`) with their TOP2-row and HALO2-column
-    halos; ``body='mxu'`` lifts them with the banded body (B13)."""
+    default, :func:`strip_shape`) with the reference's TOP2-row and
+    HALO2-column halos; ``body='mxu'`` lifts them with the banded body
+    (B13).  The polyphase values do not depend on the strip or the row
+    halo, so they equal B2's plain version, whose HALO2 rows the CUDA
+    strips take."""
     ty, tx = strip_shape(body, ty, tx)
     return dwt2_2level_tiles(x, wavelet, ty, tx, TOP2, _window_lift(wavelet, body, False))
 
@@ -366,6 +373,23 @@ def _launch_coop(kid: str, fn_name: str, dtype, wavelet, inverse, first, ptrs,
     _launch_body(kid, fn_name, dtype, wavelet, inverse, [first, arr] + args + [info],
                  device, body, ty, tx)
     LAST_GRID[kid] = (info[0], info[1])
+
+
+def strip_kernel_info(dtype, wavelet="cdf97", inverse: bool = False, shape=(2144, 4096),
+                      ty: int = 0, tx: int = 0) -> dict:
+    """Registers, blocks an SM, grid and shared memory of the CUDA kernel
+    that B8 (or, ``inverse``, B10) runs with the polyphase body for
+    ``dtype`` and ``wavelet`` on an h x w ``shape`` with the strip ty x tx
+    (0: the default): the card's own figures, for measurement."""
+    from libdwt_torch.ops import _cuda
+    from libdwt_torch.ops.fused import _lift_params, _suffix
+
+    ty, tx = strip_shape("poly", ty, tx)
+    out = (ctypes.c_int * 4)()
+    params = _lift_params(get_wavelet(wavelet), dtype == torch.int32, inverse)
+    _cuda.check(_cuda.kernel_fn("dwt_s2info", _suffix(dtype))(
+        int(inverse), *shape, ty, tx, ctypes.byref(params), out), "dwt_s2info")
+    return dict(zip(("registers", "blocks_per_sm", "grid", "smem"), out))
 
 
 def _count(kids, body: str) -> None:

@@ -10,8 +10,8 @@ GPU machine that has no JAX installed:
 
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
-int32 bit-exactly, B11 and B12 bit for bit in every dtype (and equal to
-B2 then B3, B6 then B5), B1 and B4 bit for bit in every dtype (the frames of
+int32 bit-exactly, B8, B10, B11 and B12 bit for bit in every dtype (and
+equal to B2 and B5, B2 then B3, B6 then B5), B1 and B4 bit for bit in every dtype (the frames of
 their paths and 513x511, mirror and extended rows, tiles 4-96, every fused
 wavelet, misaligned inputs, outputs written whole and nothing past them; a
 window too wide is refused), B2 and B5 bit for bit in every dtype (main-path frame,
@@ -708,29 +708,67 @@ STREAMED = [
     # and bands (132, 100 columns), short quarter tails (remq 1..3)
     (260, 128, torch.float32, "cdf97", 64, 64),
     (204, 132, torch.float32, "cdf97", 32, 48),
-    (512, 384, torch.float32, "cdf53", 128, 128),  # 215 KB of shared memory
+    (512, 384, torch.float32, "cdf53", 128, 128),  # 117 KB of shared memory
     (256, 256, torch.float32, "haar", 64, 64),
     (200, 100, torch.float32, "interp53", 16, 20),
     (200, 128, torch.int32, "cdf53", 64, 64),
     (288, 128, torch.int32, "cdf97", 16, 16),
+    (260, 128, torch.float64, "cdf97", 64, 64),
+    (204, 132, torch.float64, "cdf97", 32, 48),
+    # the largest float64 strip: its window and LL1 window take 225 KB
+    (512, 384, torch.float64, "cdf97", 128, 128),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,dtype,wavelet,ty,tx", STREAMED)
 def test_b8_b10_kernels_match_plain(cuda_device, h, w, dtype, wavelet, ty, tx):
-    x = _img(h, w, dtype, cuda_device, seed=11)
-    exact = dtype == torch.int32
+    """B8/B10 run the strip phase of B11/B12 alone: == their plain
+    versions bit for bit in every dtype."""
+    x = _img(h, w, dtype, cuda_device, seed=11).to(dtype)
     tf.reset_counters()
     c2 = ts.streamed_dwt2_2level(x, wavelet, ty=ty, tx=tx)
-    _close(list(c2), list(ts.streamed_dwt2_2level_plain(x, wavelet, ty, tx)), exact)
+    _close(list(c2), list(ts.streamed_dwt2_2level_plain(x, wavelet, ty, tx)), True)
     rec = ts.streamed_idwt2_2level(*c2, wavelet, ty=ty, tx=tx)
-    _close(rec, ts.streamed_idwt2_2level_plain(*c2, wavelet, ty, tx), exact)
+    _close(rec, ts.streamed_idwt2_2level_plain(*c2, wavelet, ty, tx), True)
     torch.cuda.synchronize()
     assert (tf.KERNELS["B8"].launches, tf.KERNELS["B10"].launches) == (1, 1)
-    if exact:
+    if dtype == torch.int32:
         assert torch.equal(rec, x)
         _close(list(c2), sep.wavedec2(x, wavelet, 2), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dtype,wavelet,ty,tx", STREAMED + [
+    (2144, 4096, torch.float32, "cdf97", 64, 64)])  # the streamed J=2 path's frame
+def test_b8_b10_equal_b2_b5(cuda_device, h, w, dtype, wavelet, ty, tx):
+    """B8 runs B2's window body and B10 B5's, with B2/B5's halos, on any
+    strip: on the card B8 equals B2 and B10 equals B5 bit for bit."""
+    x = _img(h, w, dtype, cuda_device, seed=17).to(dtype)
+    c2 = ts.streamed_dwt2_2level(x, wavelet, ty=ty, tx=tx)
+    _close(list(c2), list(tf.fused_dwt2_2level(x, wavelet)), True)
+    rec = ts.streamed_idwt2_2level(*c2, wavelet, ty=ty, tx=tx)
+    _close(rec, tf.fused_idwt2_2level(*c2, wavelet), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b8_b10_strip_kernels_fit_their_blocks(cuda_device, dtype):
+    """dwt_s2info: the registers, blocks an SM and grid of B8/B10's kernels
+    at the default strip; the grid is the strip plan of the blocks that fit,
+    and a strip whose window lines outgrow the block is refused."""
+    wavelet = "cdf53" if dtype == torch.int32 else "cdf97"
+    for inverse in (False, True):
+        info = ts.strip_kernel_info(dtype, wavelet, inverse)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        nbands, nstrips = 4096 // 64, -(-2144 // 64)
+        nseg = max(1, min(nstrips, info["blocks_per_sm"] * sms // nbands))
+        sps = -(-nstrips // nseg)
+        assert info["grid"] == nbands * -(-nstrips // sps)
+    x = _img(256, 256, dtype, cuda_device).to(dtype)
+    with pytest.raises(RuntimeError):
+        ts.streamed_dwt2_2level(x, wavelet, ty=236, tx=16)
 
 
 STREAMED_DEEP = [

@@ -209,15 +209,42 @@ def test_mxu_body_not_ported():
     assert jst._resolve_inv_body("auto", "cdf97", jnp.float32, (2144, 4096)) == "mxu"
 
 
-def test_plain_strips_match_the_fused_tiles():
-    """B8/B10's plain versions and B2/B5's share one tile algebra; any strip
-    gives the same values (the strips only move the halo)."""
-    x = torch.from_numpy(_rand(260, 132, seed=7))
-    a = ts.streamed_dwt2_2level_plain(x, "cdf97", 64, 64)
-    b = tf.fused_dwt2_2level_plain(x, "cdf97", 64)
-    assert all(torch.equal(p, q) for p, q in zip(_leaves(a), _leaves(b)))
-    back = ts.streamed_idwt2_2level_plain(*a, "cdf97", 32, 20)
-    assert torch.equal(back, tf.fused_idwt2_2level_plain(*a, "cdf97", 64))
+# (h, w, ty, tx, inverse ty, inverse tx): the strips of the card tests'
+# STREAMED list (tests/test_torch_cuda.py), the first case's inverse on
+# another strip, and strips with ty != tx both ways
+PLAIN_STRIPS = [
+    (260, 132, 64, 64, 32, 20),
+    (260, 128, 64, 64, 64, 64),
+    (204, 132, 32, 48, 32, 48),
+    (512, 384, 128, 128, 128, 128),
+    (256, 256, 64, 64, 64, 64),
+    (200, 100, 16, 20, 16, 20),
+    (200, 128, 64, 64, 64, 64),
+    (288, 128, 16, 16, 16, 16),
+    (260, 256, 32, 48, 48, 32),
+]
+
+
+@pytest.mark.parametrize("dtype,wavelet", [
+    (np.float32, "cdf97"), (np.float64, "cdf97"), (np.int32, "cdf53"),
+    (np.float32, "haar"), (np.float32, "interp53")])
+@pytest.mark.parametrize("h,w,ty,tx,ity,itx", PLAIN_STRIPS)
+def test_plain_strips_match_the_fused_tiles(h, w, ty, tx, ity, itx, dtype, wavelet):
+    """B8/B10's plain versions and B2/B5's share one tile algebra; any strip,
+    with the reference's 16-row TOP2 halo, gives B2/B5's values at their
+    64x64 tiles and HALO2 rows bit for bit (the strips only move the halo),
+    so the CUDA strips may take B2/B5's halos."""
+    rng = np.random.default_rng(h + w + ty + tx)
+    if dtype == np.int32:
+        x = rng.integers(-512, 512, (h, w)).astype(np.int32)
+    else:
+        x = rng.random((h, w)).astype(dtype)
+    x = torch.from_numpy(x)
+    a = ts.streamed_dwt2_2level_plain(x, wavelet, ty, tx)
+    b = tf.fused_dwt2_2level_plain(x, wavelet, 64)
+    assert all(p.dtype == x.dtype and torch.equal(p, q) for p, q in zip(_leaves(a), _leaves(b)))
+    back = ts.streamed_idwt2_2level_plain(*a, wavelet, ity, itx)
+    assert torch.equal(back, tf.fused_idwt2_2level_plain(*a, wavelet, 64))
 
 
 # (h, w, level, ty, tx): the strips of GEOMS and of the card tests'

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where a hand-written 2-D kernel spends its time on the GPU: B1, B4 (the
 one-level kernels of csrc/level.cu), B2, B5 (the two-level kernels of
-csrc/fused2l.cu), B3, B6 (the deep tails of csrc/deep.cu), B13F, B13I (the
+csrc/fused2l.cu), B3, B6 (the deep tails of csrc/deep.cu), B8, B10 (the
+two-level strip kernels of csrc/streamed.cu), B13F, B13I (the
 banded tensor-core body B13 in the two-level strips of csrc/streamed.cu,
 forward as B8-mxu runs it, inverse as B10-mxu), and the volume kernels B14,
 B15 (csrc/fused3d.cu) and B16, B17 (csrc/streamed3d.cu).
 
-    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B13F B13I B14 B15 B16 B17] [--tile N]
-                                   [--tile3 TZ,TY,TX] [--reps 200] [--seed 0]
+    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B8 B10 B13F B13I B14 B15 B16 B17]
+                                   [--tile N] [--tile3 TZ,TY,TX] [--reps 200] [--seed 0]
 
 For each kernel named, on the main path's shapes (2144x4096 float32 CDF
 9/7: B1 and B2 on the frame, B4 on its one-level bands, B5 on its
@@ -26,9 +27,10 @@ three levels' bands):
    mean and median cycles per block (per level for B3/B6, whose phases
    repeat once a level: load, lift, stores, grid sync), a block's
    lifetime, the most blocks resident on an SM at once, and (B1, B3, B4,
-   B6, B13) the blocks an SM that the occupancy query allows the stamped
-   kernel at its shared memory.
-3. B13 (``--tile`` is its square strip, by default the tree's): the phases
+   B6, B8, B10, B13) the blocks an SM that the occupancy query allows the
+   stamped kernel at its shared memory.
+3. B8, B10 (``--tile``: their square strip, 64 by default) and B13
+   (``--tile`` is its square strip, by default the tree's): the phases
    repeat once a strip and once a pass, so each block adds up its cycles
    per phase over its whole walk (a barrier before each stamp, so a
    phase's cycles include the wait for the block's slowest warp).  Its
@@ -140,10 +142,9 @@ def _stride(n):
     return n + ((8 - n) & 15)
 
 
-# B13, the banded body, by variant: the present body first, then the first
-# port's (two buffers, the data's bf16 parts in shared memory).  Phases end
-# after (or, "before", just before) one line of the named functions; a
-# phase's cycles are added up per block.
+# B13, the banded body (a tuple of variants: a parent's body would be
+# another).  Phases end after (or, "before", just before) one line of the
+# named functions; a phase's cycles are added up per block.
 B13_VARIANTS = {
     "B13F": (
         {"kernel": "sdeep_fwd_mxu", "instance": "sdeep_fwd_mxu<4, true>",
@@ -158,20 +159,6 @@ B13_VARIANTS = {
                      "level-2 passes")),
          "smem": lambda ty, tx, mats: 4 * ((ty + 32) * _stride(tx + 24)
                                            + (ty // 2 + 8) * _stride(tx // 2 + 8))},
-        {"kernel": "sfwd2_kernel", "instance": "sfwd2_kernel<float, true>",
-         "registers": ("sfwd2_kernelIfLb1E", "sdeep_fwd_mxu"),
-         "regions": (("streamed.cu", "fwd2_strips", "template <"),
-                     ("banded.cuh", "banded_pass", "__device__ void"),
-                     ("tiles.cuh", "fwd2_lifted", "template <")),
-         "phases": (("__pipeline_wait_prior(1);", "level-2 stores, next load, wait"),
-                    ("const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;",
-                     "split to bf16 parts", "before"),
-                    ("<end>banded_pass", "mma and write-back", "before"),
-                    ("lift.fwd(s2, E1Y, E1X, 2);", "level-1 stores, LL1", "before")),
-         "smem": lambda ty, tx, mats: _a16(4 * (2 * (ty + 32) * (tx + 24)
-                                              + (ty // 2 + 8) * (tx // 2 + 8)))
-         + _parts_smem(max(_part_elems(ty + 32, tx + 24), _part_elems(ty // 2 + 8, tx // 2 + 8)),
-                       mats)},
     ),
     "B13I": (
         {"kernel": "sdeep_inv_mxu", "instance": "sdeep_inv_mxu<4, true>",
@@ -185,25 +172,46 @@ B13_VARIANTS = {
                      "level-1 passes")),
          "smem": lambda ty, tx, mats: 4 * ((ty // 2 + 16) * _stride(tx // 2 + 16)
                                            + (ty + 8) * _stride(tx + 8))},
-        {"kernel": "sinv2_kernel", "instance": "sinv2_kernel<float, true>",
-         "registers": ("sinv2_kernelIfLb1E", "sdeep_inv_mxu"),
-         "regions": (("streamed.cu", "inv2_strips", "template <"),
-                     ("banded.cuh", "banded_pass", "__device__ void"),
-                     ("tiles.cuh", "inv2_lifted", "template <")),
-         "phases": (("__pipeline_wait_prior(1);", "stores, next load, wait"),
-                    ("const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;",
-                     "split to bf16 parts", "before"),
-                    ("<end>banded_pass", "mma and write-back", "before"),
-                    ("lift.inv(s1, EY, EX, 1);", "LL1 re-mirror, interleave", "before")),
-         "smem": lambda ty, tx, mats: _a16(4 * 2 * ((ty // 2 + 16) * (tx // 2 + 16)
-                                                  + (ty + 8) * (tx + 8)))
-         + _parts_smem(max(_part_elems(ty // 2 + 16, tx // 2 + 16), _part_elems(ty + 8, tx + 8)),
-                       mats)},
     ),
 }
 for _kid, _entry in (("B13F", "dwt_sfwd2_mxu"), ("B13I", "dwt_sinv2_mxu")):
     KERNELS[_kid] = {"source": "streamed.cu", "entry": _entry, "tile": 0, "round": None,
                      "acc": True, "tol": 2e-5, "variants": B13_VARIANTS[_kid]}
+
+
+def _lines_stride(n):
+    """lines::stride: n or n + 2, whichever is 2 mod 4."""
+    return n if n % 4 else n + 2
+
+
+# B8, B10: the strip phase of B11/B12 alone (sstrip_*_lines), a block's
+# phases added up over its strip walk as for B13.
+KERNELS["B8"] = {
+    "source": "streamed.cu", "kernel": "sstrip_fwd_lines", "entry": "dwt_sfwd2", "tile": 64,
+    "round": None, "acc": True, "instance": "sstrip_fwd_lines<float, 64, 4, true>",
+    "registers": ("sstrip_fwd_linesIfLi64ELi4ELb1E",),
+    "regions": (("streamed.cu", "fwd2_line_strips", "template <"),),
+    "phases": (("__pipeline_wait_prior(0);", "level-2 stores (strip before), load wait"),
+               ("lines::lift_fwd<NST, SYM>(s1, EY, EX, RS, P);", "level-1 lift"),
+               ("fwd2::ll1_window(s1, RS, s2, RS1, g.h, g.w, y0, x0, E1Y, E1X, P);",
+                "level-1 stores, LL1"),
+               ("lines::lift_fwd<NST, SYM>(s2, E1Y, E1X, RS1, P);",
+                "next load issue, level-2 lift")),
+    "smem": lambda ty, tx, mats: 4 * ((ty + 24) * _lines_stride(tx + 24)
+                                      + (ty // 2 + 8) * _lines_stride(tx // 2 + 8))}
+KERNELS["B10"] = {
+    "source": "streamed.cu", "kernel": "sstrip_inv_lines", "entry": "dwt_sinv2", "tile": 64,
+    "round": None, "acc": True, "instance": "sstrip_inv_lines<float, 64, 4, true>",
+    "registers": ("sstrip_inv_linesIfLi64ELi4ELb1E",),
+    "regions": (("streamed.cu", "inv2_line_strips", "template <"),),
+    "phases": (("__pipeline_wait_prior(1);", "next load issue, level-2 wait"),
+               ("lines::lift_inv<NST, SYM>(s2, E2Y, E2X, RS2, P);", "level-2 lift"),
+               ("inv2::ll1_window(s2, RS2, s1, RS1,", "LL1 window"),
+               ("__pipeline_wait_prior(0);", "level-1 wait"),
+               ("lines::lift_inv<NST, SYM>(s1, E1Y, E1X, RS1, P);", "level-1 lift"),
+               ("inv2::store(s1, RS1, b.out, g.h, g.w, y0, x0, ty, tx);", "stores")),
+    "smem": lambda ty, tx, mats: 4 * ((ty // 2 + 16) * _lines_stride(tx // 2 + 16)
+                                      + (ty + 8) * _lines_stride(tx + 8))}
 
 
 def _tile3_smem(tile):
@@ -588,6 +596,23 @@ def make_case(kid, tile, seed):
             want = [F.idwt2_level_plain(*bands, WV, tile)]
         args = [t.data_ptr() for t in ins + outs] + [H, W, tile, 0]
         blocks = -(-W // (2 * tile)) * -(-H // (2 * tile))
+    elif kid in ("B8", "B10"):
+        from libdwt_torch.ops import streamed as S
+
+        ll2, b2, b1 = S.streamed_dwt2_2level_plain(x, WV, tile, tile)
+        P = F._lift_params(F.get_wavelet(WV), False, kid == "B10")
+        if kid == "B8":
+            ins = [x]
+            outs = [torch.empty((H // 4, W // 4), device="cuda") for _ in range(4)]
+            outs += [torch.empty((H // 2, W // 2), device="cuda") for _ in range(3)]
+            want = cs.leaves((ll2, b2, b1))
+        else:
+            ins = [a.contiguous() for a in (ll2, *b2, *b1)]
+            outs = [torch.empty((H, W), device="cuda")]
+            want = [S.streamed_idwt2_2level_plain(ins[0], tuple(ins[1:4]), tuple(ins[4:]), WV,
+                                                  tile, tile)]
+        args = [t.data_ptr() for t in ins + outs] + [H, W, tile, tile]
+        blocks = 0  # counted from the stamps
     elif kid in ("B2", "B5"):
         ll2, b2, b1 = F.fused_dwt2_2level_plain(x, WV)
         if kid == "B2":
