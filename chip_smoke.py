@@ -54,27 +54,30 @@
    version bit for bit.  A line says whether B18 ran across two cards.
 4. Holds each kernel against its plain PyTorch version on the card at
    its path's shapes, the volume kernels at both levels (float32:
-   <= 3e-5; B1-B6, B8, B10-B12 and B14-B17 exactly, bit for bit (the
+   <= 3e-5; B1-B12 and B14-B17 exactly, bit for bit (the
    volume kernels' registers, blocks an SM and shared memory are printed,
    and the feed B14 took on each volume: 3-D tensor boxes or copies; so
    are B8/B10's registers, blocks an SM and grid), B8 and B10 also equal
-   to B2 and B5 on the frame, B11 and B12
+   to B2 and B5 on the frame, B7 and B9 to B1 and B4 on the frame (their
+   registers, blocks an SM and grid printed too), B11 and B12
    equal to B2 then B3 and B6 then B5 on the frame and, launched with no
    deep level, to B2 and B5; B1 also at the odd pyramid's
    2161x4097 and 1081x2049 and the 513x511 gate, B1/B4 with extended
    rows, B3 on the odd pyramid's 541x1025 chain), B1/B4/B7/B9 on every
    input the sharded kernel bodies and the explicit-'auto' pyramid give
    them (caught by wrapping the wrappers during an extra run of those
-   paths; B1/B4 exactly, B7/B9 <= 3e-5), each banded
+   paths; exactly), each banded
    instantiation of B8/B10/B11/B12 against its plain version (<= 2e-5:
    the tensor cores sum in another order; B11 and B12 with the banded body
    also equal to B8-mxu then B3 and B6 then B10-mxu on the frame, bit for
    bit, and their registers and blocks an SM are printed), and B18 at the
-   sharded path's level-1 shapes (exactly).
+   sharded path's level-1 shapes (exactly; timed at each of the 15 launch
+   shapes of the sharded J=5 path, beside each one's byte bound).
 5. Times each kernel and its plain version with CUDA events (and the
    kernel's device time with the profiler, which leaves out the host's
    cost of issuing it), beside the card's bound for the same work; B8
-   beside B2 and B10 beside B5 (device time, alternating); B11
+   beside B2 and B10 beside B5, B7 beside B1 and B9 beside B4 (device
+   time, alternating); B11
    and B12's device time split into the strip phase (a launch with no
    deep level) and the deep levels, beside B2 + B3 and B6 + B5 and the
    two kernels B8 then B3 and B6 then B10, and so
@@ -222,14 +225,16 @@ def print_windows(label: str, times, reps: int, smi: str) -> None:
               f"[{smi}]", flush=True)
 
 
-def device_ms(fn, reps: int = 5, tries: int = 3):
+def device_ms(fn, reps: int = 5, tries: int = 3, only: str | None = None):
     """Device time per call of ``fn`` (torch.profiler, CUPTI): the kernels'
     own time without the host's cost of issuing them, which event times
     over back-to-back calls include once a kernel is faster than its
-    wrapper.  A profiled pass whose device records are not a whole number
-    per call has lost some (the trace can drop them in a process's first
-    passes) and is said so and taken again, up to ``tries`` passes; None
-    if no pass records every call."""
+    wrapper.  With ``only``, just the device records whose name holds it
+    count (one kernel, without the copies its wrapper makes).  A profiled
+    pass whose device records are not a whole number per call has lost
+    some (the trace can drop them in a process's first passes) and is said
+    so and taken again, up to ``tries`` passes; None if no pass records
+    every call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,7 +247,8 @@ def device_ms(fn, reps: int = 5, tries: int = 3):
             torch.cuda.synchronize()
         us, n = 0.0, 0
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.device_type == torch.autograd.DeviceType.CUDA and (
+                    only is None or only in e.key):
                 us += getattr(e, "self_device_time_total", None) or getattr(
                     e, "self_cuda_time_total", 0)
                 n += e.count
@@ -297,9 +303,6 @@ def volume_feed(label: str, shape3, itemsize: int) -> None:
     require(got == want, f"{label}: B14 took the feed feed_of names, {want}")
 
 
-#: the single-level kernels on the line walks of csrc/lines.cuh, held to
-#: their plain versions bit for bit (B7/B9 to 3e-5)
-EXACT_LEVELS = ("B1", "B4")
 #: the streamed kernels on lines.cuh's walks (B8/B10: fused2l.cuh's bodies
 #: in a strip walk; B11/B12: the same and deep.cuh's levels), held to their
 #: plain versions bit for bit
@@ -1121,15 +1124,40 @@ def main() -> int:
     xe8 = torch.from_numpy(rng.standard_normal((512 + 2 * S.TOP, 512)).astype(np.float32)).to(dev)
     got = S.streamed_dwt2_level(xe8, WV, boundary_rows="extended")
     err = max_abs(list(got), list(S.streamed_dwt2_level_plain(xe8, WV, ext=S.TOP)))
-    require(err <= 3e-5, f"extended rows 512x512 (+8 rows each side) B7 vs plain "
-            f"max|diff| {err:.3e} <= 3e-5")
+    require(err == 0, "extended rows 512x512 (+8 rows each side) B7 kernel == plain "
+            "bit for bit")
     be8 = [torch.from_numpy(rng.standard_normal((256 + 2 * S.TOP, 256)).astype(np.float32)).to(dev)
            for _ in range(4)]
     back = S.streamed_idwt2_level(*be8, WV, boundary_rows="extended")
     err = max_abs(back, S.streamed_idwt2_level_plain(*be8, WV, ext=S.TOP))
-    require(tuple(back.shape) == (512, 512) and err <= 3e-5,
-            f"extended rows 512x512 (+8 channel rows each side) B9 vs plain "
-            f"max|diff| {err:.3e} <= 3e-5")
+    require(tuple(back.shape) == (512, 512) and err == 0,
+            "extended rows 512x512 (+8 channel rows each side) B9 kernel == plain "
+            "bit for bit")
+    # B7/B9 run B1/B4's body on a strip: on the frame B7 == B1 and B9 == B4
+    err = max_abs(list(sbands), list(F.fused_dwt2_level(x, WV)))
+    require(err == 0, f"B7 == B1 bit for bit on the {H}x{W} frame")
+    err = max_abs(srec1, F.fused_idwt2_level(*sbands, WV))
+    require(err == 0, f"B9 == B4 bit for bit on the {H}x{W} frame")
+    occ = []
+    for dt, wv in ((torch.float32, WV), (torch.float64, WV), (torch.int32, "cdf53")):
+        for k, inverse in (("B7", False), ("B9", True)):
+            for ext in (0, S.TOP):
+                i = S.level_kernel_info(dt, wv, inverse, (H, W), ext=ext)
+                occ.append(f"{k} {str(dt)[6:]} {wv}{' extended' if ext else ''}: "
+                           f"{i['registers']} registers, {i['blocks_per_sm']} blocks an SM, "
+                           f"grid {i['grid']}, {i['smem']} B of shared memory")
+    print(f"level instantiations ({H}x{W}, strip {S.STRIP_TY}x{S.STRIP_TX}): "
+          + "; ".join(occ) + f" [{smi}]", flush=True)
+    level_dev = {}
+    for kid, fn in (("B7", lambda: S.streamed_dwt2_level(x, WV)),
+                    ("B1", lambda: F.fused_dwt2_level(x, WV)),
+                    ("B9", lambda: S.streamed_idwt2_level(*sbands, WV)),
+                    ("B4", lambda: F.fused_idwt2_level(*sbands, WV))) * 2:
+        level_dev.setdefault(kid, []).append(device_ms(fn))
+    print(f"time B7 beside B1, B9 beside B4 (device, {H}x{W} f32, two passes each): "
+          + ", ".join(f"{k} " + " / ".join("not measured" if t is None else f"{t:.4f} ms"
+                                           for t in ts) for k, ts in level_dev.items())
+          + f" [{smi}]", flush=True)
 
     # ---- the streamed volume: wavedec3/waverec3 'streamed', 64x512x512 J=2
     F.reset_counters()
@@ -1306,23 +1334,18 @@ def main() -> int:
                 lambda: S3.idwt3_level_streamed_plain(b14_l2, WV),
                 ll3.numel() * 4 * 2, ll3.numel() * OPS_PER_VOXEL_LEVEL),
     }
+    # the single levels (onelevel.cuh's body: B1/B4 one tile a block, B7/B9
+    # one strip a block) and the volume kernels: bit for bit
     for k, (kern, plain, _, _) in new_cases.items():
         errs[k] = max_abs(leaves(kern()), leaves(plain()))
         torch.cuda.synchronize()
-        if k in EXACT_LEVELS + EXACT_VOLUME:
-            require(errs[k] == 0, f"{k} kernel == plain bit for bit at its path's shapes")
-        else:
-            require(errs[k] <= 3e-5, f"{k} kernel vs plain at its path's shapes "
-                    f"max|diff| {errs[k]:.3e} <= 3e-5")
+        require(errs[k] == 0, f"{k} kernel == plain bit for bit at its path's shapes")
     for k, (kern, plain, _, _) in level2.items():
         err = max_abs(leaves(kern()), leaves(plain()))
         torch.cuda.synchronize()
-        at = f"at level 2 ({'x'.join(map(str, ll3.shape))})"
-        if k in EXACT_VOLUME:
-            errs[k] = max(errs[k], err)
-            require(err == 0, f"{k} kernel == plain bit for bit {at}")
-        else:
-            require(err <= 3e-5, f"{k} kernel vs plain {at} max|diff| {err:.3e} <= 3e-5")
+        errs[k] = max(errs[k], err)
+        require(err == 0, f"{k} kernel == plain bit for bit at level 2 "
+                f"({'x'.join(map(str, ll3.shape))})")
     # the volume kernels' registers, blocks an SM and shared memory, by dtype
     # at their default tiles (B14/B15 also their feed at 64x512x512)
     for k in EXACT_VOLUME:
@@ -1408,8 +1431,8 @@ def main() -> int:
 
     def level_vs_plain(label, calls):
         """Each kept call of B1/B4/B7/B9 against its plain version on the
-        same arguments (B1/B4 bit for bit, B7/B9 <= 3e-5); the kernel's
-        error row takes the worst."""
+        same arguments, bit for bit; the kernel's error row takes the
+        worst."""
         plain = {
             "fused_dwt2_level": ("B1", F.fused_dwt2_level, lambda a, e: F.dwt2_level_plain(
                 a["x"], a["wavelet"], a["tile"], e)),
@@ -1433,11 +1456,7 @@ def main() -> int:
             errs[k] = max(errs[k], err)
             shape = "x".join(map(str, a.get("x", a.get("ll")).shape))
             what = f"{'an extended' if ext else 'a'} {shape} input of the {label}"
-            if k in EXACT_LEVELS:
-                require(err == 0, f"{k} kernel == plain bit for bit on {what}")
-            else:
-                require(err <= 3e-5, f"{k} kernel vs plain on {what} max|diff| "
-                        f"{err:.3e} <= 3e-5")
+            require(err == 0, f"{k} kernel == plain bit for bit on {what}")
 
     # each per-shard kernel vs its plain version on the very blocks the
     # sharded kernel bodies give it: every level's extended block, the
@@ -1758,6 +1777,47 @@ def main() -> int:
           f"wavedec2 {kt['streamed'][0]:.4f} ms, waverec2 {kt['streamed'][1]:.4f} ms "
           f"[{smi}]", flush=True)
 
+    # B18 at each launch shape of the sharded rdma path, in launch order: the
+    # forward's halo-4 extension of each level's blocks, then per inverse
+    # level (coarse first) the 's' and 'd' channel extensions (halo 2) of
+    # its stacked bands; each beside its byte bound (inputs read once,
+    # outputs written once)
+    b18_calls, extend = [], RH._extend_rows_cuda
+
+    def keep_b18(blocks, halo, t_off, b_off):
+        b18_calls.append((list(blocks), halo, t_off, b_off))
+        return extend(blocks, halo, t_off, b_off)
+
+    RH._extend_rows_cuda = keep_b18
+    try:
+        sharded_waverec2(sharded_wavedec2(xsh, WV, J, mesh=mesh8, halo_impl="rdma"), WV,
+                         mesh=mesh8, halo_impl="rdma")
+    finally:
+        RH._extend_rows_cuda = extend
+    torch.cuda.synchronize()
+    require(len(b18_calls) == 3 * J, f"the sharded rdma path made {3 * J} B18 launches")
+    # the forward's blocks of levels 2-5 are transposed views, which the
+    # wrapper copies before the launch: time contiguous copies, and only
+    # B18's own kernel
+    b18_parts, b18_sum, b18_bound = [], 0.0, 0.0
+    for i, (blocks, halo, t_off, b_off) in enumerate(b18_calls):
+        blocks = [b.contiguous() for b in blocks]
+        bh, bw_ = blocks[0].shape
+        item = blocks[0].element_size()
+        nbytes = (sum(b.numel() for b in blocks) + len(blocks) * (bh + 2 * halo) * bw_) * item
+        bound = nbytes / bw * 1e3
+        t = device_ms(lambda: extend(blocks, halo, t_off, b_off), only="halo_kernel")
+        what = (f"forward level {i + 1}" if i < J else
+                f"inverse level {J - (i - J) // 2} {'sd'[(i - J) % 2]}")
+        b18_parts.append(f"{what} {len(blocks)} x {bh}x{bw_} halo {halo}: {fmt(t)} "
+                         f"(bound {bound:.4f} ms)")
+        b18_sum = None if b18_sum is None or t is None else b18_sum + t
+        b18_bound += bound
+    loss = None if b18_sum is None else b18_sum - b18_bound
+    print(f"time B18 per launch (device, the sharded {HS}x{W} f32 J={J} rdma path on "
+          f"{NS} shards of this card): " + "; ".join(b18_parts)
+          + f"; sum {fmt(b18_sum)}, bound {b18_bound:.4f} ms, loss {fmt(loss)} [{smi}]",
+          flush=True)
     profile_path(f"B18 at the level-1 shapes ({NS} x {hb}x{W}, halo 4)",
                  lambda: RH.rdma_extend_rows(b18_blocks, 4), smi)
     profile_path(f"sharded rdma path J={J} (sharded_wavedec2 + sharded_waverec2)",

@@ -34,7 +34,7 @@
 //     (no per-element division).  Inverse loads: the interleaved window
 //     read element by element from the four bands through the whole-point
 //     mirror, which keeps parity, so a mirrored sample stays in its band
-//     (tiles.cuh band_ptr's rule; ceil/floor widths for odd sizes).
+//     (onelevel.cuh inv_load's rule; ceil/floor widths for odd sizes).
 //   * The forward's scale is applied as each band value is stored, the
 //     inverse's as the column walk first reads a sample (the same
 //     multiply as a separate pass, so the same bits).  Stores are 16 bytes

@@ -46,12 +46,12 @@ __device__ __forceinline__ void fwd_levels(const Deep<T>& d, const LiftParams& P
             && reinterpret_cast<uintptr_t>(L.img) % (2 * sizeof(T)) == 0;
         for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
             const int y0 = t / nx * S, x0 = t % nx * S;
-            onelevel::fwd_load<0>(L, s, RS, E, y0, x0, vec);
+            onelevel::fwd_load<0>(L, s, RS, E, E, y0, x0, vec);
             __pipeline_commit();
             __pipeline_wait_prior(0);
             __syncthreads();
             lines::lift_fwd<NST, SYM>(s, E, RS, P);
-            onelevel::fwd_store(s, RS, L, y0, x0, P);
+            onelevel::fwd_store(s, RS, L, y0, x0, L.tile, L.tile, P);
             __syncthreads();
         }
         if (k + 1 < d.n) grid.sync();
@@ -71,12 +71,12 @@ __device__ __forceinline__ void inv_levels(const Deep<T>& d, const LiftParams& P
         const int nx = (L.w + S - 1) / S, ntiles = nx * ((L.h + S - 1) / S);
         for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
             const int y0 = t / nx * S, x0 = t % nx * S;
-            onelevel::inv_load<0>(L, s, RS, E, y0, x0);
+            onelevel::inv_load<0>(L, s, RS, E, E, y0, x0);
             __pipeline_commit();
             __pipeline_wait_prior(0);
             __syncthreads();
             lines::lift_inv<NST, SYM>(s, E, RS, P);
-            onelevel::inv_store(s, RS, L, y0, x0);
+            onelevel::inv_store(s, RS, L, y0, x0, S, S);
             __syncthreads();
         }
         if (k + 1 < d.n) grid.sync();

@@ -33,14 +33,14 @@
 //
 // Each kernel has its own body (namespaces fwd2 and inv2 of fused2l.cuh,
 // which B11/B12 in streamed.cu run too, on the line walks of namespace
-// lines, lines.cuh): the same operations as tiles.cuh
-// fwd2_* and inv2_* (lift_one's arithmetic, the axis order and the
+// lines, lines.cuh): the same operations as the first port's shared
+// two-level tiles (lift_one's arithmetic, the axis order and the
 // scale, the LL1 re-mirror or channel rule, even tile starts and
 // whole-point mirror reads), so their outputs equal the plain versions bit for bit.  What
 // held the shared bodies back (B2 0.37 ms and B5 0.34 ms at 2144x4096 f32
 // on an H100, 16-18x the bound), and what these do about it (PERF.md has
 // the measurements of each step):
-//   * lift_tile's column steps put neighbouring threads two rows apart
+//   * Their column steps put neighbouring threads two rows apart
 //     (2 x 88 words for B2 at T=64, 2 x 48 and 2 x 72 for B5): 16- and
 //     32-way bank conflicts.  Not here: a column's lanes are neighbouring
 //     columns.

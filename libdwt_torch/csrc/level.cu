@@ -58,12 +58,12 @@ __global__ void __launch_bounds__(THREADS) fwd1_kernel(Level<T> L, bool vec, Lif
     T* s = reinterpret_cast<T*>(level_smem);
     const int S = 2 * L.tile, E = S + 2 * HALO, RS = lines::stride(E);
     const int y0 = blockIdx.y * S, x0 = blockIdx.x * S;
-    onelevel::fwd_load<EXT>(L, s, RS, E, y0, x0, vec);
+    onelevel::fwd_load<EXT>(L, s, RS, E, E, y0, x0, vec);
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
     lines::lift_fwd<NST, SYM>(s, E, RS, P);
-    onelevel::fwd_store(s, RS, L, y0, x0, P);
+    onelevel::fwd_store(s, RS, L, y0, x0, L.tile, L.tile, P);
 }
 
 // One inverse tile a block: load from the bands, lift (scaled columns,
@@ -75,12 +75,12 @@ __global__ void __launch_bounds__(THREADS) inv1_kernel(Level<T> L, LiftParams P)
     T* s = reinterpret_cast<T*>(level_smem);
     const int S = 2 * L.tile, E = S + 2 * HALO, RS = lines::stride(E);
     const int y0 = blockIdx.y * S, x0 = blockIdx.x * S;
-    onelevel::inv_load<EXT>(L, s, RS, E, y0, x0);
+    onelevel::inv_load<EXT>(L, s, RS, E, E, y0, x0);
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
     lines::lift_inv<NST, SYM>(s, E, RS, P);
-    onelevel::inv_store(s, RS, L, y0, x0);
+    onelevel::inv_store(s, RS, L, y0, x0, S, S);
 }
 
 // ------------------------------------------------------------ host side

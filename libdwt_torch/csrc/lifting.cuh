@@ -1,4 +1,4 @@
-// Shared-memory tile algebra for the 2-D lifting kernels.
+// The lifting arithmetic and tile algebra of the hand-written kernels.
 //
 // A tile is an interleaved (not polyphase-split) block of the signal or
 // of the interleaved coefficient image, held in shared memory with a
@@ -7,8 +7,9 @@
 // means the high (d) channel.
 //
 // A lifting step updates the positions of one parity from their two
-// neighbours of the other parity.  The outermost positions of a tile
-// lack a neighbour and are simply not updated: each step lets that
+// neighbours of the other parity (lift_one; the walks of lines.cuh and
+// zwalk.cuh apply it).  The outermost positions of a tile lack a
+// neighbour and are simply not updated: each step lets that
 // staleness move one position inward, so after the four steps of CDF 9/7
 // the outer four positions of each side are invalid and the halo covers
 // exactly them.
@@ -117,68 +118,3 @@ __device__ __forceinline__ double scale_one(double t, const LiftParams& P, int i
     return __dmul_rn(t, i < 4 ? P.dscale[i] : (i == 4 ? P.dscale_lo : P.dscale_hi));
 }
 __device__ __forceinline__ int scale_one(int t, const LiftParams&, int) { return t; }
-
-// All steps of P along one axis of a rows x cols tile (row stride
-// ``stride``).  along_rows: lift within each row (the x direction).
-template <typename T>
-__device__ void lift_tile(T* t, int rows, int cols, int stride,
-                          const LiftParams& P, bool along_rows) {
-    const int len = along_rows ? cols : rows;
-    const int lines = along_rows ? rows : cols;
-    for (int s = 0; s < P.n; ++s) {
-        const int start = P.is_d[s] ? 1 : 2;
-        const int count = (len - start) / 2;  // positions start, start+2, .. <= len-2
-        const int total = count * lines;
-        for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-            const int line = idx / count;
-            const int pos = start + 2 * (idx % count);
-            if (along_rows) {
-                T* row = t + line * stride;
-                row[pos] = lift_one(row[pos], row[pos - 1], row[pos + 1], P, s);
-            } else {
-                T* c = t + line;
-                c[pos * stride] = lift_one(c[pos * stride], c[(pos - 1) * stride],
-                                           c[(pos + 1) * stride], P, s);
-            }
-        }
-        __syncthreads();
-    }
-}
-
-// Multiply every position by its parity's scale factor (floats only).
-template <typename T>
-__device__ void scale_tile(T* t, int rows, int cols, int stride,
-                           const LiftParams& P) {
-    if (!P.has_scale) return;
-    for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-        const int r = idx / cols, c = idx % cols;
-        T& v = t[r * stride + c];
-        v = scale_one(v, P, ((r & 1) << 1) | (c & 1));
-    }
-    __syncthreads();
-}
-
-// Read the interleaved coefficient sample at (mirrored, in-range) global
-// position (y, x) of an h x w level from its four bands.  Band widths:
-// low columns ceil(w/2), high columns floor(w/2).
-template <typename T>
-__device__ __forceinline__ T band_at(const T* ll, const T* hl, const T* lh,
-                                     const T* hh, int y, int x, int w) {
-    const int cw = (w + 1) >> 1, fw = w >> 1;
-    const int r = y >> 1, c = x >> 1;
-    if (y & 1) return (x & 1) ? hh[r * fw + c] : lh[r * cw + c];
-    return (x & 1) ? hl[r * fw + c] : ll[r * cw + c];
-}
-
-// Write the analysed sample at global (y, x) of an h x w level into its band.
-template <typename T>
-__device__ __forceinline__ void band_put(T* ll, T* hl, T* lh, T* hh,
-                                         int y, int x, int w, T v) {
-    const int cw = (w + 1) >> 1, fw = w >> 1;
-    const int r = y >> 1, c = x >> 1;
-    if (y & 1) {
-        if (x & 1) hh[r * fw + c] = v; else lh[r * cw + c] = v;
-    } else {
-        if (x & 1) hl[r * fw + c] = v; else if (ll) ll[r * cw + c] = v;
-    }
-}

@@ -1,5 +1,5 @@
 // The lifting core of the hand-written 2-D kernels (fused2l.cu: B2, B5;
-// deep.cu: B3, B6; level.cu: B1, B4; streamed.cu: B11, B12): lines of a
+// deep.cu: B3, B6; level.cu: B1, B4; streamed.cu: B7-B12): lines of a
 // window in shared memory, each walked by one thread with every lifting
 // step pipelined in registers, the scale folded into a read or a store,
 // and the dispatch of a launcher onto the compile-time step count and
@@ -13,7 +13,7 @@
 #include "lifting.cuh"
 
 // Lines of a window in shared memory, walked by one thread each with every
-// lifting step pipelined in registers: the lifting core of B1-B6, B11, B12.
+// lifting step pipelined in registers: the lifting core of B1-B12.
 namespace lines {
 
 // 16 bytes of T, and one (even, odd) sample pair.
@@ -104,9 +104,10 @@ struct Lifter {
 // 2m (d) updates odd 2(k-1-m)+1 and step 2m+1 (s) even 2(k-1-m); from s:
 // step 2m (s) updates even 2(k-m) and step 2m+1 (d) odd 2(k-1-m)+1.  Pair
 // k - D (D = ceil(NST/2)) is then final and is written back in place if it
-// lies in [a, b).  The positions of each step are those of lift_tile on
-// [f, e): odd 2q+1 for q <= e - 2, even 2q for q >= f + 1.  On a whole
-// line (f = a = 0, e = b = L) this is lift_tile's pass; on a segment, the
+// lies in [a, b).  The positions of each step are those of the plain
+// versions' pass on [f, e) (ops/fused.py _lift_axis): odd 2q+1 for q <=
+// e - 2, even 2q for q >= f + 1.  On a whole line (f = a = 0, e = b = L)
+// this is that pass; on a segment, the
 // staleness of the cut ends (two pairs for four steps) stays in the
 // warm-up pairs.
 template <int NST, bool SYM, bool SF = false, typename Line,

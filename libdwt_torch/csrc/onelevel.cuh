@@ -1,25 +1,28 @@
 // The one-level 2-D tile body on the line walks of lines.cuh, shared by
-// level.cu (B1/B4: one tile a block) and deep.cu (B3/B6: every tile of
-// every deep level in one cooperative launch).
+// level.cu (B1/B4: one tile a block), deep.cu (B3/B6: every tile of every
+// deep level in one cooperative launch) and streamed.cu (B7/B9, the single
+// streamed levels: one strip a block).
 //
-// A tile of ``tile`` band samples a side is a (2 tile + 8)-square window
-// with a halo of HALO = 4 on both axes (enough for four lifting steps),
-// starting at even global rows and columns, so window parity is global
-// parity.  Forward: fwd_load copies the image window in, the caller lifts
-// it (lines::lift_fwd: rows, then columns) and fwd_store writes each
-// band's samples times their scale.  Inverse: inv_load copies the
-// interleaved coefficient window in from the four bands, the caller lifts
-// it (lines::lift_inv: scaled columns, then rows) and inv_store writes the
-// output.  Borders are whole-point mirror reads: they equal the plain
-// versions' signal mirror forward and their channel rules inverse, and
-// give odd sizes their ceil/floor bands.
+// A tile is a ny x nx block of band samples (2 ny x 2 nx image samples):
+// square in B1/B3/B4/B6 (``tile`` a side), the ty x tx strip in B7/B9.
+// Its window is (2 ny + 8) x (2 nx + 8) with a halo of HALO = 4 on both
+// axes (enough for four lifting steps), starting at even global rows and
+// columns, so window parity is global parity.  Forward: fwd_load copies the
+// image window in, the caller lifts it (lines::lift_fwd: rows, then
+// columns) and fwd_store writes each band's samples times their scale.
+// Inverse: inv_load copies the interleaved coefficient window in from the
+// four bands, the caller lifts it (lines::lift_inv: scaled columns, then
+// rows) and inv_store writes the output.  Borders are whole-point mirror
+// reads: they equal the plain versions' signal mirror forward and their
+// channel rules inverse, and give odd sizes their ceil/floor bands.
 //
-// EXT (0 or 4) is B1/B4's boundary_rows='extended': the caller supplies
-// EXT rows above and below the image (forward: the input has h + 2 EXT
-// rows) or EXT channel rows above and below every band (inverse: the
-// interleaved input has h + 4 EXT rows), read straight with no row
-// mirror; columns still mirror.  Rows past the extension read as 0: they
-// reach only outputs past the image, which are not stored.
+// EXT (0, 4 or 8) is boundary_rows='extended': the caller supplies EXT rows
+// above and below the image (forward: the input has h + 2 EXT rows) or EXT
+// channel rows above and below every band (inverse: the interleaved input
+// has h + 4 EXT rows), read straight with no row mirror; columns still
+// mirror.  B1/B4 take 4 rows (fused.py's contract), B7/B9 8 (TOP,
+// streamed.py's).  Rows past the extension read as 0: they reach only
+// outputs past the image, which are not stored.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -33,8 +36,9 @@ constexpr int HALO = 4;
 // One level: its image (forward: the input; inverse: the output), h x w
 // without any extension, and its four bands LL, HL, LH, HH (forward:
 // outputs; inverse: inputs), ceil(h/2) or floor(h/2) rows (plus 2 EXT
-// when extended) and ceil(w/2) or floor(w/2) columns; tiles of ``tile``
-// band samples a side.
+// when extended) and ceil(w/2) or floor(w/2) columns; square tiles of
+// ``tile`` band samples a side (B1/B3/B4/B6; B7/B9 pass their strip to the
+// loads and stores and leave it 0).
 template <typename T>
 struct Level {
     T* img;
@@ -51,24 +55,24 @@ __device__ __forceinline__ T* band_of(const Level<T>& L, int k) {
     return b;
 }
 
-// Copy the E x E window at (y0 - HALO, x0 - HALO) of L's image into s
+// Copy the EY x EX window at (y0 - HALO, x0 - HALO) of L's image into s
 // (row stride RS) with cp.async, every row in flight at once: each thread
 // keeps two columns, mirrored once, and walks the rows, mirrored once per
 // row and only in tiles whose window crosses an edge (EXT: read straight
 // from the extension, zeros past it).  Two columns inside the image are
 // one copy when ``vec`` (the image's rows are pair-aligned).
 template <int EXT, typename T>
-__device__ __forceinline__ void fwd_load(const Level<T>& L, T* s, int RS, int E, int y0,
-                                         int x0, bool vec) {
-    const int cpr = E / 2, groups = blockDim.x / cpr;
+__device__ __forceinline__ void fwd_load(const Level<T>& L, T* s, int RS, int EY, int EX,
+                                         int y0, int x0, bool vec) {
+    const int cpr = EX / 2, groups = blockDim.x / cpr;
     if ((int)threadIdx.x >= groups * cpr) return;
     const int m = threadIdx.x % cpr, gx = x0 - HALO + 2 * m;
     const bool in_x = vec && gx >= 0 && gx + 2 <= L.w;
     const int c0 = mirror_idx(gx, L.w), c1 = mirror_idx(gx + 1, L.w);
     // window row r is row py + r of the input (h + 2 EXT rows)
     const int py = y0 - HALO + EXT;
-    const bool in_y = py >= 0 && py + E <= L.h + 2 * EXT;
-    for (int r = threadIdx.x / cpr; r < E; r += groups) {
+    const bool in_y = py >= 0 && py + EY <= L.h + 2 * EXT;
+    for (int r = threadIdx.x / cpr; r < EY; r += groups) {
         if constexpr (EXT > 0) {
             if (!in_y && py + r >= L.h + 2 * EXT) {
                 s[r * RS + 2 * m] = T(0);
@@ -88,22 +92,22 @@ __device__ __forceinline__ void fwd_load(const Level<T>& L, T* s, int RS, int E,
     }
 }
 
-// The lifted window's core -> the tile's t x t samples of each band, each
+// The lifted window's core -> the tile's ny x nx samples of each band, each
 // times its scale factor.  Band k's row i is window row HALO + 2i + (k >> 1),
 // columns HALO + (k & 1) + 2j.  Each thread keeps one chunk of V = 16 /
 // sizeof(T) band columns and walks the (row, band) pairs; rows and columns
 // past a band's ceil/floor size are not stored.
 template <typename T>
 __device__ __forceinline__ void fwd_store(const T* s, int RS, const Level<T>& L, int y0,
-                                          int x0, const LiftParams& P) {
+                                          int x0, int ny, int nx, const LiftParams& P) {
     constexpr int V = 16 / sizeof(T);
-    const int t = L.tile, ch = (L.h + 1) >> 1, fh = L.h >> 1;
+    const int ch = (L.h + 1) >> 1, fh = L.h >> 1;
     const int cw = (L.w + 1) >> 1, fw = L.w >> 1;
-    const int cps = (t + V - 1) / V, groups = blockDim.x / cps;
+    const int cps = (nx + V - 1) / V, groups = blockDim.x / cps;
     if ((int)threadIdx.x >= groups * cps) return;
-    const int c = threadIdx.x % cps, j = x0 / 2 + c * V, m = min(V, t - c * V);
+    const int c = threadIdx.x % cps, j = x0 / 2 + c * V, m = min(V, nx - c * V);
     const T* src = s + HALO * RS + HALO + 2 * c * V;
-    for (int q = threadIdx.x / cps; q < 4 * t; q += groups) {
+    for (int q = threadIdx.x / cps; q < 4 * ny; q += groups) {
         const int i = q >> 2, k = q & 3, gi = y0 / 2 + i;
         if (gi >= ch) break;
         const int cols = (k & 1) ? fw : cw, n = min(m, cols - j);
@@ -114,25 +118,25 @@ __device__ __forceinline__ void fwd_store(const T* s, int RS, const Level<T>& L,
     }
 }
 
-// The E x E interleaved window at (y0 - HALO, x0 - HALO) of L's output
+// The EY x EX interleaved window at (y0 - HALO, x0 - HALO) of L's output
 // from its four bands, element by element with cp.async: each thread keeps
 // one window column, mirrored once, and walks the rows (mirrored only in
 // tiles that cross an edge; EXT: read straight from the extension, zeros
 // past it).  Even rows hold LL | HL, odd rows LH | HH, at even | odd
 // columns; the mirror keeps parity.
 template <int EXT, typename T>
-__device__ __forceinline__ void inv_load(const Level<T>& L, T* s, int RS, int E, int y0,
-                                         int x0) {
-    const int groups = blockDim.x / E;
-    if ((int)threadIdx.x >= groups * E) return;
-    const int c = threadIdx.x % E, gx = mirror_idx(x0 - HALO + c, L.w), odd = gx & 1;
+__device__ __forceinline__ void inv_load(const Level<T>& L, T* s, int RS, int EY, int EX,
+                                         int y0, int x0) {
+    const int groups = blockDim.x / EX;
+    if ((int)threadIdx.x >= groups * EX) return;
+    const int c = threadIdx.x % EX, gx = mirror_idx(x0 - HALO + c, L.w), odd = gx & 1;
     const int bw = odd ? L.w >> 1 : (L.w + 1) >> 1;
     const T* ev = band_of(L, odd) + (gx >> 1);
     const T* od = band_of(L, 2 | odd) + (gx >> 1);
     // window row r is row py + r of the interleaved input (h + 4 EXT rows)
     const int py = y0 - HALO + 2 * EXT;
-    const bool in_y = py >= 0 && py + E <= L.h + 4 * EXT;
-    for (int r = threadIdx.x / E; r < E; r += groups) {
+    const bool in_y = py >= 0 && py + EY <= L.h + 4 * EXT;
+    for (int r = threadIdx.x / EX; r < EY; r += groups) {
         if constexpr (EXT > 0) {
             if (!in_y && py + r >= L.h + 4 * EXT) {
                 s[r * RS + c] = T(0);
@@ -145,19 +149,19 @@ __device__ __forceinline__ void inv_load(const Level<T>& L, T* s, int RS, int E,
     }
 }
 
-// The lifted window's S x S core -> the output from (y0, x0), cut at h x w.
+// The lifted window's SY x SX core -> the output from (y0, x0), cut at h x w.
 // Each thread keeps one chunk of V = 16 / sizeof(T) columns and walks the
 // rows: one 16-byte store a chunk where it is whole and aligned.
 template <typename T>
 __device__ __forceinline__ void inv_store(const T* s, int RS, const Level<T>& L, int y0,
-                                          int x0) {
+                                          int x0, int SY, int SX) {
     constexpr int V = 16 / sizeof(T);
     using PT = typename lines::Pair<T>::type;
     using VT = typename lines::Vec16<T>::type;
-    const int S = 2 * L.tile, cpr = (S + V - 1) / V, groups = blockDim.x / cpr;
+    const int cpr = (SX + V - 1) / V, groups = blockDim.x / cpr;
     if ((int)threadIdx.x >= groups * cpr) return;
     const int c = threadIdx.x % cpr, gx = x0 + c * V;
-    const int n = min(min(V, S - c * V), L.w - gx), rows = min(S, L.h - y0);
+    const int n = min(min(V, SX - c * V), L.w - gx), rows = min(SY, L.h - y0);
     if (n <= 0) return;
     const T* src = s + HALO * RS + HALO + c * V;  // even offset: Pair-aligned
     for (int r = threadIdx.x / cpr; r < rows; r += groups) {

@@ -1,4 +1,5 @@
-// Streamed 2-D DWT kernels for Hopper (sm_90a): a persistent block walks
+// Streamed 2-D DWT kernels for Hopper (sm_90a): the single levels one strip
+// a block; the two-level strips and the pyramids a persistent block walking
 // strips down a column band, the next strip's load in flight while the
 // current one lifts.
 //
@@ -16,11 +17,12 @@
 // written once (2144x4096 f32: 35.1 MB each way, ~21 us at 3.35 TB/s); the
 // lifting is ~16 flops per pixel over both levels, far below 67 TFLOP/s.
 //
-// B7-B10.  The TPU kernels stream full-width strips because its lane axis
+// B7-B12.  The TPU kernels stream full-width strips because its lane axis
 // needs no halo; a 4096-wide f32 strip with its halo does not fit a block's
-// 227 KB.  Here the frame is cut into column bands of tx samples, each band
-// into segments of strips of ty rows, and one work item is a (band,
-// segment).  A persistent block walks down its item strip by strip.
+// 227 KB.  Here the frame is cut into column bands of tx samples and strips
+// of ty rows.  B8/B10/B11/B12 cut each band into segments of strips, and
+// one work item is a (band, segment): a persistent block walks down its
+// item strip by strip.  B7/B9 take one strip a block.
 //
 // The two levels B8/B10 (sstrip_fwd_lines, sstrip_inv_lines) run the strip
 // phase of B11/B12 below and nothing else: fused2l.cuh's B2/B5 bodies on
@@ -33,18 +35,37 @@
 // them on tiles.cuh's two-level tile with lift_tile and two buffers a
 // block: 0.5044 / 0.4420 ms on an H100 at 2144x4096 f32, 21-24x the bound.
 //
-// The single levels B7/B9 walk the same (band, segment) items with
-// tiles.cuh's one-level body (fwd1_*/inv1_*) through two buffers: before
-// it lifts strip i a block issues the cp.async loads of strip i+1's
-// halo'd window into the other buffer (one copy per element, so the border
-// mirror is just the source index), and waits for strip i+1 only after
-// strip i's outputs are written.  A halo of 4 on both axes, so a 64x64
-// strip is a 72x72 window and the two buffers take 41 KB.
-// The inverse reads the interleaved coefficients through the mirror, which
-// for equal band shapes is exactly _fix_strip's channel rules.  Under
-// boundary_rows='extended' the input carries TOP = 8 rows (forward) or
-// channel rows (inverse) above and below, read straight.  A 2144x4096 f32
-// level moves 70.3 MB (21 us at 3.35 TB/s).
+// The single levels B7/B9 (sfwd1_lines, sinv1_lines) run onelevel.cuh's
+// one-level body, B1/B4's, on each strip: one block a strip of ty x tx
+// samples and its (ty + 8) x (tx + 8) window (a halo of 4 on both axes),
+// many blocks an SM (6 at 40 registers and 21 KB, float32), no walk and no
+// grid sync, the shared memory sized by sizeof(T); the default 64x64 strip
+// is a compile-time constant, as B8/B10's is (a strip taken at run time
+// cost B7/B9 5% of their device time at 64x64: the window's rows and
+// columns are then two sizes to divide by).  A persistent walk of each
+// column band with the next strip's window in flight (two buffers, as the
+// first port had) lost to this launch by 1.3-1.4x on an H100 (PERF.md).
+// Forward: the window copied in with cp.async, every row in
+// flight, two columns a thread mirrored once, rows mirrored only in strips
+// that cross an edge; lines::lift_fwd (one thread a row, then a column,
+// every lifting step pipelined in registers, a row stride of 2 mod 4); each
+// band's samples stored times their scale, 16 bytes where a run is whole
+// and aligned.  Inverse: the interleaved window read element by element
+// from the four bands through the whole-point mirror, which for equal band
+// shapes is exactly _fix_strip's channel rules; lines::lift_inv (the scale
+// on the column walk's first read, the columns, then the rows); the output
+// stored 16 bytes at a time where whole and aligned.  Under
+// boundary_rows='extended' (EXT = TOP = 8) the input carries 8 rows
+// (forward) or channel rows (inverse) above and below, read straight;
+// rows past them read as 0.  A strip side over 248 (a window line over the
+// block's 256 threads) is refused.  The default 64x64 strip is B1/B4's tile
+// 32, the same 72x72 window, so B7 equals B1 and B9 equals B4 bit for bit
+// on any frame, and both equal their plain versions (ops/streamed.py),
+// which do not depend on the strip.
+// The first port walked each column band through two buffers on
+// tiles.cuh's lift_tile: 0.2371-0.2396 / 0.2428-0.2452 ms of device time
+// at 2144x4096 f32 on an H100 80GB HBM3 at 700 W, 11-12x the bound.  A
+// 2144x4096 f32 level moves 70.3 MB (21 us at 3.35 TB/s).
 //
 // B11/B12, the one-launch pyramids (dwt_sdeep_*: sdeep_fwd_lines and
 // sdeep_inv_lines).  Bound: bytes, 70.3 MB at 2144x4096 f32 J=5 (21 us at
@@ -105,7 +126,7 @@
 //
 // The float64 (f64) instantiations double every buffer: at the default
 // 64x64 strip the two-level windows (B8/B10, B11/B12's strips) take 77 KB
-// forward and 62 KB inverse.  Shared memory and the grids are sized with
+// forward and 62 KB inverse, B7/B9's window 42 KB.  Shared memory and the grids are sized with
 // sizeof(T), so the occupancy calculator sees the real footprint.
 #include <algorithm>
 
@@ -318,69 +339,41 @@ __device__ __forceinline__ void inv2_mxu_strips(const InvBands<float>& b, const 
     }
 }
 
-// The single levels (B7, B9): strips of ty x tx samples with a halo of 4 on
-// both axes, walked down each item's column band through two buffers.
-template <int EXT, typename T>
-__device__ void fwd1_strips(const T* x, T* ll, T* hl, T* lh, T* hh, const Strips& g,
-                            const LiftParams& P, T* smem) {
-    T* sb[2] = {smem, smem + tiles::lvl1_elems(g.ty, g.tx)};
-    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
-        const int x0 = (item % g.nbands) * g.tx;
-        const int first = (item / g.nbands) * g.sps;
-        const int last = min(g.nstrips, first + g.sps);
-        tiles::fwd1_load<EXT>(x, sb[0], g.h, g.w, first * g.ty, x0, g.ty, g.tx);
-        __pipeline_commit();
-        for (int i = first; i < last; ++i) {
-            const int k = (i - first) & 1;
-            if (i + 1 < last)
-                tiles::fwd1_load<EXT>(x, sb[k ^ 1], g.h, g.w, (i + 1) * g.ty, x0,
-                                            g.ty, g.tx);
-            __pipeline_commit();
-            __pipeline_wait_prior(1);
-            __syncthreads();
-            tiles::fwd1_compute(sb[k], ll, hl, lh, hh, g.h, g.w, i * g.ty, x0, g.ty, g.tx,
-                                P);
-        }
-    }
-}
-
-template <int EXT, typename T>
-__device__ void inv1_strips(const T* ll, const T* hl, const T* lh, const T* hh, T* out,
-                            const Strips& g, const LiftParams& P, T* smem) {
-    T* sb[2] = {smem, smem + tiles::lvl1_elems(g.ty, g.tx)};
-    for (int item = blockIdx.x; item < g.items(); item += gridDim.x) {
-        const int x0 = (item % g.nbands) * g.tx;
-        const int first = (item / g.nbands) * g.sps;
-        const int last = min(g.nstrips, first + g.sps);
-        tiles::inv1_load<EXT>(ll, hl, lh, hh, sb[0], g.h, g.w, first * g.ty, x0,
-                                    g.ty, g.tx);
-        __pipeline_commit();
-        for (int i = first; i < last; ++i) {
-            const int k = (i - first) & 1;
-            if (i + 1 < last)
-                tiles::inv1_load<EXT>(ll, hl, lh, hh, sb[k ^ 1], g.h, g.w,
-                                            (i + 1) * g.ty, x0, g.ty, g.tx);
-            __pipeline_commit();
-            __pipeline_wait_prior(1);
-            __syncthreads();
-            tiles::inv1_compute(sb[k], out, g.h, g.w, i * g.ty, x0, g.ty, g.tx, P);
-        }
-    }
-}
-
-template <int EXT, typename T>
+// The single levels (B7, B9): one ty x tx strip a block on onelevel.cuh's
+// body.  ST: a square strip's side at compile time (the default 64), or 0
+// to take ty and tx; NST: the lifting steps (forward: 1, 2 or 4,
+// alternating d, s from d; inverse: 2 or 4, alternating s, d from s, or 1,
+// a d step); SYM: all symmetric; EXT: 0 or TOP, the extension's rows.
+template <typename T, int ST, int NST, bool SYM, int EXT>
 __global__ void __launch_bounds__(THREADS)
-sfwd1_kernel(const T* x, T* ll, T* hl, T* lh, T* hh, Strips g, LiftParams P) {
+sfwd1_lines(onelevel::Level<T> L, int ty_arg, int tx_arg, bool vec, LiftParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    fwd1_strips<EXT>(x, ll, hl, lh, hh, g, P, reinterpret_cast<T*>(smem_raw));
+    T* s = reinterpret_cast<T*>(smem_raw);
+    const int ty = ST ? ST : ty_arg, tx = ST ? ST : tx_arg;
+    const int EY = ty + 2 * onelevel::HALO, EX = tx + 2 * onelevel::HALO;
+    const int RS = lines::stride(EX), y0 = blockIdx.y * ty, x0 = blockIdx.x * tx;
+    onelevel::fwd_load<EXT>(L, s, RS, EY, EX, y0, x0, vec);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    lines::lift_fwd<NST, SYM>(s, EY, EX, RS, P);
+    onelevel::fwd_store(s, RS, L, y0, x0, ty / 2, tx / 2, P);
 }
 
-template <int EXT, typename T>
+template <typename T, int ST, int NST, bool SYM, int EXT>
 __global__ void __launch_bounds__(THREADS)
-sinv1_kernel(const T* ll, const T* hl, const T* lh, const T* hh, T* out, Strips g,
-             LiftParams P) {
+sinv1_lines(onelevel::Level<T> L, int ty_arg, int tx_arg, LiftParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    inv1_strips<EXT>(ll, hl, lh, hh, out, g, P, reinterpret_cast<T*>(smem_raw));
+    T* s = reinterpret_cast<T*>(smem_raw);
+    const int ty = ST ? ST : ty_arg, tx = ST ? ST : tx_arg;
+    const int EY = ty + 2 * onelevel::HALO, EX = tx + 2 * onelevel::HALO;
+    const int RS = lines::stride(EX), y0 = blockIdx.y * ty, x0 = blockIdx.x * tx;
+    onelevel::inv_load<EXT>(L, s, RS, EY, EX, y0, x0);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    lines::lift_inv<NST, SYM>(s, EY, EX, RS, P);
+    onelevel::inv_store(s, RS, L, y0, x0, ty, tx);
 }
 
 // B11 and B12 on the line walks: the strips above and deep.cuh's levels in
@@ -498,28 +491,79 @@ int plan(K kernel, size_t smem, int h, int w, int ty, int tx, Strips* g,
     return 0;
 }
 
-template <int EXT, typename T>
-int launch_sfwd1(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w, int ty, int tx,
-                 const LiftParams* P, cudaStream_t stream) {
-    const size_t smem = sizeof(T) * 2 * (size_t)tiles::lvl1_elems(ty, tx);
-    Strips g;
-    int resident = 0;
-    const int err = plan(sfwd1_kernel<EXT, T>, smem, h, w, ty, tx, &g, &resident);
-    if (err) return err;
-    sfwd1_kernel<EXT, T><<<g.items(), THREADS, smem, stream>>>(x, ll, hl, lh, hh, g, *P);
+// B7 or B9: ``kernel`` with ``args`` over the ty x tx strips of an h x w
+// level, one block each, with its window's shared memory; or, where
+// ``info`` is set, no launch but info[0..3] <- the kernel's registers,
+// blocks an SM, grid and shared memory (bytes).  A strip must be even and
+// its window's lines must fit the block (ty, tx <= 248).
+template <typename T, typename K, typename... Args>
+int launch_level(K kernel, int h, int w, int ty, int tx, int* info, cudaStream_t stream,
+                 Args... args) {
+    const int H = onelevel::HALO;
+    if (ty < 2 || tx < 2 || ty % 2 || tx % 2 || std::max(ty, tx) + 2 * H > THREADS)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = sizeof(T) * (size_t)(ty + 2 * H) * lines::stride(tx + 2 * H);
+    int err = 0;
+    if (smem > 48 * 1024
+        && (err = (int)cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+        return err;
+    const dim3 grid((w + tx - 1) / tx, (h + ty - 1) / ty);
+    if (info) {
+        cudaFuncAttributes a;
+        if ((err = (int)cudaFuncGetAttributes(&a, kernel))) return err;
+        if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kernel,
+                                                                      THREADS, smem)))
+            return err;
+        info[0] = a.numRegs;
+        info[2] = (int)(grid.x * grid.y);
+        info[3] = (int)smem;
+        return 0;
+    }
+    kernel<<<grid, THREADS, smem, stream>>>(args...);
     return (int)cudaGetLastError();
 }
 
-template <int EXT, typename T>
-int launch_sinv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int h,
-                 int w, int ty, int tx, const LiftParams* P, cudaStream_t stream) {
-    const size_t smem = sizeof(T) * 2 * (size_t)tiles::lvl1_elems(ty, tx);
-    Strips g;
-    int resident = 0;
-    const int err = plan(sinv1_kernel<EXT, T>, smem, h, w, ty, tx, &g, &resident);
-    if (err) return err;
-    sinv1_kernel<EXT, T><<<g.items(), THREADS, smem, stream>>>(ll, hl, lh, hh, out, g, *P);
-    return (int)cudaGetLastError();
+// B7: the steps alternate d, s from d (1, 2 or 4 of them); ext: 0 or TOP.
+template <typename T>
+int launch_sfwd1(const T* x, T* ll, T* hl, T* lh, T* hh, int h, int w, int ty, int tx,
+                 int ext, int* info, const LiftParams* P, cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (s % 2 == 0)) return (int)cudaErrorInvalidValue;
+    if (ext != 0 && ext != TOP) return (int)cudaErrorInvalidValue;
+    const onelevel::Level<T> L{const_cast<T*>(x), {ll, hl, lh, hh}, h, w, 0};
+    const bool vec = w % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+    return dispatch<T>(ty == tx ? ty : 0, P, [&](auto st, auto nst, auto sym) {
+        constexpr int Q = decltype(st)::value, N = decltype(nst)::value;
+        constexpr bool S = decltype(sym)::value;
+        return ext ? launch_level<T>(sfwd1_lines<T, Q, N, S, TOP>, h, w, ty, tx, info,
+                                     stream, L, ty, tx, vec, *P)
+                   : launch_level<T>(sfwd1_lines<T, Q, N, S, 0>, h, w, ty, tx, info, stream,
+                                     L, ty, tx, vec, *P);
+    });
+}
+
+// B9: the steps (already reversed and negated) alternate s, d from s (2 or
+// 4 of them), or are one d step; ext: 0 or TOP.
+template <typename T>
+int launch_sinv1(const T* ll, const T* hl, const T* lh, const T* hh, T* out, int h, int w,
+                 int ty, int tx, int ext, int* info, const LiftParams* P,
+                 cudaStream_t stream) {
+    for (int s = 0; s < P->n; ++s)
+        if (P->is_d[s] != (P->n == 1 || s % 2 == 1)) return (int)cudaErrorInvalidValue;
+    if (ext != 0 && ext != TOP) return (int)cudaErrorInvalidValue;
+    const onelevel::Level<T> L{out,
+                               {const_cast<T*>(ll), const_cast<T*>(hl), const_cast<T*>(lh),
+                                const_cast<T*>(hh)},
+                               h, w, 0};
+    return dispatch<T>(ty == tx ? ty : 0, P, [&](auto st, auto nst, auto sym) {
+        constexpr int Q = decltype(st)::value, N = decltype(nst)::value;
+        constexpr bool S = decltype(sym)::value;
+        return ext ? launch_level<T>(sinv1_lines<T, Q, N, S, TOP>, h, w, ty, tx, info,
+                                     stream, L, ty, tx, *P)
+                   : launch_level<T>(sinv1_lines<T, Q, N, S, 0>, h, w, ty, tx, info, stream,
+                                     L, ty, tx, *P);
+    });
 }
 
 // The shared memory of the strips on the line walks (B8/B10, and B11/B12
@@ -747,30 +791,31 @@ int launch_sdeep_inv_mxu(float* out, void* const* ptrs, int n, int h, int w, int
 // h, w: the frame's size (divisible by 4; even for the single levels, and
 // without the extension when ext_rows is set); ty, tx: the strip rows and
 // band columns (divisible by 4); tile: the deep levels' per-level tile;
-// ext_rows: 0, or TOP for boundary_rows='extended'.  dwt_s2info_*: what a
-// launch of B8 (inverse 0) or B10 (1) with these arguments runs, out[0..3]
-// <- its kernel's registers, blocks an SM, grid and shared memory (bytes).
+// ext_rows: 0, or TOP for boundary_rows='extended'.  dwt_s1info_* and
+// dwt_s2info_*: what a launch of B7 / B8 (inverse 0) or B9 / B10 (1) with
+// these arguments runs, out[0..3] <- its kernel's registers, blocks an SM,
+// grid and shared memory (bytes).
 #define LIBDWT_STREAMED(SUF, T)                                                    \
     extern "C" int dwt_sfwd1_##SUF(const T* x, T* ll, T* hl, T* lh, T* hh, int h,   \
                                    int w, int ty, int tx, int ext_rows,            \
                                    const LiftParams* P, void* stream) {            \
-        if (ext_rows != 0 && ext_rows != TOP) return (int)cudaErrorInvalidValue;   \
-        return ext_rows                                                            \
-            ? launch_sfwd1<TOP, T>(x, ll, hl, lh, hh, h, w, ty, tx, P,             \
-                                   (cudaStream_t)stream)                           \
-            : launch_sfwd1<0, T>(x, ll, hl, lh, hh, h, w, ty, tx, P,               \
-                                 (cudaStream_t)stream);                            \
+        return launch_sfwd1<T>(x, ll, hl, lh, hh, h, w, ty, tx, ext_rows, nullptr, \
+                               P, (cudaStream_t)stream);                           \
     }                                                                              \
     extern "C" int dwt_sinv1_##SUF(const T* ll, const T* hl, const T* lh,           \
                                    const T* hh, T* out, int h, int w, int ty,      \
                                    int tx, int ext_rows, const LiftParams* P,      \
                                    void* stream) {                                 \
-        if (ext_rows != 0 && ext_rows != TOP) return (int)cudaErrorInvalidValue;   \
-        return ext_rows                                                            \
-            ? launch_sinv1<TOP, T>(ll, hl, lh, hh, out, h, w, ty, tx, P,           \
-                                   (cudaStream_t)stream)                           \
-            : launch_sinv1<0, T>(ll, hl, lh, hh, out, h, w, ty, tx, P,             \
-                                 (cudaStream_t)stream);                            \
+        return launch_sinv1<T>(ll, hl, lh, hh, out, h, w, ty, tx, ext_rows,        \
+                               nullptr, P, (cudaStream_t)stream);                  \
+    }                                                                              \
+    extern "C" int dwt_s1info_##SUF(int inverse, int h, int w, int ty, int tx,     \
+                                    int ext_rows, const LiftParams* P, int* out) { \
+        if (inverse)                                                               \
+            return launch_sinv1<T>(nullptr, nullptr, nullptr, nullptr, nullptr, h, \
+                                   w, ty, tx, ext_rows, out, P, nullptr);          \
+        return launch_sfwd1<T>(nullptr, nullptr, nullptr, nullptr, nullptr, h, w,  \
+                               ty, tx, ext_rows, out, P, nullptr);                 \
     }                                                                              \
     extern "C" int dwt_sfwd2_##SUF(const T* x, T* ll2, T* hl2, T* lh2, T* hh2,      \
                                    T* hl1, T* lh1, T* hh1, int h, int w, int ty,   \

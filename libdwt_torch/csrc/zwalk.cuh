@@ -10,7 +10,7 @@
 // warm-up pairs (two a side, the halo of four samples of lines.cuh), whose
 // values may be stale or come from the zeros the state starts with, and no
 // step that reaches a pair between them reads one.  So the pairs between
-// the warm-ups are lift_tile's values bit for bit.
+// the warm-ups are a whole-window pass's values bit for bit.
 #pragma once
 
 #include "lines.cuh"

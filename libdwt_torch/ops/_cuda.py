@@ -186,6 +186,10 @@ _SIGS = {
     # (registers, blocks an SM, grid, shared memory) of the B8/B10 kernel a
     # launch runs
     "dwt_s2info": [_I] * 5 + [_PP, _P],
+    # the same for B7/B9: inverse (0/1), h, w, strip rows, band columns,
+    # extension rows (0 or 8), host int[4] <- (registers, blocks an SM,
+    # grid, shared memory)
+    "dwt_s1info": [_I] * 6 + [_PP, _P],
     # frame or output, host array of band pointers, deep levels, h, w, ty,
     # tx, tile, host int[2] <- (grid, resident blocks)
     "dwt_sdeep_fwd": [_P, _P] + [_I] * 6 + [_P, _PP, _P],
@@ -213,7 +217,7 @@ _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt3_sinfo": "streamed3d.cu",
               "dwt_sfwd1": "streamed.cu", "dwt_sinv1": "streamed.cu",
               "dwt_sfwd2": "streamed.cu", "dwt_sinv2": "streamed.cu",
-              "dwt_s2info": "streamed.cu",
+              "dwt_s2info": "streamed.cu", "dwt_s1info": "streamed.cu",
               "dwt_sdeep_fwd": "streamed.cu", "dwt_sdeep_inv": "streamed.cu",
               **{base: "streamed.cu" for base in _F32_ONLY},
               **{base: "remote_halo.cu" for base in _UNTYPED}}

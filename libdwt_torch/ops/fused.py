@@ -338,11 +338,11 @@ def _cdiv(a: int, b: int) -> int:
 
 def dwt2_level_tiles(x, wavelet, ty: int, tx: int, ext: int = 0):
     """One forward 2-D level on ty x tx tiles with a halo of HALO on both
-    axes (the tile algebra of csrc/onelevel.cuh, B1/B3, and of
-    csrc/tiles.cuh fwd1_*, the streamed B7) -> (LL, HL, LH, HH), any
-    size.  ``ext`` > 0: x carries that many caller rows above and below
-    the image (boundary_rows='extended'), read with no row mirror; rows
-    past them read as 0, as in the kernels."""
+    axes (the tile algebra of csrc/onelevel.cuh: B1/B3, and the streamed
+    B7 on a ty x tx strip) -> (LL, HL, LH, HH), any size.  ``ext`` > 0: x
+    carries that many caller rows above and below the image
+    (boundary_rows='extended'), read with no row mirror; rows past them
+    read as 0, as in the kernels."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(x.dtype), False)
     h, w = x.shape
@@ -374,10 +374,9 @@ def dwt2_level_plain(x, wavelet="cdf97", tile: int = TILE1, ext: bool = False):
 
 def idwt2_level_tiles(ll, hl, lh, hh, wavelet, ty: int, tx: int, ext: int = 0):
     """One inverse 2-D level on ty x tx output tiles (the tile algebra of
-    csrc/onelevel.cuh, B4/B6, and of csrc/tiles.cuh inv1_*, the streamed
-    B9).  ``ext``
-    > 0: every band carries that many caller channel rows above and below
-    (boundary_rows='extended'), read with no row mirror."""
+    csrc/onelevel.cuh: B4/B6, and the streamed B9 on a ty x tx strip).
+    ``ext`` > 0: every band carries that many caller channel rows above and
+    below (boundary_rows='extended'), read with no row mirror."""
     wavelet = get_wavelet(wavelet)
     table, scales = _step_table(wavelet, _is_int(ll.dtype), True)
     h, w = ll.shape[0] + lh.shape[0], ll.shape[1] + hl.shape[1]

@@ -3,19 +3,22 @@
 
 The JAX kernels stream full-width strips of ``strip_rows`` rows through two
 VMEM buffers with explicit async copies.  The CUDA kernels
-(``csrc/streamed.cu``) keep the semantics and the streaming, not the TPU
-tiling: a persistent block walks a column band of ``tx`` samples down the
-frame in strips of ``ty`` rows and has strip i+1's load in flight while it
-lifts strip i (the single levels through two buffers, the two-level
-strips on one).  ``strip_rows`` is validated exactly as the
+(``csrc/streamed.cu``) keep the semantics, not the TPU tiling: the frame
+is cut into column bands of ``tx`` samples and strips of ``ty`` rows.  A
+single level takes one strip a block; the two-level kernels and the
+pyramids walk a column band down the frame in a persistent block, strip
+i+1's load in flight while strip i lifts.  ``strip_rows`` is validated exactly as the
 reference validates it (:func:`pick_strip`, the 2..32 strip range, the
 window checks), so the port raises ``ValueError`` on the same geometries,
 but it does not size the CUDA strip.
 
 Ported kernels (TPU kernel ids of ROADMAP section B):
-  B7  streamed_dwt2_level     -> csrc/streamed.cu dwt_sfwd1_* (one level;
-                                 the 8-row extended contract)
-  B9  streamed_idwt2_level    -> csrc/streamed.cu dwt_sinv1_*
+  B7  streamed_dwt2_level     -> csrc/streamed.cu dwt_sfwd1_* (one strip a
+                                 block on B1's body, csrc/onelevel.cuh,
+                                 with the 8-row extended contract: == B1
+                                 bit for bit; strip sides <= 248)
+  B9  streamed_idwt2_level    -> csrc/streamed.cu dwt_sinv1_* (B4's body:
+                                 == B4)
   B8  streamed_dwt2_2level    -> csrc/streamed.cu dwt_sfwd2_* (the strip
                                  phase of B11 alone, on B2's line-walk
                                  body: == B2 bit for bit)
@@ -392,6 +395,23 @@ def strip_kernel_info(dtype, wavelet="cdf97", inverse: bool = False, shape=(2144
     return dict(zip(("registers", "blocks_per_sm", "grid", "smem"), out))
 
 
+def level_kernel_info(dtype, wavelet="cdf97", inverse: bool = False, shape=(2144, 4096),
+                      ty: int = STRIP_TY, tx: int = STRIP_TX, ext: int = 0) -> dict:
+    """Registers, blocks an SM, grid and shared memory of the CUDA kernel
+    that B7 (or, ``inverse``, B9) runs for ``dtype`` and ``wavelet`` on an
+    h x w ``shape`` (without the extension) with the strip ty x tx and
+    ``ext`` extension rows (0 or TOP): the card's own figures, for
+    measurement."""
+    from libdwt_torch.ops import _cuda
+    from libdwt_torch.ops.fused import _lift_params, _suffix
+
+    out = (ctypes.c_int * 4)()
+    params = _lift_params(get_wavelet(wavelet), dtype == torch.int32, inverse)
+    _cuda.check(_cuda.kernel_fn("dwt_s1info", _suffix(dtype))(
+        int(inverse), *shape, ty, tx, ext, ctypes.byref(params), out), "dwt_s1info")
+    return dict(zip(("registers", "blocks_per_sm", "grid", "smem"), out))
+
+
 def _count(kids, body: str) -> None:
     """Count a wrapper call on either device (and B13's, for the banded
     body)."""
@@ -422,7 +442,9 @@ def streamed_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
     contract), read with no row mirror; columns still mirror.  ``h`` is
     taken from the shape, so a wrong extension depth is not detected (as
     in the reference).  ``strip_rows`` is validated as the reference
-    validates it; the CUDA strip is ``ty`` x ``tx``."""
+    validates it; the CUDA strip is ``ty`` x ``tx`` (multiples of 4; the
+    kernel refuses a side over 248, whose window lines outgrow its block,
+    and the wrapper raises ``RuntimeError``)."""
     wavelet = get_wavelet(wavelet)
     _check_fused_supported(wavelet)
     if x.ndim != 2:
@@ -452,7 +474,8 @@ def streamed_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
     :func:`streamed_dwt2_level`; the four bands must share one shape.
 
     ``boundary_rows='extended'``: every band carries TOP = 8 valid channel
-    rows above and below, read with no row mirror."""
+    rows above and below, read with no row mirror.  The CUDA strip is
+    ``ty`` x ``tx`` output samples, as in the forward."""
     wavelet = get_wavelet(wavelet)
     _check_fused_supported(wavelet)
     ext = _check_boundary_rows(boundary_rows)

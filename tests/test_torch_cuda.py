@@ -10,8 +10,9 @@ GPU machine that has no JAX installed:
 
 Inputs come from a numpy seed.  float32 is held to 3e-5 (the kernels and
 their plain versions round the same way, so they usually agree exactly),
-int32 bit-exactly, B8, B10, B11 and B12 bit for bit in every dtype (and
-equal to B2 and B5, B2 then B3, B6 then B5), B1 and B4 bit for bit in every dtype (the frames of
+int32 bit-exactly, B7-B12 bit for bit in every dtype (and equal to B1
+and B4, B2 and B5, B2 then B3, B6 then B5; B7/B9 refuse a strip side over
+248), B1 and B4 bit for bit in every dtype (the frames of
 their paths and 513x511, mirror and extended rows, tiles 4-96, every fused
 wavelet, misaligned inputs, outputs written whole and nothing past them; a
 window too wide is refused), B2 and B5 bit for bit in every dtype (main-path frame,
@@ -856,49 +857,93 @@ SINGLE = [
     # and bands (132, 100 columns), short tails (204 rows at ty=64: 12)
     (260, 128, torch.float32, "cdf97", 64, 64),
     (204, 132, torch.float32, "cdf97", 64, 48),
-    (512, 384, torch.float32, "cdf53", 128, 128),  # 148 KB of shared memory
+    (512, 384, torch.float32, "cdf53", 128, 128),  # 73 KB of shared memory
     (256, 256, torch.float32, "haar", 32, 64),
     (200, 100, torch.float32, "interp53", 16, 20),
     (200, 128, torch.int32, "cdf53", 64, 64),
     (288, 132, torch.int32, "cdf97", 16, 16),
     (256, 256, torch.int32, "haar", 32, 32),
+    (204, 132, torch.float64, "cdf97", 64, 48),
+    (512, 384, torch.float64, "cdf97", 128, 128),  # 147 KB of shared memory
+    # the widest strip side a block takes: a window line of 256 samples
+    (512, 512, torch.float32, "cdf97", 248, 16),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,dtype,wavelet,ty,tx", SINGLE)
 def test_b7_b9_kernels_match_plain(cuda_device, h, w, dtype, wavelet, ty, tx):
-    x = _img(h, w, dtype, cuda_device, seed=14)
-    exact = dtype == torch.int32
+    """B7/B9 run B1/B4's one-level body on a strip: == their plain versions
+    bit for bit in every dtype."""
+    x = _img(h, w, dtype, cuda_device, seed=14).to(dtype)
     tf.reset_counters()
     b = ts.streamed_dwt2_level(x, wavelet, ty=ty, tx=tx)
-    _close(list(b), list(ts.streamed_dwt2_level_plain(x, wavelet, ty, tx)), exact)
+    _close(list(b), list(ts.streamed_dwt2_level_plain(x, wavelet, ty, tx)), True)
     rec = ts.streamed_idwt2_level(*b, wavelet, ty=ty, tx=tx)
-    _close(rec, ts.streamed_idwt2_level_plain(*b, wavelet, ty, tx), exact)
+    _close(rec, ts.streamed_idwt2_level_plain(*b, wavelet, ty, tx), True)
     torch.cuda.synchronize()
     assert (tf.KERNELS["B7"].launches, tf.KERNELS["B9"].launches) == (1, 1)
-    if exact:
+    if dtype == torch.int32:
         _close(list(b), list(sep.dwt2_level(x, wavelet)), True)
         assert torch.equal(rec, x)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dtype,ty,tx", [
+    (2144, 4096, torch.float32, 64, 64),  # the streamed single-level path's frame
+    (260, 132, torch.float32, 32, 48), (260, 132, torch.float64, 64, 64),
+    (260, 132, torch.int32, 16, 20)])
+def test_b7_b9_equal_b1_b4(cuda_device, h, w, dtype, ty, tx):
+    """B7 runs B1's body and B9 B4's, with their halo of 4, on any strip:
+    on the card B7 equals B1 and B9 equals B4 bit for bit."""
+    wavelet = "cdf53" if dtype == torch.int32 else "cdf97"
+    x = _img(h, w, dtype, cuda_device, seed=20).to(dtype)
+    b = ts.streamed_dwt2_level(x, wavelet, ty=ty, tx=tx)
+    _close(list(b), list(tf.fused_dwt2_level(x, wavelet)), True)
+    rec = ts.streamed_idwt2_level(*b, wavelet, ty=ty, tx=tx)
+    _close(rec, tf.fused_idwt2_level(*b, wavelet), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b7_b9_level_kernels_fit_their_blocks(cuda_device, dtype):
+    """dwt_s1info: the registers, blocks an SM and grid of B7/B9's kernels
+    at the default strip (one block a strip); a strip side over 248, whose
+    window lines outgrow the block, is refused both ways."""
+    wavelet = "cdf53" if dtype == torch.int32 else "cdf97"
+    for inverse in (False, True):
+        for ext in (0, ts.TOP):
+            info = ts.level_kernel_info(dtype, wavelet, inverse, ext=ext)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+            assert info["grid"] == (4096 // 64) * -(-2144 // 64)
+            item = torch.empty((), dtype=dtype).element_size()
+            assert info["smem"] == item * 72 * 74
+    x = _img(512, 512, dtype, cuda_device).to(dtype)
+    with pytest.raises(RuntimeError):
+        ts.streamed_dwt2_level(x, wavelet, ty=252, tx=16)
+    b = ts.streamed_dwt2_level(x, wavelet)
+    with pytest.raises(RuntimeError):
+        ts.streamed_idwt2_level(*b, wavelet, ty=16, tx=252)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,w,dtype,wavelet,ty,tx", [
     (512, 512, torch.float32, "cdf97", 64, 64), (260, 132, torch.float32, "cdf53", 32, 48),
-    (260, 132, torch.int32, "cdf53", 64, 64), (204, 128, torch.int32, "cdf97", 16, 20)])
+    (260, 132, torch.int32, "cdf53", 64, 64), (204, 128, torch.int32, "cdf97", 16, 20),
+    (260, 132, torch.float64, "cdf97", 32, 64)])
 def test_streamed_extended_rows_kernels_match_plain(cuda_device, h, w, dtype, wavelet,
                                                     ty, tx):
-    """The 8-row (TOP) contract of the single streamed levels, both ways."""
-    exact = dtype == torch.int32
-    xe = _img(h + 2 * ts.TOP, w, dtype, cuda_device, seed=15)
+    """The 8-row (TOP) contract of the single streamed levels, both ways,
+    bit for bit in every dtype."""
+    xe = _img(h + 2 * ts.TOP, w, dtype, cuda_device, seed=15).to(dtype)
     b = ts.streamed_dwt2_level(xe, wavelet, boundary_rows="extended", ty=ty, tx=tx)
-    _close(list(b), list(ts.streamed_dwt2_level_plain(xe, wavelet, ty, tx, ts.TOP)), exact)
+    _close(list(b), list(ts.streamed_dwt2_level_plain(xe, wavelet, ty, tx, ts.TOP)), True)
     assert tuple(b[0].shape) == (h // 2, w // 2)
-    bands = [_img(h // 2 + 2 * ts.TOP, w // 2, dtype, cuda_device, seed=16 + i)
+    bands = [_img(h // 2 + 2 * ts.TOP, w // 2, dtype, cuda_device, seed=16 + i).to(dtype)
              for i in range(4)]
     rec = ts.streamed_idwt2_level(*bands, wavelet, boundary_rows="extended", ty=ty, tx=tx)
     assert tuple(rec.shape) == (h, w)
-    _close(rec, ts.streamed_idwt2_level_plain(*bands, wavelet, ty, tx, ts.TOP), exact)
+    _close(rec, ts.streamed_idwt2_level_plain(*bands, wavelet, ty, tx, ts.TOP), True)
 
 
 SVOLUME = [

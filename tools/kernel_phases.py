@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Where a hand-written 2-D kernel spends its time on the GPU: B1, B4 (the
 one-level kernels of csrc/level.cu), B2, B5 (the two-level kernels of
-csrc/fused2l.cu), B3, B6 (the deep tails of csrc/deep.cu), B8, B10 (the
-two-level strip kernels of csrc/streamed.cu), B13F, B13I (the
+csrc/fused2l.cu), B3, B6 (the deep tails of csrc/deep.cu), B7, B9 (the
+single streamed levels of csrc/streamed.cu, one strip a block), B8, B10
+(the two-level strip kernels of csrc/streamed.cu), B13F, B13I (the
 banded tensor-core body B13 in the two-level strips of csrc/streamed.cu,
 forward as B8-mxu runs it, inverse as B10-mxu), and the volume kernels B14,
 B15 (csrc/fused3d.cu) and B16, B17 (csrc/streamed3d.cu).
 
-    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B8 B10 B13F B13I B14 B15 B16 B17]
+    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B7 B9 B8 B10 B13F B13I B14 B15 B16 B17]
                                    [--tile N] [--tile3 TZ,TY,TX] [--reps 200] [--seed 0]
 
 For each kernel named, on the main path's shapes (2144x4096 float32 CDF
-9/7: B1 and B2 on the frame, B4 on its one-level bands, B5 on its
-two-level bands, B3 on its 536x1024 LL2 for three levels, B6 on those
-three levels' bands):
+9/7: B1, B2 and B7 on the frame, B4 and B9 on its one-level bands, B5 on
+its two-level bands, B3 on its 536x1024 LL2 for three levels, B6 on those
+three levels' bands; B7/B9 at the square strip ``--tile``, 64 by default):
 
 1. Times the kernel with CUDA events over back-to-back launches made
    straight through ctypes into preallocated outputs, so that the
@@ -27,8 +28,8 @@ three levels' bands):
    mean and median cycles per block (per level for B3/B6, whose phases
    repeat once a level: load, lift, stores, grid sync), a block's
    lifetime, the most blocks resident on an SM at once, and (B1, B3, B4,
-   B6, B8, B10, B13) the blocks an SM that the occupancy query allows the
-   stamped kernel at its shared memory.
+   B6, B7, B9, B8, B10, B13) the blocks an SM that the occupancy query
+   allows the stamped kernel at its shared memory.
 3. B8, B10 (``--tile``: their square strip, 64 by default) and B13
    (``--tile`` is its square strip, by default the tree's): the phases
    repeat once a strip and once a pass, so each block adds up its cycles
@@ -107,14 +108,14 @@ KERNELS = {
            "tile": 32, "round": "k", "instance": "deep_fwd_kernel<float, 4, true>",
            "phases": (("__pipeline_wait_prior(0);", "load"),
                       ("lines::lift_fwd<NST, SYM>(", "lift"),
-                      ("fwd_store(s, RS, L, y0, x0, P);", "stores"),
+                      ("fwd_store(s, RS, L, y0, x0, ", "stores"),
                       ("if (k + 1 < d.n) grid.sync();", "grid sync"))},
     "B6": {"source": "deep.cu", "kernel": "deep_inv_kernel", "entry": "dwt_deep_inv",
            "body": ("deep.cuh", "inv_levels"),
            "tile": 32, "round": "k", "instance": "deep_inv_kernel<float, 4, true>",
            "phases": (("__pipeline_wait_prior(0);", "load"),
                       ("lines::lift_inv<NST, SYM>(", "lift"),
-                      ("inv_store(s, RS, L, y0, x0);", "stores"),
+                      ("inv_store(s, RS, L, y0, x0", "stores"),
                       ("if (k + 1 < d.n) grid.sync();", "grid sync"))},
 }
 
@@ -212,6 +213,18 @@ KERNELS["B10"] = {
                ("inv2::store(s1, RS1, b.out, g.h, g.w, y0, x0, ty, tx);", "stores")),
     "smem": lambda ty, tx, mats: 4 * ((ty // 2 + 16) * _lines_stride(tx // 2 + 16)
                                       + (ty + 8) * _lines_stride(tx + 8))}
+
+
+# B7, B9: one ty x tx strip a block on onelevel.cuh's body (``tile`` is the
+# square strip), one round of phases a block as for B1/B4.
+for _kid, _kern, _entry, _lift, _store in (
+        ("B7", "sfwd1_lines", "dwt_sfwd1", "lines::lift_fwd<NST, SYM>(", "onelevel::fwd_store("),
+        ("B9", "sinv1_lines", "dwt_sinv1", "lines::lift_inv<NST, SYM>(", "onelevel::inv_store(")):
+    KERNELS[_kid] = {
+        "source": "streamed.cu", "kernel": _kern, "entry": _entry, "tile": 64, "round": None,
+        "instance": f"{_kern}<float, 64, 4, true, 0>",
+        "phases": (("__pipeline_wait_prior(0);", "load"), (_lift, "lift"), (_store, "stores")),
+        "smem": lambda ty, tx, mats: 4 * (ty + 8) * _lines_stride(tx + 8)}
 
 
 def _tile3_smem(tile):
@@ -534,7 +547,7 @@ def make_case(kid, tile, seed):
 
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.random((H, W), dtype=np.float32)).cuda()
-    P = F._lift_params(F.get_wavelet(WV), False, kid in ("B4", "B5", "B6"))
+    P = F._lift_params(F.get_wavelet(WV), False, kid in ("B4", "B5", "B6", "B9"))
     info = (ctypes.c_int * 2)()
     extra = []
     if kid in ("B14", "B15", "B16", "B17"):
@@ -596,6 +609,18 @@ def make_case(kid, tile, seed):
             want = [F.idwt2_level_plain(*bands, WV, tile)]
         args = [t.data_ptr() for t in ins + outs] + [H, W, tile, 0]
         blocks = -(-W // (2 * tile)) * -(-H // (2 * tile))
+    elif kid in ("B7", "B9"):
+        from libdwt_torch.ops import streamed as S
+
+        bands = [a.contiguous() for a in S.streamed_dwt2_level_plain(x, WV, tile, tile)]
+        if kid == "B7":
+            ins, outs, want = [x], [torch.empty_like(a) for a in bands], bands
+        else:
+            ins = bands
+            outs = [torch.empty((H, W), device="cuda")]
+            want = [S.streamed_idwt2_level_plain(*bands, WV, tile, tile)]
+        args = [t.data_ptr() for t in ins + outs] + [H, W, tile, tile, 0]
+        blocks = -(-W // tile) * -(-H // tile)
     elif kid in ("B8", "B10"):
         from libdwt_torch.ops import streamed as S
 
