@@ -29,8 +29,9 @@
      their banded body B13) and J=2 (B8, B10 with B13);
    - the sharded path: ``parallel.sharded_wavedec2`` / ``sharded_waverec2``
      of a 2048x4096 frame, J=5, on a mesh of eight shards of this card
-     with ``halo_impl='rdma'`` (the halo push B18: once per forward level,
-     once per channel per inverse level), exactly equal to the
+     with ``halo_impl='rdma'`` (the halo kernel B18: a line on one card
+     takes one ordinary gather launch, once per forward level and once per
+     inverse level for both channels), exactly equal to the
      ``'ppermute'`` exchange; then the same frame with ``kernel='fused'``
      (B1/B4 on every shard and level) and ``kernel='streamed'`` (B7/B9 at
      levels 1-2, B1/B4 below);
@@ -71,8 +72,10 @@
    the tensor cores sum in another order; B11 and B12 with the banded body
    also equal to B8-mxu then B3 and B6 then B10-mxu on the frame, bit for
    bit, and their registers and blocks an SM are printed), and B18 at the
-   sharded path's level-1 shapes (exactly; timed at each of the 15 launch
-   shapes of the sharded J=5 path, beside each one's byte bound).
+   sharded path's level-1 shapes in every edge mode and as the inverse's
+   channel pair, the gather and the push (exactly; timed at each of the 10 launch shapes of the
+   sharded J=5 path, beside each one's byte bound and
+   ``torch.index_select`` of the same rows).
 5. Times each kernel and its plain version with CUDA events (and the
    kernel's device time with the profiler, which leaves out the host's
    cost of issuing it), beside the card's bound for the same work; B8
@@ -225,12 +228,14 @@ def print_windows(label: str, times, reps: int, smi: str) -> None:
               f"[{smi}]", flush=True)
 
 
-def device_ms(fn, reps: int = 5, tries: int = 3, only: str | None = None):
+def device_ms(fn, reps: int = 5, tries: int = 3, only: str | None = None,
+              skip: str | None = None):
     """Device time per call of ``fn`` (torch.profiler, CUPTI): the kernels'
     own time without the host's cost of issuing them, which event times
     over back-to-back calls include once a kernel is faster than its
     wrapper.  With ``only``, just the device records whose name holds it
-    count (one kernel, without the copies its wrapper makes).  A profiled
+    count (one kernel, without the copies its wrapper makes); with
+    ``skip``, the records whose name holds it do not count.  A profiled
     pass whose device records are not a whole number per call has lost
     some (the trace can drop them in a process's first passes) and is said
     so and taken again, up to ``tries`` passes; None if no pass records
@@ -248,7 +253,7 @@ def device_ms(fn, reps: int = 5, tries: int = 3, only: str | None = None):
         us, n = 0.0, 0
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and (
-                    only is None or only in e.key):
+                    only is None or only in e.key) and (skip is None or skip not in e.key):
                 us += getattr(e, "self_device_time_total", None) or getattr(
                     e, "self_cuda_time_total", 0)
                 n += e.count
@@ -1361,9 +1366,10 @@ def main() -> int:
                   f"{feed} [{smi}]", flush=True)
 
     # ---- the sharded path: 2048x4096 f32 CDF 9/7 J=5 on a mesh of eight
-    # shards of this card, halo_impl='rdma' (B18 once per forward level and
-    # once per channel per inverse level); 2144 = 32*67 does not divide into
-    # 8 shards * 2^5, so the frame keeps the width and takes 2048 rows
+    # shards of this card, halo_impl='rdma' (B18: one gather launch per
+    # forward level and one per inverse level for both channels); 2144 =
+    # 32*67 does not divide into 8 shards * 2^5, so the frame keeps the
+    # width and takes 2048 rows
     from libdwt_torch.parallel import (make_mesh_2d, sharded_wavedec2, sharded_wavedec3,
                                        sharded_waverec2, sharded_waverec3)
     from libdwt_torch.parallel import remote_halo as RH
@@ -1374,17 +1380,19 @@ def main() -> int:
     xsh = torch.from_numpy(rng.random((HS, W), dtype=np.float32)).to(dev)
     torch.cuda.synchronize()
     F.reset_counters()
+    RH.LAST_GRID.clear()
     shc = sharded_wavedec2(xsh, WV, J, mesh=mesh8, halo_impl="rdma")
     shr = sharded_waverec2(shc, WV, mesh=mesh8, halo_impl="rdma")
     torch.cuda.synchronize()
     sh_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
     print(f"sharded rdma J={J} launches: " + json.dumps(sh_launches)
-          + f", cooperative (grid, resident blocks): {json.dumps(RH.LAST_GRID)}", flush=True)
-    require(sh_launches == {"B18": 3 * J},
+          + f", (path, grid, resident blocks): {json.dumps(RH.LAST_GRID)}", flush=True)
+    require(sh_launches == {"B18": 2 * J},
             f"sharded_wavedec2/waverec2 halo_impl='rdma' J={J} on {NS} shards launched B18 "
-            f"{J} + 2*{J} times")
-    require(all(1 <= g <= r for g, r in RH.LAST_GRID.values()),
-            "B18 cooperative grid fits the card's co-resident blocks")
+            f"{J} + {J} times (one launch a level, both inverse channels in one)")
+    require(all(p == "gather" and g >= 1 for p, g, _ in RH.LAST_GRID.values()),
+            "B18 took the gather on this card's lines (one ordinary launch, no cooperative "
+            "launch, no flags)")
     launches["B18"] = sh_launches["B18"]
     pp = sharded_wavedec2(xsh, WV, J, mesh=mesh8)
     ppr = sharded_waverec2(pp, WV, mesh=mesh8)
@@ -1494,9 +1502,37 @@ def main() -> int:
     for mode in ("s", "d"):
         errs["B18"] = max(errs["B18"], max_abs(RH.rdma_extend_rows(b18_blocks, 2, mode),
                                                RH.rdma_extend_rows_plain(b18_blocks, 2, mode)))
+    # the inverse's level-1 channel blocks: 8 x 128x4096 each
+    s_blocks, d_blocks = [b[: hb // 2] for b in b18_blocks], [b[hb // 2:] for b in b18_blocks]
+    errs["B18"] = max(errs["B18"], max_abs(
+        list(RH.rdma_extend_channels(s_blocks, d_blocks, 2)),
+        list(RH.rdma_extend_channels_plain(s_blocks, d_blocks, 2))))
     torch.cuda.synchronize()
     require(errs["B18"] == 0, "B18 kernel == plain at the level-1 shapes (8 x 256x4096, "
-            "halo 4; channel halos 2, 's' and 'd')")
+            "halo 4; channel halos 2, 's' and 'd'; the channel pair in one launch)")
+    # the library yardstick: one torch.index_select of the frame's rows by
+    # the gather's row map computes B18's function on these row views
+    b18_idx = RH.gather_rows(NS, hb, 4, 1, 1).to(dev)
+    require(max_abs(list(xsh.index_select(0, b18_idx).view(NS, hb + 8, W).unbind(0)),
+                    RH.rdma_extend_rows_plain(b18_blocks, 4)) == 0,
+            "torch.index_select of the frame's rows by gather_rows == B18's plain version "
+            "at the level-1 shapes")
+    # the push, the protocol of a line over several cards, on this card's
+    # line: every edge mode at the level-1 shapes, its cooperative grid
+    # within the card's co-resident blocks
+    RH.LAST_GRID.clear()
+    err = 0.0
+    for halo, mode in ((4, "signal"), (2, "s"), (2, "d")):
+        err = max(err, max_abs(RH._push_cuda(b18_blocks, halo, *RH._EDGE_MODES[mode]),
+                               RH.rdma_extend_rows_plain(b18_blocks, halo, mode)))
+    torch.cuda.synchronize()
+    errs["B18"] = max(errs["B18"], err)
+    print(f"B18 push on one card (path, grid, resident blocks): {json.dumps(RH.LAST_GRID)}",
+          flush=True)
+    require(err == 0, "B18's push == plain at the level-1 shapes on this card (8 x "
+            "256x4096, halo 4; channel halos 2, 's' and 'd')")
+    require(all(p == "push" and 1 <= g <= r for p, g, r in RH.LAST_GRID.values()),
+            "B18's push: one cooperative launch whose grid fits the card's co-resident blocks")
     if torch.cuda.device_count() >= 2 and torch.cuda.can_device_access_peer(0, 1):
         two = [b18_blocks[i].to(torch.device("cuda", i % 2)) for i in range(4)]
         err = max_abs([g.cpu() for g in RH.rdma_extend_rows(two, 4)],
@@ -1681,6 +1717,10 @@ def main() -> int:
                   f"{fmt(device_ms(fn))}) [{smi}]", flush=True)
         # the same functions as B1, B2, B11 and B14 compute
         library.update(B7=library["B1"], B8=library["B2"], B16=library["B14"])
+        library["B18"] = time_ms(lambda: xsh.index_select(0, b18_idx), args.reps)
+        print(f"time library B18 (index_select of the frame's rows, {NS} x {hb}x{W} halo 4): "
+              f"{library['B18']:.4f} ms (device "
+              f"{fmt(device_ms(lambda: xsh.index_select(0, b18_idx)))}) [{smi}]", flush=True)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -1780,44 +1820,91 @@ def main() -> int:
     # B18 at each launch shape of the sharded rdma path, in launch order: the
     # forward's halo-4 extension of each level's blocks, then per inverse
     # level (coarse first) the 's' and 'd' channel extensions (halo 2) of
-    # its stacked bands; each beside its byte bound (inputs read once,
-    # outputs written once)
-    b18_calls, extend = [], RH._extend_rows_cuda
+    # its stacked bands in one launch; each beside its byte bound (inputs
+    # read once, outputs written once) and one torch.index_select a channel
+    # of the same rows (contiguous frames, the index built once)
+    b18_calls, gather = [], RH._gather_cuda
 
-    def keep_b18(blocks, halo, t_off, b_off):
-        b18_calls.append((list(blocks), halo, t_off, b_off))
-        return extend(blocks, halo, t_off, b_off)
+    def keep_b18(lines, halo, dev_):
+        b18_calls.append(([(list(b), t_off, b_off) for b, t_off, b_off in lines], halo, dev_))
+        return gather(lines, halo, dev_)
 
-    RH._extend_rows_cuda = keep_b18
+    RH._gather_cuda = keep_b18
     try:
         sharded_waverec2(sharded_wavedec2(xsh, WV, J, mesh=mesh8, halo_impl="rdma"), WV,
                          mesh=mesh8, halo_impl="rdma")
     finally:
-        RH._extend_rows_cuda = extend
+        RH._gather_cuda = gather
     torch.cuda.synchronize()
-    require(len(b18_calls) == 3 * J, f"the sharded rdma path made {3 * J} B18 launches")
+    require(len(b18_calls) == 2 * J, f"the sharded rdma path made {2 * J} B18 launches")
     # the forward's blocks of levels 2-5 are transposed views, which the
     # wrapper copies before the launch: time contiguous copies, and only
-    # B18's own kernel
-    b18_parts, b18_sum, b18_bound = [], 0.0, 0.0
-    for i, (blocks, halo, t_off, b_off) in enumerate(b18_calls):
-        blocks = [b.contiguous() for b in blocks]
-        bh, bw_ = blocks[0].shape
-        item = blocks[0].element_size()
-        nbytes = (sum(b.numel() for b in blocks) + len(blocks) * (bh + 2 * halo) * bw_) * item
+    # B18's own kernel.  Levels 2-5 fit in the card's L2 (50 MB), so
+    # back-to-back repeats read them warm, as the path does (a level reads
+    # what the last one wrote); the byte bound is HBM's, so each shape is
+    # also timed cold, the L2
+    # filled with other lines by a 256 MB read before each call (a read
+    # leaves no dirty lines to write back; only the kernel's own records
+    # count).  Cold, the L2 still takes the outputs' writes and writes them
+    # back after the kernel ends, so a cold time can fall below the bound
+    # where the outputs fit in it (level 1's 34.6 MB); warm, each call pays
+    # the last one's write-backs
+    evict = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
+
+    def cold():  # a sum of each 4 KB row: one kernel, no cross-block memset
+        return evict.view(-1, 1024).sum(1)
+
+    b18_parts, b18_bound = [], 0.0
+    b18_sum = dict.fromkeys(("warm", "cold", "lib", "lib_cold"), 0.0)
+
+    def add(key, t):
+        b18_sum[key] = None if b18_sum[key] is None or t is None else b18_sum[key] + t
+
+    for i, (lines, halo, dev_) in enumerate(b18_calls):
+        lines = [([b.contiguous() for b in blocks], t_off, b_off)
+                 for blocks, t_off, b_off in lines]
+        frames = [torch.cat(blocks) for blocks, _, _ in lines]
+        idxs = [RH.gather_rows(len(blocks), blocks[0].shape[0], halo, t_off,
+                               b_off).to(dev_) for blocks, t_off, b_off in lines]
+        got = gather(lines, halo, dev_)
+        require(max_abs([torch.stack(o).view(-1, o[0].shape[1]) for o in got],
+                        [f.index_select(0, ix) for f, ix in zip(frames, idxs)]) == 0,
+                f"B18 launch {i + 1} of the sharded path == index_select of its rows")
+        nbytes = sum((f.numel() + ix.numel() * f.shape[1]) * f.element_size()
+                     for f, ix in zip(frames, idxs))
         bound = nbytes / bw * 1e3
-        t = device_ms(lambda: extend(blocks, halo, t_off, b_off), only="halo_kernel")
+
+        def gather_once():
+            return gather(lines, halo, dev_)
+
+        def select_once():
+            return [f.index_select(0, ix) for f, ix in zip(frames, idxs)]
+
+        # the trace drops whole passes here now and then: more tries
+        t = device_ms(gather_once, tries=6, only="gather_kernel")
+        tc = device_ms(lambda: (cold(), gather_once()), tries=6, only="gather_kernel")
+        lib_t = device_ms(select_once, tries=6)
+        lib_c = device_ms(lambda: (cold(), select_once()), tries=6, skip="reduce_kernel")
+        n_, bh, bw_ = len(lines[0][0]), *lines[0][0][0].shape
         what = (f"forward level {i + 1}" if i < J else
-                f"inverse level {J - (i - J) // 2} {'sd'[(i - J) % 2]}")
-        b18_parts.append(f"{what} {len(blocks)} x {bh}x{bw_} halo {halo}: {fmt(t)} "
-                         f"(bound {bound:.4f} ms)")
-        b18_sum = None if b18_sum is None or t is None else b18_sum + t
+                f"inverse level {J - (i - J)} s+d")
+        b18_parts.append(f"{what} {n_} x {bh}x{bw_} halo {halo}: {fmt(t)} warm, {fmt(tc)} "
+                         f"cold (bound {bound:.4f} ms; index_select {fmt(lib_t)} warm, "
+                         f"{fmt(lib_c)} cold)")
+        for key, ms_ in (("warm", t), ("cold", tc), ("lib", lib_t), ("lib_cold", lib_c)):
+            add(key, ms_)
         b18_bound += bound
-    loss = None if b18_sum is None else b18_sum - b18_bound
+    del evict
+    loss = {k: None if b18_sum[k] is None else b18_sum[k] - b18_bound
+            for k in ("warm", "cold")}
     print(f"time B18 per launch (device, the sharded {HS}x{W} f32 J={J} rdma path on "
-          f"{NS} shards of this card): " + "; ".join(b18_parts)
-          + f"; sum {fmt(b18_sum)}, bound {b18_bound:.4f} ms, loss {fmt(loss)} [{smi}]",
-          flush=True)
+          f"{NS} shards of this card; warm: repeats back to back, the small levels from L2, "
+          f"where their HBM byte bounds are not bounds; cold: a 256 MB read before each "
+          f"call evicts them): " + "; ".join(b18_parts)
+          + f"; sum {fmt(b18_sum['warm'])} warm, {fmt(b18_sum['cold'])} cold, bound "
+          f"{b18_bound:.4f} ms, loss {fmt(loss['warm'])} warm, {fmt(loss['cold'])} cold; "
+          f"index_select {fmt(b18_sum['lib'])} "
+          f"warm, {fmt(b18_sum['lib_cold'])} cold [{smi}]", flush=True)
     profile_path(f"B18 at the level-1 shapes ({NS} x {hb}x{W}, halo 4)",
                  lambda: RH.rdma_extend_rows(b18_blocks, 4), smi)
     profile_path(f"sharded rdma path J={J} (sharded_wavedec2 + sharded_waverec2)",

@@ -1,15 +1,39 @@
-// Neighbour-push row halo of a row-sharded 2-D block for Hopper (sm_90a).
+// Row halo of a row-sharded 2-D block for Hopper (sm_90a): the gather of a
+// line on one card, and the neighbour push of a line over several cards.
 //
-// halo_extend_rows replaces libdwt_tpu/parallel/remote_halo.py
-// rdma_extend_rows (:46, pallas_call :191; TPU kernel id B18) and, called
-// once per channel, rdma_extend_channels (:214).  Each of the n shards of
-// a line along a mesh axis holds an h x w block x_i; its output out_i is
-// (h + 2*halo) x w: out_i[halo : halo+h] = x_i, the top halo rows come
-// from the previous shard's last rows, the bottom ones from the next
-// shard's first rows, and the global borders take the mirror rows of the
-// edge mode (t_off, b_off) (remote_halo.py:43).
+// Both replace libdwt_tpu/parallel/remote_halo.py rdma_extend_rows (:46,
+// pallas_call :191; TPU kernel id B18) and rdma_extend_channels (:214).
+// Each of the n shards of a line along a mesh axis holds an h x w block
+// x_i; its output out_i is (h + 2*halo) x w: out_i[halo : halo+h] = x_i, the
+// top halo rows come from the previous shard's last rows, the bottom ones
+// from the next shard's first rows, and the global borders take the mirror
+// rows of the edge mode (t_off, b_off) (remote_halo.py:43): out_0[r] =
+// x_0[t_off + halo-1-r], out_{n-1}[halo+h+r] = x_{n-1}[h-1-b_off-r].
 //
-// Protocol (remote_halo.py:90-189 without its DMA descriptors).  Each
+// halo_gather_rows: a line whose shards all sit on one device.  Their
+// inputs and outputs are ordered by the device's stream, so no shard waits
+// for another: one ordinary launch, no flags, no fence, no spin.  It takes
+// one or two channels (the inverse's 's' and 'd' blocks of a line, each
+// with its own pointer table, shape and mirror offsets) in one launch.  One
+// index space covers every row of every shard's extended output, cut into
+// 16-byte chunks; a thread works out each chunk's source row (its own
+// block, a neighbour's, or a mirror row: source_row, which
+// remote_halo.py gather_rows states in torch) and copies 16 bytes where
+// both rows' chunk starts are 16-byte aligned and the row holds a whole
+// chunk, else the chunk's elements one at a time (odd widths, misaligned
+// views).  One chunk a thread, one pass: the halo rows are spread over the
+// grid like the centre; the level-1 shapes fill the 132 SMs many times over
+// (8448 blocks), a small level takes the few blocks its bytes need.  More
+// chunks a thread lost at the small levels, where a launch is latency:
+// each added about 0.4 us (tools/halo_ablate.py).
+//
+// Bound on an H100: bytes.  Each input is read once and each output
+// written once: for the 2048x4096 f32 level-1 extension over 8 shards at
+// halo 4, 33.6 MB in and 34.6 MB out, 68.2 MB, about 0.020 ms at
+// 3.35 TB/s; the inverse's two channel blocks at halo 2 as much together.
+//
+// halo_extend_rows: a line over several cards, one cooperative launch per
+// device (remote_halo.py:90-189 without its DMA descriptors).  Each
 // shard's first block, for shard i:
 //   1. signals "entered" into each neighbour's flags, then waits until
 //      each neighbour has entered: a neighbour's output buffer may be
@@ -39,16 +63,10 @@
 // pair (halo_enable_peer).  The copy is typed by element size (4 bytes
 // for f32/i32, 8 for f64); any width and any row offset.  The
 // pointer table rides in the kernel's parameters (at most MAX_SHARDS).
-//
-// Bound on an H100: bytes.  Each input is read once and each output
-// written once: for the 2048x4096 f32 level-1 extension over 8 shards at
-// halo 4, 33.6 MB in and 34.6 MB out, 68.2 MB, about 0.020 ms at
-// 3.35 TB/s.  The centre copy is spread over all the co-resident blocks;
-// the halo pushes and mirror rows (4 x 4096 per neighbour) fall to each
-// shard's first block, which the neighbours wait for, so every copy moves
-// 16 bytes a thread where the rows allow, unrolled over non-aliasing
-// pointers: copied an element at a time, that first block's ~130
-// dependent loads per thread held the launch at ~80 us.
+// The centre copy is spread over all the co-resident blocks; the halo
+// pushes and mirror rows (4 x 4096 per neighbour) fall to each shard's
+// first block, which the neighbours wait for, so every copy moves 16 bytes
+// a thread where the rows allow, unrolled over non-aliasing pointers.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -245,4 +263,121 @@ extern "C" int halo_enable_peer(int dev, int peer) {
         return 0;
     }
     return err;
+}
+
+namespace {
+
+constexpr int GATHER_THREADS = 256;
+constexpr int MAX_CHANNELS = 2;
+// the chunk index: 32 bits (the entry point refuses a launch of 2^32
+// chunks, 64 GB of output); 64-bit division cost each small launch 0.3 us
+using Index = unsigned;
+
+struct Channel {
+    const void* x[MAX_SHARDS];
+    void* out[MAX_SHARDS];
+    Index chunks;  // n * (h + 2*halo) * cpr: this channel's part of the index space
+    int h, w, cpr, t_off, b_off;  // cpr: 16-byte chunks a row
+};
+
+struct Gather {
+    Channel c[MAX_CHANNELS];
+};
+
+// The shard ``s`` and row ``row`` of the line's inputs that shard i's
+// output row r copies.
+__device__ __forceinline__ void source_row(int i, int r, int n, int h, int halo, int t_off,
+                                           int b_off, int& s, int& row) {
+    if (r < halo) {  // top halo: the previous shard's last rows, or the mirror
+        s = i > 0 ? i - 1 : i;
+        row = i > 0 ? h - halo + r : t_off + halo - 1 - r;
+    } else if (r < halo + h) {
+        s = i;
+        row = r - halo;
+    } else {  // bottom halo: the next shard's first rows, or the mirror
+        const int k = r - halo - h;
+        s = i < n - 1 ? i + 1 : i;
+        row = i < n - 1 ? k : h - 1 - b_off - k;
+    }
+}
+
+// One 16-byte chunk a thread: chunk q of the channels' index space.
+template <typename T>
+__global__ void __launch_bounds__(GATHER_THREADS)
+gather_kernel(Gather g, int channels, Index total, int n, int halo) {
+    constexpr int PER = 16 / sizeof(T);
+    Index q = (Index)blockIdx.x * GATHER_THREADS + threadIdx.x;
+    if (q >= total) return;
+    const int ch = channels > 1 && q >= g.c[0].chunks;
+    if (ch) q -= g.c[0].chunks;
+    const int h = g.c[ch].h, w = g.c[ch].w;
+    const Index cpr = g.c[ch].cpr, per_shard = (Index)(h + 2 * halo) * cpr;
+    const int i = (int)(q / per_shard);
+    const Index rem = q - (Index)i * per_shard;
+    const int r = (int)(rem / cpr);
+    const int e0 = (int)(rem - (Index)r * cpr) * PER;
+    int s, row;
+    source_row(i, r, n, h, halo, g.c[ch].t_off, g.c[ch].b_off, s, row);
+    const T* src = static_cast<const T*>(g.c[ch].x[s]) + (size_t)row * w + e0;
+    T* dst = static_cast<T*>(g.c[ch].out[i]) + (size_t)r * w + e0;
+    const int len = w - e0 < PER ? w - e0 : PER;
+    if (len == PER && (((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
+        *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {  // a row's tail, or rows off 16-byte alignment
+        T v[PER];
+#pragma unroll
+        for (int e = 0; e < PER; ++e)
+            if (e < len) v[e] = src[e];
+#pragma unroll
+        for (int e = 0; e < PER; ++e)
+            if (e < len) dst[e] = v[e];
+    }
+}
+
+}  // namespace
+
+// One ordinary launch on the current device for ``channels`` (1 or 2) lines
+// of ``n`` shards that all sit on it.  xs/outs: host arrays of channels x n
+// input and output pointers, channel by channel; geom: host int[4 *
+// channels], each channel's h, w, t_off, b_off; elem: bytes per element
+// (4 or 8, one for both channels).  *grid <- the launch's blocks.  Returns
+// a cudaError_t.
+extern "C" int halo_gather_rows(void* const* xs, void* const* outs, int n, int channels,
+                                const int* geom, int halo, int elem, int* grid,
+                                void* stream) {
+    if (n < 1 || n > MAX_SHARDS || channels < 1 || channels > MAX_CHANNELS || halo < 1 ||
+        (elem != 4 && elem != 8))
+        return (int)cudaErrorInvalidValue;
+    Gather g{};
+    long long total = 0;
+    for (int c = 0; c < channels; ++c) {
+        const int h = geom[4 * c], w = geom[4 * c + 1], t_off = geom[4 * c + 2],
+                  b_off = geom[4 * c + 3];
+        if (h < halo + 1 || w < 1 || t_off < 0 || b_off < 0 || t_off + halo > h ||
+            h - halo - b_off < 0)
+            return (int)cudaErrorInvalidValue;
+        Channel& ch = g.c[c];
+        for (int i = 0; i < n; ++i) {
+            ch.x[i] = xs[c * n + i];
+            ch.out[i] = outs[c * n + i];
+        }
+        ch.h = h;
+        ch.w = w;
+        ch.t_off = t_off;
+        ch.b_off = b_off;
+        ch.cpr = (int)(((long long)w * elem + 15) / 16);
+        const long long chunks = (long long)n * (h + 2 * halo) * ch.cpr;
+        total += chunks;
+        if (total >= (1ll << 32)) return (int)cudaErrorInvalidValue;
+        ch.chunks = (Index)chunks;
+    }
+    *grid = (int)((total + GATHER_THREADS - 1) / GATHER_THREADS);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (elem == 4)
+        gather_kernel<uint32_t><<<*grid, GATHER_THREADS, 0, s>>>(g, channels, (Index)total, n,
+                                                                halo);
+    else
+        gather_kernel<uint64_t><<<*grid, GATHER_THREADS, 0, s>>>(g, channels, (Index)total, n,
+                                                                halo);
+    return (int)cudaGetLastError();
 }

@@ -206,9 +206,13 @@ _SIGS = {
     # int[2] <- (grid, resident blocks), stream
     "halo_extend_rows": [_P, _P, _P, _I, _P] + [_I] * 7 + [ctypes.c_uint, _P, _P],
     "halo_enable_peer": [_I, _I],
+    # the halo gather (B18 on one device): host arrays of channels x n
+    # input and output pointers, n, channels, host int[4 * channels] (h, w,
+    # t_off, b_off each), halo, elem, host int <- grid, stream
+    "halo_gather_rows": [_P, _P, _I, _I, _P, _I, _I, _P, _P],
 }
 _F32_ONLY = ("dwt_sfwd2_mxu", "dwt_sinv2_mxu", "dwt_sdeep_fwd_mxu", "dwt_sdeep_inv_mxu")
-_UNTYPED = ("halo_extend_rows", "halo_enable_peer")
+_UNTYPED = ("halo_extend_rows", "halo_enable_peer", "halo_gather_rows")
 _SOURCE_OF = {"dwt_fwd2": "fused2l.cu", "dwt_inv2": "fused2l.cu",
               "dwt_deep_fwd": "deep.cu", "dwt_deep_inv": "deep.cu",
               "dwt_fwd1": "level.cu", "dwt_inv1": "level.cu",
@@ -232,8 +236,8 @@ def _suffixes(base: str):
 
 def kernel_fn(name: str, suffix: str = ""):
     """The C entry point ``<name>_<suffix>`` (suffix 'f32', 'f64' or 'i32';
-    the banded body's only 'f32'; none for the halo push, which is typed by
-    element size), building and loading the libraries on first use."""
+    the banded body's only 'f32'; none for the halo push and gather, which
+    are typed by element size), building and loading the libraries on first use."""
     key = f"{name}_{suffix}" if suffix else name
     if key not in _fns:
         paths = build_all()

@@ -1,11 +1,16 @@
 """The sharded transforms and the float64 kernels on the card.
 
-* B18, the halo push kernel (csrc/remote_halo.cu), held bit for bit against
-  its plain version over shard counts, halos, edge modes and dtypes, odd
-  widths and the smallest blocks; 200 calls back to back on one mesh (the
-  epoch advances, nothing hangs); the ``halo_impl='rdma'`` pyramid exactly
-  equal to the ``'ppermute'`` one on an eight-shard mesh of one card; and a
-  mesh over two cards, which skips without a second card with peer access.
+* B18 (csrc/remote_halo.cu): the gather of a line on one card held bit for
+  bit against its plain version over shard counts, halos, edge modes and
+  dtypes, odd widths, one-column blocks, the smallest blocks and blocks
+  whose rows start off 16-byte alignment, always one ordinary launch; the
+  channel pair in one launch; 200 calls back to back; a failed launch
+  raises; the ``halo_impl='rdma'`` pyramid exactly equal to the
+  ``'ppermute'`` one on an eight-shard mesh of one card, with 2 x J
+  launches and no cooperative one.  The push, the protocol of a line over
+  several cards, on a line of one card over the same shard counts, halos,
+  edge modes and dtypes, and 200 pushes back to back; and over two cards,
+  which skips without a second card with peer access.
 * The float64 instantiations of the polyphase kernels (B1-B12, B14-B17),
   each bit for bit against its plain version on the same CUDA tensors.
 * An explicit 'auto' 2-D pyramid whose top level stays separable
@@ -66,36 +71,113 @@ def _blocks(n, h, w, dtype, device, seed=0):
 # ------------------------------------------------------------------ B18
 
 
+def _misaligned(n, h, w, dtype, device, seed):
+    """Contiguous blocks one element past a 16-byte boundary (views of one
+    allocation)."""
+    flat = torch.cat([b.reshape(-1) for b in _blocks(n, h, w, dtype, device, seed)])
+    flat = torch.cat([flat[:1], flat])
+    return [flat[1 + i * h * w: 1 + (i + 1) * h * w].view(h, w) for i in range(n)]
+
+
+def _gathered():
+    """Every device's last B18 launch was the gather (no cooperative launch)."""
+    return all(p == "gather" and g >= 1 and r == 0 for p, g, r in rh.LAST_GRID.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
 @pytest.mark.parametrize("edge_mode", ["signal", "s", "d"])
 def test_b18_matches_plain(cuda_device, dtype, edge_mode):
     tf.reset_counters()
+    rh.LAST_GRID.clear()
     calls = 0
     for n in (1, 2, 3, 8):
-        for halo in (2, 4, 8):
-            for h, w in ((24, 40), (halo + 1, 4097)):
-                blocks = _blocks(n, h, w, dtype, cuda_device, seed=n * halo + h)
-                got = rh.rdma_extend_rows(blocks, halo, edge_mode)
-                calls += 1
-                _equal(got, rh.rdma_extend_rows_plain(blocks, halo, edge_mode))
-                assert all(g.device == b.device for g, b in zip(got, blocks))
+        for halo in (1, 2, 4, 8):
+            for h, w in ((24, 40), (halo + 1, 4097), (halo + 1, 1), (halo + 3, 64)):
+                seed = n * halo + h + w
+                for blocks in (_blocks(n, h, w, dtype, cuda_device, seed),
+                               _misaligned(n, h, w, dtype, cuda_device, seed)):
+                    got = rh.rdma_extend_rows(blocks, halo, edge_mode)
+                    calls += 1
+                    _equal(got, rh.rdma_extend_rows_plain(blocks, halo, edge_mode))
+                    assert all(g.device == b.device for g, b in zip(got, blocks))
     torch.cuda.synchronize()
     assert tf.KERNELS["B18"].launches == calls
-    assert all(1 <= g <= r for g, r in rh.LAST_GRID.values())
+    assert list(rh.LAST_GRID) == [str(torch.device("cuda", torch.cuda.current_device()))]
+    assert _gathered()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_b18_channel_pair_one_launch(cuda_device, dtype):
+    """Both channels of an inverse line in one gather launch, each with its
+    own mirror rule (and here its own width), == two plain calls."""
+    for n, ch, h, w in ((8, 2, 128, 4096), (3, 4, 5, 33), (1, 1, 2, 1)):
+        s = _blocks(n, h, w, dtype, cuda_device, seed=n + ch)
+        d = _misaligned(n, h, w + 3, dtype, cuda_device, seed=n + ch + 1)
+        tf.reset_counters()
+        rh.LAST_GRID.clear()
+        got_s, got_d = rh.rdma_extend_channels(s, d, ch)
+        torch.cuda.synchronize()
+        assert tf.KERNELS["B18"].launches == 1 and _gathered()
+        _equal(got_s, rh.rdma_extend_rows_plain(s, ch, "s"))
+        _equal(got_d, rh.rdma_extend_rows_plain(d, ch, "d"))
+        _equal([got_s, got_d], list(rh.rdma_extend_channels_plain(s, d, ch)))
 
 
 @pytest.mark.cuda
 def test_b18_back_to_back_calls(cuda_device):
     blocks = _blocks(8, 64, 256, torch.float32, cuda_device, seed=5)
     want = rh.rdma_extend_rows_plain(blocks, 4)
+    tf.reset_counters()
     outs = [rh.rdma_extend_rows(blocks, 4) for _ in range(200)]
     torch.cuda.synchronize()
+    assert tf.KERNELS["B18"].launches == 200
     _equal(outs[0], want)
     _equal(outs[-1], want)
     s, d = rh.rdma_extend_channels(blocks, blocks, 2)
     _equal(s, rh.rdma_extend_rows_plain(blocks, 2, "s"))
     _equal(d, rh.rdma_extend_rows_plain(blocks, 2, "d"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+@pytest.mark.parametrize("edge_mode", ["signal", "s", "d"])
+def test_b18_push_matches_plain(cuda_device, dtype, edge_mode):
+    """The push, the protocol of a line over several cards, on a line of one
+    card: == plain, one cooperative launch a call whose grid fits the
+    card's co-resident blocks."""
+    t_off, b_off = rh._EDGE_MODES[edge_mode]
+    tf.reset_counters()
+    rh.LAST_GRID.clear()
+    calls = 0
+    for n in (1, 2, 3, 8):
+        for halo in (2, 4, 8):
+            for h, w in ((24, 40), (halo + 1, 4097)):
+                blocks = _blocks(n, h, w, dtype, cuda_device, seed=n * halo + h)
+                got = rh._push_cuda(blocks, halo, t_off, b_off)
+                calls += 1
+                _equal(got, rh.rdma_extend_rows_plain(blocks, halo, edge_mode))
+                assert all(g.device == b.device for g, b in zip(got, blocks))
+    torch.cuda.synchronize()
+    assert tf.KERNELS["B18"].launches == calls
+    assert all(p == "push" and 1 <= g <= r for p, g, r in rh.LAST_GRID.values())
+
+
+@pytest.mark.cuda
+def test_b18_push_back_to_back_calls(cuda_device):
+    """200 pushes back to back on one line of one card: the epoch advances,
+    nothing hangs, the last call is still right."""
+    blocks = _blocks(8, 64, 256, torch.float32, cuda_device, seed=5)
+    tf.reset_counters()
+    outs = [rh._push_cuda(blocks, 4, 1, 1) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert tf.KERNELS["B18"].launches == 200
+    want = rh.rdma_extend_rows_plain(blocks, 4)
+    _equal(outs[0], want)
+    _equal(outs[-1], want)
+    _equal(rh._push_cuda(blocks, 2, 1, 0), rh.rdma_extend_rows_plain(blocks, 2, "s"))
+    _equal(rh._push_cuda(blocks, 2, 0, 1), rh.rdma_extend_rows_plain(blocks, 2, "d"))
 
 
 @pytest.mark.cuda
@@ -105,6 +187,11 @@ def test_b18_rejects_bad_lines(cuda_device):
         rh.rdma_extend_rows(blocks, 8)
     with pytest.raises(ValueError, match="mixes"):
         rh.rdma_extend_rows([blocks[0], blocks[1].cpu()], 4)
+    with pytest.raises(ValueError, match="mixes"):
+        rh.rdma_extend_channels(blocks, [b.cpu() for b in blocks], 2)
+    # a launch the kernel refuses (a mirror window past the block) raises
+    with pytest.raises(RuntimeError):
+        rh._gather_cuda([(blocks, 6, 0)], 4, blocks[0].device)
 
 
 @pytest.mark.cuda
@@ -113,10 +200,13 @@ def test_rdma_pyramid_equals_ppermute(cuda_device):
     x = torch.from_numpy(np.random.default_rng(3).random((512, 256), dtype=np.float32))
     x = x.to(cuda_device)
     tf.reset_counters()
+    rh.LAST_GRID.clear()
     got = sharded_wavedec2(x, "cdf97", 3, mesh=mesh, halo_impl="rdma")
     rec = sharded_waverec2(got, "cdf97", mesh=mesh, halo_impl="rdma")
     torch.cuda.synchronize()
-    assert tf.KERNELS["B18"].launches == 3 + 2 * 3
+    # one gather launch a forward level, one for both channels an inverse level
+    assert tf.KERNELS["B18"].launches == 3 + 3
+    assert _gathered()  # no cooperative launch on a line of one card
     _equal(got, sharded_wavedec2(x, "cdf97", 3, mesh=mesh))
     _equal(rec, sharded_waverec2(got, "cdf97", mesh=mesh))
     for a, b in zip(_leaves(got), _leaves(sep.wavedec2(x, "cdf97", 3))):
@@ -133,11 +223,13 @@ def test_b18_across_two_cards(cuda_device):
     blocks = [torch.from_numpy(rng.standard_normal((32, 300)).astype(np.float32)).to(d)
               for d in devs]
     tf.reset_counters()
+    rh.LAST_GRID.clear()
     for _ in range(20):
         got = rh.rdma_extend_rows(blocks, 4)
     for d in range(2):
         torch.cuda.synchronize(d)
     assert tf.KERNELS["B18"].launches == 20 * 2
+    assert all(p == "push" and 1 <= g <= r for p, g, r in rh.LAST_GRID.values())
     _equal(got, rh.rdma_extend_rows_plain(blocks, 4))
     mesh = make_mesh_2d(1, 4, devices=devs)
     x = torch.from_numpy(rng.random((256, 128), dtype=np.float32)).to(devs[0])

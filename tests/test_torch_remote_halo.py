@@ -7,6 +7,16 @@
   ``_exchange_channels_inv``, which share its ``extend_line``): exactly
   equal for 1, 2, 3 and 8 shards, halos 2, 4 and 8, every edge mode, and
   float32, float64 and int32.
+* B18's plain versions (``rdma_extend_rows_plain`` and the two-channel
+  ``rdma_extend_channels_plain``) against the reference's Pallas kernels
+  themselves, ``rdma_extend_rows`` / ``rdma_extend_channels`` in interpret
+  mode under ``jax.shard_map`` on the 8-device CPU mesh (a 256x128 float32
+  frame, halos 4 and 2, every edge mode): bit for bit.
+* The gather's row map (``gather_rows``, the index arithmetic of the CUDA
+  gather) applied with ``index_select`` to the stacked blocks, against
+  ``extend_line`` for 1, 2, 3 and 8 shards, halos 1-8, every edge mode;
+  and which CUDA path a line takes (one gather launch for a line on one
+  device, both channels in it; the push per channel over several).
 * The ``halo_impl='rdma'`` pyramid exactly equal to ``'ppermute'``.
 * ``collective_stats``: the counts the reference pins, with the bytes of the
   reference's own ``collective_stats`` (which only traces the jaxpr).
@@ -16,9 +26,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec
 
 import libdwt_tpu
 from libdwt_tpu.parallel import comm_stats as jcs
+from libdwt_tpu.parallel import remote_halo as jrh
 from libdwt_tpu.parallel import sharded as jsh
 from libdwt_torch.parallel import (make_mesh_2d, make_mesh_blocks, sharded_wavedec2,
                                    sharded_wavedec3, sharded_waverec2)
@@ -90,6 +102,97 @@ def test_plain_halo_checks():
     s, d = rh.rdma_extend_channels([torch.arange(12.).reshape(6, 2)] * 2,
                                    [torch.arange(12.).reshape(6, 2)] * 2, ch=2)
     assert s[0][:2, 0].tolist() == [4.0, 2.0] and d[0][:2, 0].tolist() == [2.0, 0.0]
+    with pytest.raises(ValueError, match="one shard count"):
+        rh.rdma_extend_channels([torch.zeros(6, 2)] * 2, [torch.zeros(6, 2)] * 3)
+
+
+#: the reference's interpret-mode cases: a 256x128 float32 frame on the
+#: 8-device CPU mesh, 32-row blocks
+REF_FRAME, REF_SHARDS = (256, 128), 8
+
+
+def _ref_line(fn, *frames):
+    """``fn`` (the reference's kernel on local blocks) under ``shard_map`` over
+    the frames' rows on the 8-device mesh, each result cut back into its
+    shards' extended blocks."""
+    spec = PartitionSpec("space", None)
+    specs = (spec,) * len(frames)
+    out = jax.shard_map(fn, mesh=jsh.make_mesh_2d(1, REF_SHARDS), in_specs=specs,
+                        out_specs=specs if len(frames) > 1 else spec, check_vma=False)(
+        *(jnp.asarray(f) for f in frames))
+    outs = out if len(frames) > 1 else (out,)
+    return [np.asarray(o).reshape(REF_SHARDS, -1, REF_FRAME[1]) for o in outs]
+
+
+def _ref_blocks(frame):
+    return list(torch.from_numpy(frame).reshape(REF_SHARDS, -1, REF_FRAME[1]).unbind(0))
+
+
+@pytest.mark.parametrize("halo", [4, 2])
+@pytest.mark.parametrize("edge_mode", ["signal", "s", "d"])
+def test_plain_halo_matches_reference_kernel(halo, edge_mode):
+    x = np.random.default_rng(20 + halo).random(REF_FRAME, dtype=np.float32)
+    (want,) = _ref_line(lambda xl: jrh.rdma_extend_rows(
+        xl, "space", mesh_axes=("data", "space"), halo=halo, interpret=True,
+        edge_mode=edge_mode), x)
+    blocks = _ref_blocks(x)
+    for got in (rh.rdma_extend_rows_plain(blocks, halo, edge_mode),
+                rh.rdma_extend_rows(blocks, halo, edge_mode)):
+        assert len(got) == REF_SHARDS
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("ch", [4, 2])
+def test_plain_channels_match_reference_kernel(ch):
+    rng = np.random.default_rng(30 + ch)
+    s, d = (rng.random(REF_FRAME, dtype=np.float32) for _ in range(2))
+    want_s, want_d = _ref_line(lambda a, b: jrh.rdma_extend_channels(
+        a, b, "space", mesh_axes=("data", "space"), ch=ch, interpret=True), s, d)
+    sb, db = _ref_blocks(s), _ref_blocks(d)
+    for got_s, got_d in (rh.rdma_extend_channels_plain(sb, db, ch),
+                         rh.rdma_extend_channels(sb, db, ch)):
+        for got, want in ((got_s, want_s), (got_d, want_d)):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("edge_mode", ["signal", "s", "d"])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_gather_row_map_matches_extend_line(n, edge_mode):
+    t_off, b_off = rh._EDGE_MODES[edge_mode]
+    for halo in range(1, 9):
+        for h in (halo + 1, halo + 2, 2 * halo + 5):
+            blocks = [torch.from_numpy(b) for b in _blocks(n, h, 3, np.float64, seed=h)]
+            idx = rh.gather_rows(n, h, halo, t_off, b_off)
+            assert idx.shape == (n * (h + 2 * halo),) and idx.dtype == torch.int64
+            assert int(idx.min()) >= 0 and int(idx.max()) < n * h
+            got = torch.cat(blocks).index_select(0, idx).reshape(n, h + 2 * halo, 3)
+            for g, w in zip(got, rh.extend_line(blocks, halo, t_off, b_off)):
+                assert torch.equal(g, w)
+
+
+def test_cuda_path_by_devices(monkeypatch):
+    """A line whose blocks sit on one device is gathered in one launch, both
+    channels together; a line over several devices is pushed channel by
+    channel; more than 64 shards are refused.  The kernels are stood in for
+    (the blocks' first value names their device)."""
+    seen = []
+    monkeypatch.setattr(rh, "_device", lambda b: torch.device("cuda", int(b[0, 0])))
+    monkeypatch.setattr(rh, "_gather_cuda", lambda lines, halo, dev: seen.append(
+        ("gather", len(lines), dev.index)) or [[None] for _ in lines])
+    monkeypatch.setattr(rh, "_push_cuda", lambda blocks, halo, t, b: seen.append(
+        ("push", (t, b))) or [None])
+    one, two = [torch.zeros(6, 4)] * 3, [torch.zeros(6, 4), torch.ones(6, 4)]
+    rh._extend_cuda([(one, 1, 0), (one, 0, 1)], 2)
+    rh._extend_cuda([(one, 1, 1)], 4)
+    rh._extend_cuda([(two, 1, 0), (two, 0, 1)], 2)
+    rh._extend_cuda([(one, 1, 0), ([b.double() for b in one], 0, 1)], 2)
+    assert seen == [("gather", 2, 0), ("gather", 1, 0), ("push", (1, 0)), ("push", (0, 1)),
+                    ("gather", 1, 0), ("gather", 1, 0)]
+    with pytest.raises(ValueError, match="at most 64"):
+        rh._extend_cuda([([torch.zeros(6, 4)] * 65, 1, 1)], 2)
 
 
 def test_flag_buffers_per_line():

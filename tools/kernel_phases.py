@@ -6,9 +6,12 @@ single streamed levels of csrc/streamed.cu, one strip a block), B8, B10
 (the two-level strip kernels of csrc/streamed.cu), B13F, B13I (the
 banded tensor-core body B13 in the two-level strips of csrc/streamed.cu,
 forward as B8-mxu runs it, inverse as B10-mxu), and the volume kernels B14,
-B15 (csrc/fused3d.cu) and B16, B17 (csrc/streamed3d.cu).
+B15 (csrc/fused3d.cu) and B16, B17 (csrc/streamed3d.cu); B18, B18S (the
+halo push of csrc/remote_halo.cu at the sharded path's level-1 and level-5
+shapes).
 
-    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B7 B9 B8 B10 B13F B13I B14 B15 B16 B17]
+    python3 tools/kernel_phases.py B3 [B6 B1 B4 B2 B5 B7 B9 B8 B10 B13F B13I B14 B15 B16 B17
+                                      B18 B18S]
                                    [--tile N] [--tile3 TZ,TY,TX] [--reps 200] [--seed 0]
 
 For each kernel named, on the main path's shapes (2144x4096 float32 CDF
@@ -51,6 +54,16 @@ three levels' bands; B7/B9 at the square strip ``--tile``, 64 by default):
    parent's kernels are found as later variants: B16/B17's walk while it
    lived in streamed3d.cu, and the 3-D tile bodies of tiles3.cuh that the
    walk replaced: a tile's load, the x, y and z lifts, and its stores.
+5. B18 (8 blocks of 256x4096 float32, halo 4: the forward's level 1 on the
+   sharded 2048x4096 path) and B18S (8 of 16x256, halo 4: its level 5)
+   launch ``halo_kernel``, the push protocol of one cooperative launch for
+   a line's shards with flags between them, through ``halo_extend_rows``
+   with a new epoch each launch.  Each shard's first block stamps its
+   phases: the "entered" wait, the pushes and mirror rows, the system
+   fence, the "arrived" signal, its part of the centre copy and the
+   "arrived" wait (the waits and the signal stamped by thread 0 alone,
+   which runs them).  Beside it: the kernel's device time (CUPTI), and an
+   empty kernel of the same grid launched cooperatively and ordinarily.
 
 A kernel is data here: its source, kernel function, entry point, phase
 markers (each after or before one line of a function), the variable that
@@ -354,6 +367,39 @@ for _kid, _src, _entry in (("B16", "streamed3d.cu", "dwt3_sfwd"),
                      "acc": True, "variants": B3D_VARIANTS[_kid]}
 
 
+# B18, the halo push (csrc/remote_halo.cu halo_kernel): (shards, rows,
+# columns, halo) of a launch; the phases are stamped in every shard's
+# first block (the case's ``select``), "t0" phases by thread 0 alone with
+# no barrier.
+B18_SHAPES = {"B18": (8, 256, 4096, 4), "B18S": (8, 16, 256, 4)}
+for _kid in B18_SHAPES:
+    KERNELS[_kid] = {
+        "source": "remote_halo.cu", "kernel": "halo_kernel", "entry": "halo_extend_rows",
+        "suffix": "", "tile": 0, "round": None, "instance": "halo_kernel<uint32_t>",
+        "start": "const size_t hw = (size_t)h * w, hw_halo = (size_t)halo * w;",
+        "smem": lambda ty, tx, mats: 0,
+        "phases": (("if (i < n - 1) wait_for(my + ENTERED_NEXT, epoch);", "entered wait",
+                    "t0"),
+                   ("__threadfence_system();", "pushes, mirror rows", "before"),
+                   ("__threadfence_system();", "system fence"),
+                   ("if (i > 0) signal(tab.s[i - 1].flags + ARRIVED_NEXT, epoch);",
+                    "arrived signal", "t0"),
+                   ("(size_t)per_shard * blockDim.x);", "centre copy"),
+                   ("<end>halo_kernel", "arrived wait", "before")),
+        "extra": """
+__global__ void kp_empty_kernel() {}
+extern "C" int kp_empty(int grid, int threads, int coop, void* stream) {
+    void* args[1] = {nullptr};
+    cudaError_t err = coop ? cudaLaunchCooperativeKernel((const void*)kp_empty_kernel,
+                                                         dim3(grid), dim3(threads), args, 0,
+                                                         (cudaStream_t)stream)
+                           : cudaLaunchKernel((const void*)kp_empty_kernel, dim3(grid),
+                                              dim3(threads), args, 0, (cudaStream_t)stream);
+    return err ? (int)err : (int)cudaGetLastError();
+}
+"""}
+
+
 def window_smem(tile: int) -> int:
     """Shared memory (bytes, float32) of the one-level window of B1, B3,
     B4 and B6 at ``tile``: (2 tile + 8) rows of lines::stride columns."""
@@ -371,6 +417,8 @@ def _function(text: str, name: str, kind: str):
 
 
 def _where(phase):
+    """Where a phase's stamp goes: "after" its marker's line, "before" it, or
+    "t0" (after it, by thread 0 alone: the line is in thread 0's branch)."""
     return phase[2] if len(phase) > 2 else "after"
 
 
@@ -433,11 +481,11 @@ def _stamp_region(text, region, spec, stamp):
             if _where(ph) == "before" and (
                     ph[0] == f"<end>{name}" and n == close
                     or not ph[0].startswith("<end>") and ph[0] in ln):
-                out.append(stamp(i))
+                out.append(stamp(i, False))
         out.append(ln)
         for i, ph in enumerate(spec["phases"]):
-            if _where(ph) == "after" and ph[0] in ln:
-                out.append(stamp(i))
+            if _where(ph) in ("after", "t0") and ph[0] in ln:
+                out.append(stamp(i, _where(ph) == "t0"))
     return text[:k0] + "\n".join(out) + text[k1:]
 
 
@@ -454,9 +502,10 @@ def stamped_sources(texts: dict, spec: dict, rounds: int) -> dict:
     np_, rnd = len(spec["phases"]), spec["round"] or "0"
     nstamp = 1 + (1 if spec.get("acc") else rounds) * np_
     if spec.get("acc"):
-        stamp = lambda i: f"    KP_ACC({i});"  # noqa: E731
+        stamp = lambda i, t0: f"    KP_ACC({i});"  # noqa: E731
     else:
-        stamp = lambda i: f"    KP_STAMP(1 + ({rnd}) * {np_} + {i});"  # noqa: E731
+        stamp = lambda i, t0: (  # noqa: E731
+            f"    KP_{'T0' if t0 else 'STAMP'}(1 + ({rnd}) * {np_} + {i});")
     out = dict(texts)
     for region in _regions(spec):
         out[region[0]] = _stamp_region(out[region[0]], region, spec, stamp)
@@ -466,7 +515,7 @@ def stamped_sources(texts: dict, spec: dict, rounds: int) -> dict:
     lines = []
     for ln in kern.split("\n"):
         lines.append(ln)
-        if "extern __shared__" in ln:
+        if spec.get("start", "extern __shared__") in ln:
             lines.append("    KP_STAMP(0);")
             lines.append(f"    if (threadIdx.x == 0 && KP_ID < KP_MAX) {{"
                          f" kp_slots[KP_ID * KP_SLOTS + {nstamp}] = kp_now();"
@@ -492,6 +541,11 @@ __device__ __forceinline__ unsigned kp_smid() {{
 #define KP_STAMP(i)                                                          \\
     do {{                                                                     \\
         __syncthreads();                                                     \\
+        if (threadIdx.x == 0 && KP_ID < KP_MAX)                              \\
+            kp_slots[KP_ID * KP_SLOTS + (i)] = clock64();                          \\
+    }} while (0)
+#define KP_T0(i)                                                             \\
+    do {{                                                                     \\
         if (threadIdx.x == 0 && KP_ID < KP_MAX)                              \\
             kp_slots[KP_ID * KP_SLOTS + (i)] = clock64();                          \\
     }} while (0)
@@ -530,6 +584,7 @@ extern "C" int kp_registers(int* regs) {{
     return err;
 }}
 """
+    getter += spec.get("extra", "")
     # the prelude comes first: a stamped header uses its macros
     out[spec["source"]] = prelude + head + "\n".join(lines) + tail + getter
     return out
@@ -546,6 +601,8 @@ def make_case(kid, tile, seed):
     from libdwt_torch.ops import fused as F
 
     rng = np.random.default_rng(seed)
+    if kid in B18_SHAPES:
+        return b18_case(kid, rng)
     x = torch.from_numpy(rng.random((H, W), dtype=np.float32)).cuda()
     P = F._lift_params(F.get_wavelet(WV), False, kid in ("B4", "B5", "B6", "B9"))
     info = (ctypes.c_int * 2)()
@@ -696,6 +753,41 @@ def make_case(kid, tile, seed):
             "rounds": 1 if blocks is not None else DEEP_LEVELS}
 
 
+def b18_case(kid, rng):
+    """The push kernel B18 on one line of ``B18_SHAPES[kid]`` float32 blocks
+    of this card ('signal' edges): its flags in a buffer of this case, a new
+    epoch each launch, the grid read back from the launch."""
+    import numpy as np
+    import torch
+
+    from libdwt_torch.parallel import remote_halo as RH
+
+    n, h, w, halo = B18_SHAPES[kid]
+    ins = [torch.from_numpy(rng.random((h, w), dtype=np.float32)).cuda() for _ in range(n)]
+    outs = list(torch.empty((n, h + 2 * halo, w), device="cuda").unbind(0))
+    flags = torch.zeros(4 * n, dtype=torch.int32, device="cuda")
+    P = ctypes.c_void_p
+    xs = (P * n)(*[t.data_ptr() for t in ins])
+    os_ = (P * n)(*[t.data_ptr() for t in outs])
+    fl = (P * n)(*[flags.data_ptr() + 16 * i for i in range(n)])
+    mine = (ctypes.c_int * n)(*range(n))
+    info, epoch = (ctypes.c_int * 2)(), [0]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(fn):
+        epoch[0] += 1
+        return fn(xs, os_, fl, n, mine, n, h, w, halo, 1, 1, 4, epoch[0], info, stream)
+
+    def first_blocks(nblk):
+        per_shard = nblk // n
+        return np.arange(nblk) % per_shard == 0
+
+    return {"ins": ins, "outs": outs, "want": RH.rdma_extend_rows_plain(ins, halo),
+            "launch": launch, "tile": (n, h, w, halo), "mats": None, "flags": flags,
+            "nblocks": lambda: info[0], "rounds": 1, "select": first_blocks,
+            "what": f"{n} x {h}x{w} f32, halo {halo}"}
+
+
 def read_sources() -> dict:
     """{file: text} of every source and header of the port's csrc."""
     from libdwt_torch.ops import _cuda
@@ -707,16 +799,17 @@ def read_sources() -> dict:
     return out
 
 
-def build(kid, spec, rounds, texts):
-    """Start nvcc on the stamped copy of the kernel's source, with every
-    header copied beside it (so each include finds the stamped ones);
-    returns (process, library path)."""
+def build(kid, spec, rounds, texts, stamp=True):
+    """Start nvcc on the stamped copy of the kernel's source (with
+    ``stamp=False``, on the source as it is), with every header copied
+    beside it (so each include finds the stamped ones); returns (process,
+    library path)."""
     from libdwt_torch.ops import _cuda
 
-    bdir = os.path.join(ROOT, "build", "kernel_phases", kid)
+    bdir = os.path.join(ROOT, "build", "kernel_phases", kid if stamp else f"{kid}_plain")
     os.makedirs(bdir, exist_ok=True)
     stem = os.path.splitext(spec["source"])[0]
-    stamped = stamped_sources(texts, spec, rounds)
+    stamped = stamped_sources(texts, spec, rounds) if stamp else texts
     for name in _cuda.HEADERS:
         with open(os.path.join(bdir, name), "w") as f:
             f.write(stamped[name])
@@ -757,7 +850,8 @@ def report(kid, spec, case, lib, smi):
     acc = spec.get("acc", False)
     nstamp = 1 + (1 if acc else rounds) * np_
     slots = nstamp + 3
-    sym = f"{spec['entry']}_f32"
+    suffix = spec.get("suffix", "f32")
+    sym = f"{spec['entry']}_{suffix}" if suffix else spec["entry"]
     pfn = getattr(lib, sym)
     pfn.argtypes = _cuda._SIGS[spec["entry"]]
     pfn.restype = ctypes.c_int
@@ -778,9 +872,12 @@ def report(kid, spec, case, lib, smi):
         raise SystemExit(f"{nblk} blocks: raise MAX_BLOCKS")
     a = a[:nblk]
     how = "added up over each block's walk" if acc else "a block"
-    print(f"{kid} phases of {nblk} blocks ({spec['kernel']}), clock64 cycles {how} (a barrier "
-          f"before each stamp) [{smi}]:")
-    stamps = a[:, :nstamp]
+    sel = case["select"](nblk) if "select" in case else np.ones(nblk, dtype=bool)
+    which = f"{int(sel.sum())} of {nblk} blocks (each shard's first)" if "select" in case \
+        else f"{nblk} blocks"
+    print(f"{kid} phases of {which} ({spec['kernel']}), clock64 cycles {how} (a barrier "
+          f"before each stamp but thread 0's) [{smi}]:")
+    stamps = a[sel, :nstamp]
     if acc:
         tot = stamps[:, 1:].sum()
         for i, (_, name, *_) in enumerate(phases):
@@ -803,6 +900,9 @@ def report(kid, spec, case, lib, smi):
         total = stamps[:, nstamp - 1] - stamps[:, 0]
         print(f"  {'block, stamp 0 to last':22s} mean {total.mean():9.0f}  median "
               f"{np.median(total):9.0f}")
+        span = (a[sel, nstamp + 1] - a[sel, nstamp]).astype(float)
+        print(f"  clock64 cycles a globaltimer ns over those blocks: "
+              f"{total.sum() / max(span.sum(), 1):.3f}")
     start, end, sm = a[:, nstamp], a[:, nstamp + 1], a[:, nstamp + 2]
     print(f"block lifetime {(end - start).mean():.0f} ns mean (globaltimer); kernel span "
           f"{end.max() - start.min()} ns")
@@ -824,6 +924,48 @@ def report(kid, spec, case, lib, smi):
         print(f"occupancy query: {occ.value} blocks of {threads} threads an SM at {smem} "
               f"bytes of shared memory (the stamped {spec['instance']}, {regs.value} "
               f"registers)", flush=True)
+
+
+def b18_times(kid, case, fn, ms, what, reps, smi):
+    """B18's event and device times at its shape, and an empty kernel of its
+    grid launched cooperatively and ordinarily (built with the stamped
+    copy; device time by CUPTI, event time over back-to-back launches)."""
+    import chip_smoke as cs
+
+    import torch
+
+    dev = cs.device_ms(lambda: case["launch"](fn), reps=20, only="halo_kernel")
+    grid = case["nblocks"]()
+    print(f"{kid} ({case['what']}; grid {grid}, one cooperative launch): {ms:.4f} ms a "
+          f"launch (CUDA events, {reps} launches through ctypes), device "
+          f"{'not measured' if dev is None else f'{dev:.4f} ms'}, {what} [{smi}]", flush=True)
+    case["empty_grid"] = grid
+    # a device copy of the inputs' bytes: reads them and writes as many
+    src = torch.cat([t.reshape(-1) for t in case["ins"]])
+    dst = torch.empty_like(src)
+    cp = cs.device_ms(lambda: dst.copy_(src), reps=20)
+    print(f"{kid} a device copy of the inputs' {src.numel() * 4 / 1e6:.1f} MB: device "
+          f"{'not measured' if cp is None else f'{cp:.4f} ms'} [{smi}]", flush=True)
+
+
+def b18_empty(kid, case, lib, reps, smi):
+    """The empty kernel of the stamped library at B18's grid, both launches."""
+    import torch
+
+    import chip_smoke as cs
+    from libdwt_torch.ops import _cuda
+
+    grid, stream = case["empty_grid"], torch.cuda.current_stream().cuda_stream
+    lib.kp_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.kp_empty.restype = ctypes.c_int
+    for coop, how in ((1, "cooperative"), (0, "ordinary")):
+        _cuda.check(lib.kp_empty(grid, THREADS, coop, stream), f"empty {how} launch")
+        run = lambda: lib.kp_empty(grid, THREADS, coop, stream)  # noqa: E731
+        ev = cs.time_ms(run, reps, warm=10)
+        dev = cs.device_ms(run, reps=20, only="kp_empty")
+        print(f"{kid} empty kernel, {how} launch of {grid} blocks of {THREADS} threads: "
+              f"{ev:.4f} ms a launch (CUDA events), device "
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'} [{smi}]", flush=True)
 
 
 def ptxas_registers(log: str, patterns) -> list:
@@ -864,7 +1006,7 @@ def main() -> int:
 
     smi = cs.nvidia_smi()
     texts = read_sources()
-    cases, builds, specs = {}, {}, {}
+    cases, builds, specs, plain = {}, {}, {}, {}
     for kid in args.kernels:
         specs[kid] = spec = resolve(kid, texts)
         tile = args.tile or spec["tile"]
@@ -872,9 +1014,19 @@ def main() -> int:
             tile = tuple(int(t) for t in args.tile3.split(",")) if args.tile3 else None
         cases[kid] = make_case(kid, tile, args.seed)
         builds[kid] = build(kid, spec, cases[kid]["rounds"], texts)
+        if kid in B18_SHAPES:  # its own source only: the others take minutes to build
+            plain[kid] = build(kid, spec, 1, texts, stamp=False)
     for kid, case in cases.items():
         spec = specs[kid]
-        fn = _cuda.kernel_fn(spec["entry"], "f32")
+        if kid in B18_SHAPES:
+            proc, path = plain[kid]
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise SystemExit(f"nvcc failed on {spec['source']}:\n{log}")
+            fn = getattr(ctypes.CDLL(path), spec["entry"])
+            fn.argtypes, fn.restype = _cuda._SIGS[spec["entry"]], ctypes.c_int
+        else:
+            fn = _cuda.kernel_fn(spec["entry"], spec.get("suffix", "f32"))
         _cuda.check(case["launch"](fn), spec["entry"])
         torch.cuda.synchronize()
         err = cs.max_abs(case["outs"], case["want"])
@@ -883,9 +1035,12 @@ def main() -> int:
             raise SystemExit(f"{kid} differs from its plain version: max|diff| {err}")
         ms = cs.time_ms(lambda: case["launch"](fn), args.reps, warm=10)
         what = f"max|diff| {err:.3e} <= {tol:g} from plain" if tol else "== plain"
-        print(f"{kid} f32 {WV} tile {case['tile']} at the main path's shapes: "
-              f"{ms:.4f} ms a launch (CUDA events, {args.reps} launches through ctypes), "
-              f"{what} [{smi}]", flush=True)
+        if kid in B18_SHAPES:
+            b18_times(kid, case, fn, ms, what, args.reps, smi)
+        else:
+            print(f"{kid} f32 {WV} tile {case['tile']} at the main path's shapes: "
+                  f"{ms:.4f} ms a launch (CUDA events, {args.reps} launches through ctypes), "
+                  f"{what} [{smi}]", flush=True)
         if "registers" in spec:
             log = _cuda.build_all()[spec["source"]].with_suffix(".log").read_text()
             for name, regs, spill in ptxas_registers(log, spec["registers"]):
@@ -894,7 +1049,10 @@ def main() -> int:
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed on the stamped {kid}:\n{log}")
-        report(kid, specs[kid], cases[kid], ctypes.CDLL(path), smi)
+        lib = ctypes.CDLL(path)
+        report(kid, specs[kid], cases[kid], lib, smi)
+        if kid in B18_SHAPES:
+            b18_empty(kid, cases[kid], lib, args.reps, smi)
     return 0
 
 
