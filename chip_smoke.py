@@ -36,8 +36,10 @@
      (B1/B4 on every shard and level) and ``kernel='streamed'`` (B7/B9 at
      levels 1-2, B1/B4 below);
    - ``api.wavedec2`` / ``waverec2`` with an explicit ``impl='auto'`` on
-     the 2144x4096 frame, J=5: each level re-dispatches, so level 2
-     (1072x2048) takes B1 and B4 once.
+     the 2144x4096 frame, J=5, with an empty tune table (the built-in
+     thresholds): each level re-dispatches, so level 2 (1072x2048) takes
+     B1 and B4 once.  The checks of 'auto' on the CUDA volume and of
+     ``Volume.wavedec`` also run with an empty table.
 3. Checks each path against the port's separable oracle on the card
    (pyramids <= 5e-4, single levels <= 3e-5, round trips <= 1e-3), the
    reference's bench gates of B1 (int32 CDF 5/3 at 512x512 exact, f32 at
@@ -120,6 +122,19 @@
    of its max); ``perf.measure_perf_2d`` of the fused pyramid at
    256-4096, ``perf.info()`` and ``python -m libdwt_torch --json``.  Each
    call's time with CUDA events (median of 5 windows of ``--reps`` calls).
+8. The measured 'auto' table (before 6.): ``autotune.tune_dispatch`` at
+   1024 and 2144x4096 (J=3) and ``tune_dispatch3`` at 64x512x512 with its
+   subprocess probes, into a temporary tune file: no candidate failed,
+   every probe ok in both directions, each candidate launched its kernels
+   on every frame (separable none); ``autotune_dwt2`` of the frame runs
+   B1 at its tiles.  Then, with no tune file, the packaged table
+   (``libdwt_torch/data/autotune.json``): the default ``api.wavedec2`` /
+   ``waverec2`` of the frame at J=5 and ``wavedec3`` / ``waverec3`` of the
+   volume at J=2 launch what the same calls with the table's choices
+   named as ``impl`` launch, equal them bit for bit, and pass the
+   oracle's gates (5e-4, round trip 1e-3); their times by events and
+   CUPTI beside the explicit calls' and the same default calls' with an
+   empty table (the built-in thresholds).
 Then it prints the card's name and power limit, a JSON line of kernels,
 and last the contract line.
 
@@ -129,9 +144,12 @@ or any check fails.  Needs one card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # (memory bytes/s, float32 non-tensor-core FLOP/s, dense bf16 tensor-core
@@ -426,6 +444,227 @@ def require(ok: bool, what: str) -> None:
     print(f"ok  {what}", flush=True)
 
 
+TUNE_VAR = "LIBDWT_TORCH_TUNE_FILE"
+
+
+@contextlib.contextmanager
+def tune_table(table):
+    """Run the block with ``LIBDWT_TORCH_TUNE_FILE`` naming a temporary
+    file that holds ``table`` (``{}`` pins 'auto' to its built-in
+    thresholds), or with the variable unset for None (the packaged
+    table); the table cache is cleared on entry and on exit."""
+    from libdwt_torch import autotune as AT
+
+    old = os.environ.pop(TUNE_VAR, None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            if table is not None:
+                os.environ[TUNE_VAR] = os.path.join(tmp, "autotune.json")
+                with open(os.environ[TUNE_VAR], "w") as f:
+                    json.dump(table, f)
+            AT.clear_cache()
+            yield
+    finally:
+        os.environ.pop(TUNE_VAR, None)
+        if old is not None:
+            os.environ[TUNE_VAR] = old
+        AT.clear_cache()
+
+
+#: the tuner's 2-D sizes in the smoke: a square bucket and the frame's
+TUNE_SIZES = (1024, (2144, 4096))
+TUNE_TRIALS = 3
+#: each candidate's kernels: it must launch one of ``need``, and nothing
+#: outside ``allowed`` (the streamed pyramids end on the fused tail)
+FUSED_2D = {"B1", "B2", "B3", "B4", "B5", "B6"}
+STREAMED_2D = {"B7", "B8", "B9", "B10", "B11", "B12"}
+CANDIDATE_KERNELS = {
+    "fused": (FUSED_2D, FUSED_2D),
+    "streamed": (STREAMED_2D, STREAMED_2D | FUSED_2D),
+    "streamed-mxu": ({"B13"}, STREAMED_2D | FUSED_2D | {"B13"}),
+}
+VOLUME_KERNELS = {("fwd", "fused"): "B14", ("inv", "fused"): "B15",
+                  ("fwd", "streamed"): "B16", ("inv", "streamed"): "B17"}
+
+
+def autotune_phase(x, v, J: int, J3: int, want, want3, reps: int, smi: str) -> None:
+    """The measured 'auto' table on the card.  (1) ``tune_dispatch`` at
+    1024 and 2144x4096 (J=3) and ``tune_dispatch3`` at the volume, probes
+    on, into a temporary tune file: every candidate measured (none
+    failed), every probe ok in both directions, each candidate's kernels
+    launched on every frame; ``autotune_dwt2`` of the frame (B1 at each
+    tile).  (2) The packaged table (the variable unset, no tune file):
+    the default ``api.wavedec2``/``waverec2`` of the frame at J and
+    ``wavedec3``/``waverec3`` of the volume at J3 launch what the same
+    calls with the table's choice named as ``impl`` launch and equal them
+    bit for bit, within the reference's gates (5e-4 vs the oracle, 1e-3
+    round trip); their event and device times beside the explicit
+    calls'."""
+    import torch
+
+    from libdwt_torch import api
+    from libdwt_torch import autotune as AT
+    from libdwt_torch.ops import fused as F
+
+    WV = "cdf97"
+    H, W = x.shape
+    name = torch.cuda.get_device_name(0)
+    bw = AT._nominal_bw_gbps(name)
+
+    # ---- (1) the tuner, each candidate's launches counted
+    ran = {}
+    saved = {n: getattr(AT, n) for n in
+             ("_pyramid_candidates", "_volume_candidates", "_chain_slope_secs")}
+
+    def tagged(cands_fn, dim):
+        def cands(*a, **k):
+            out = cands_fn(*a, **k)
+            direction = a[2] if len(a) > 2 else k.get("direction", "fwd")
+            for cand, fn in out:
+                fn.cand = (dim, direction, cand)
+            return out
+        return cands
+
+    def counted(fn, stacks, trials=8):
+        torch.cuda.synchronize()
+        F.reset_counters()
+        res = saved["_chain_slope_secs"](fn, stacks, trials)
+        torch.cuda.synchronize()
+        frames = sum(len(s) for s in stacks.values()) * (1 + trials)
+        shape = "x".join(map(str, next(iter(stacks.values())).shape[1:]))
+        ran[(shape,) + fn.cand] = (frames, {k: s.launches for k, s in F.KERNELS.items()
+                                            if s.launches})
+        return res
+
+    t0 = time.perf_counter()
+    AT._pyramid_candidates = tagged(saved["_pyramid_candidates"], "2d")
+    AT._volume_candidates = tagged(saved["_volume_candidates"], "3d")
+    AT._chain_slope_secs = counted
+    try:
+        with tune_table({}):
+            mine = AT.tune_dispatch(sizes=TUNE_SIZES, wavelet=WV, levels=3,
+                                    trials=TUNE_TRIALS)
+            mine = AT.tune_dispatch3(tuple(v.shape), wavelet=WV, trials=TUNE_TRIALS)
+            F.reset_counters()
+            cfg = AT.autotune_dwt2((H, W), WV, trials=TUNE_TRIALS)
+            torch.cuda.synchronize()
+            b1 = F.KERNELS["B1"].launches
+    finally:
+        for n, fn in saved.items():
+            setattr(AT, n, fn)
+    wall = time.perf_counter() - t0
+    for key, entry in sorted(mine.items()):
+        print(f"tuned {key} ({name}): winner {entry.get('impl')}, secs "
+              + ", ".join(f"{c} {t:.4e} ({entry['estimator'][c]})"
+                          for c, t in sorted(entry.get("secs", {}).items(), key=lambda kv: kv[1]))
+              + (f", dropped {json.dumps(entry['dropped'])}" if entry.get("dropped") else "")
+              + (f", probe {json.dumps(entry['probe'])}" if "probe" in entry else "")
+              + f" [{smi}]", flush=True)
+        require(not entry.get("failed"), f"tuned {key}: no candidate failed "
+                f"({json.dumps(entry.get('failed', {}))})")
+    findings = AT.validate_table(mine, bw)
+    print(f"tuned table: validate_table at {bw:g} GB/s: {findings or 'no findings'}", flush=True)
+    for d, suffix in (("fwd", ""), ("inv", ":inv")):
+        entry = mine[f"vol:float32:{WV}{suffix}"]
+        want_probe = {c: "ok" for c in entry["secs"] if c != "separable"}
+        require(entry.get("probe") == want_probe,
+                f"tuned vol:{d}: every kernel candidate's probe ran its {d} kernel "
+                f"in a fresh process, ok ({json.dumps(entry.get('probe'))})")
+    for (shape, dim, d, cand), (frames, got) in sorted(ran.items()):
+        print(f"tuned {shape} {d} {cand}: {frames} frames launched {json.dumps(got)}",
+              flush=True)
+        if cand == "separable":
+            require(got == {}, f"tuned {shape} {d} separable launched no kernel")
+        elif dim == "3d":
+            k = VOLUME_KERNELS[(d, cand)]
+            require(got == {k: frames}, f"tuned {shape} {d} {cand} launched {k} on "
+                    f"each of its {frames} volumes")
+        else:
+            need, allowed = CANDIDATE_KERNELS[cand]
+            require(set(got) & need and set(got) <= allowed
+                    and all(n % frames == 0 for n in got.values()),
+                    f"tuned {shape} {d} {cand} launched its kernels on each of its "
+                    f"{frames} frames")
+    require(len({k[:3] for k in ran}) == 2 * len(TUNE_SIZES) + 2 and
+            {k[3] for k in ran} >= {"separable", "fused", "streamed", "streamed-mxu"},
+            "the tuner measured every candidate at every size, both directions")
+    print(f"autotune_dwt2 {H}x{W}: {json.dumps(cfg)}, B1 launches {b1}", flush=True)
+    require(b1 > 0, f"autotune_dwt2 {H}x{W} ran B1 at its tiles")
+    print(f"time tuner (tune_dispatch at {TUNE_SIZES}, tune_dispatch3 at "
+          f"{tuple(v.shape)} with probes, autotune_dwt2; trials {TUNE_TRIALS}): "
+          f"{wall:.1f} s wall [{smi}]", flush=True)
+
+    # ---- (2) the packaged table drives the default path
+    with tune_table(None):
+        path = AT.tune_file()
+        require(not os.path.exists(path), f"no tune file at {path}: 'auto' reads the "
+                "packaged table")
+        packaged = AT._load_disk().get(name, {})
+        require(bool(packaged), f"the packaged table has rows for {name}")
+        for d in ("fwd", "inv"):
+            print(f"packaged table ({name}): dispatch_choice({H}, {W}, float32, {WV}, {d}) = "
+                  f"{AT.dispatch_choice(H, W, torch.float32, WV, d)}, volume_choice(float32, "
+                  f"{WV}, {d}) = {AT.volume_choice(torch.float32, WV, d)}", flush=True)
+        f32 = torch.float32
+        pick = {"2d fwd": api._pick_impl(H, W, WV, None, True, f32, levels=J),
+                "2d inv": api._pick_impl(H, W, WV, None, True, f32, levels=J, direction="inv"),
+                "3d fwd": api._pick_impl3(tuple(v.shape), WV, None, True, f32, "fwd"),
+                "3d inv": api._pick_impl3(tuple(v.shape), WV, None, True, f32, "inv")}
+        print("packaged table: 'auto' picks " + json.dumps(pick), flush=True)
+        paths = (
+            (f"{H}x{W} J={J}", x, want, 5e-4,
+             lambda: api.wavedec2(x, WV, J), lambda c: api.waverec2(c, WV),
+             lambda: api.wavedec2(x, WV, J, impl=pick["2d fwd"]),
+             lambda c: api.waverec2(c, WV, impl=pick["2d inv"])),
+            (f"{'x'.join(map(str, v.shape))} J={J3}", v, want3, 5e-4,
+             lambda: api.wavedec3(v, WV, J3), lambda c: api.waverec3(c, WV),
+             lambda: api.wavedec3(v, WV, J3, impl=pick["3d fwd"]),
+             lambda c: api.waverec3(c, WV, impl=pick["3d inv"])),
+        )
+        for label, a, oracle, tol, dec, rec, dec_x, rec_x in paths:
+            def launched(run):
+                torch.cuda.synchronize()
+                F.reset_counters()
+                out = run()
+                torch.cuda.synchronize()
+                return out, {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+
+            c, l_dec = launched(dec)
+            r, l_rec = launched(lambda: rec(c))
+            cx, lx_dec = launched(dec_x)
+            rx, lx_rec = launched(lambda: rec_x(c))
+            print(f"default {label}: forward launches {json.dumps(l_dec)}, inverse "
+                  f"{json.dumps(l_rec)}", flush=True)
+            require(l_dec == lx_dec and l_rec == lx_rec,
+                    f"default {label} launched what the table's impls named explicitly "
+                    f"launch ({json.dumps(lx_dec)}, {json.dumps(lx_rec)})")
+            require(max_abs(leaves(c), leaves(cx)) == 0 and max_abs(r, rx) == 0,
+                    f"default {label} == the explicit impls bit for bit, both ways")
+            err = max_abs(leaves(c), leaves(oracle))
+            require(err <= tol, f"default {label} vs separable oracle max|diff| {err:.3e} "
+                    f"<= {tol:g}")
+            err = max_abs(r, a)
+            require(err <= 1e-3, f"default {label} round trip max|err| {err:.3e} <= 1e-3")
+            times = {"default forward": windows_ms(dec, reps),
+                     "explicit forward": windows_ms(dec_x, reps),
+                     "default inverse": windows_ms(lambda: rec(c), reps),
+                     "explicit inverse": windows_ms(lambda: rec_x(c), reps)}
+            with tune_table({}):  # the default before the table: the thresholds
+                times["no-table forward"] = windows_ms(dec, reps)
+                times["no-table inverse"] = windows_ms(lambda: rec(c), reps)
+            print_windows(f"default {label}", times, reps, smi)
+            # one direction a measurement: a pass whose trace drops a whole
+            # kernel's records is then caught by the whole-number check
+            dev_ms = {k: device_ms(fn, tries=6) for k, fn in (
+                ("default forward", dec), ("explicit forward", dec_x),
+                ("default inverse", lambda: rec(c)), ("explicit inverse", lambda: rec_x(c)))}
+            print(f"time default {label} device (CUPTI): " + ", ".join(
+                f"{k} {'not measured' if t is None else f'{t:.4f} ms'}"
+                for k, t in dev_ms.items()) + f" [{smi}]", flush=True)
+            profile_path(f"default {label} (no impl: the packaged table)",
+                         lambda: rec(dec()), smi)
+
+
 #: the CPU crop of the frame on which the riders on the card are held to
 #: the port's CPU result (the full frame runs on the card only)
 RIDER_CROP = (256, 512)
@@ -633,7 +872,8 @@ def tools(x, seed: int, reps: int, smi: str, flops: float) -> None:
 
     # ---- Volume.wavedec J=2 with 'auto': B14 once a level
     vol = Volume.fill_test(64, 512, 512)
-    vc, vol_l = launches_of(lambda: vol.wavedec("cdf97", 2))
+    with tune_table({}):  # the built-in 3-D rule: 'fused' wherever it runs
+        vc, vol_l = launches_of(lambda: vol.wavedec("cdf97", 2))
     print(f"tools: Volume.wavedec launches {json.dumps(vol_l)}", flush=True)
     require(vol_l == {"B14": 2}, "tools: Volume.fill_test(64, 512, 512).wavedec('cdf97', 2) "
             "launched B14 twice")
@@ -947,11 +1187,12 @@ def main() -> int:
     require(err <= 5e-4, f"volume pyramid vs separable oracle max|diff| {err:.3e} <= 5e-4")
     err = max_abs(r3, v)
     require(err <= 1e-3, f"volume round trip max|err| {err:.3e} <= 1e-3")
-    F.reset_counters()
-    api.waverec3(api.wavedec3(v, WV, J3), WV)
-    torch.cuda.synchronize()
+    with tune_table({}):  # the built-in 3-D rule
+        F.reset_counters()
+        api.waverec3(api.wavedec3(v, WV, J3), WV)
+        torch.cuda.synchronize()
     require((F.KERNELS["B14"].launches, F.KERNELS["B15"].launches) == (J3, J3),
-            "'auto' on the CUDA volume takes B14 and B15")
+            "'auto' with no table on the CUDA volume takes B14 and B15")
     volume_feed(f"{'x'.join(map(str, VOL))} f32 level {J3}", tuple(s // 2 for s in VOL), 4)
     vi = torch.from_numpy(rng.integers(-255, 256, (32, 64, 64)).astype(np.int32)).to(dev)
     got = F3.fused_dwt3_level(vi, "cdf53")
@@ -1579,23 +1820,27 @@ def main() -> int:
         require(all(a.dtype == torch.float64 for a in leaves(got64))
                 and max_abs(leaves(got64), leaves(plain64)) == 0,
                 f"float64 {k} kernel == plain bit for bit")
-    # an explicit 'auto' pyramid re-dispatches each level: at 2144x4096 J=5
-    # only level 2 (1072x2048) takes the fused level
-    F.reset_counters()
-    ac = api.wavedec2(x, WV, J, impl="auto")
-    ar = api.waverec2(ac, WV, impl="auto")
-    torch.cuda.synchronize()
-    auto_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
-    print(f"explicit 'auto' J={J} launches: " + json.dumps(auto_launches), flush=True)
-    require(auto_launches == {"B1": 1, "B4": 1},
-            "explicit impl='auto' wavedec2/waverec2 launched B1 and B4 once each")
-    err = max_abs(leaves(ac), leaves(want))
-    require(err <= 5e-4, f"explicit 'auto' pyramid vs oracle max|diff| {err:.3e} <= 5e-4")
-    err = max_abs(ar, x)
-    require(err <= 1e-3, f"explicit 'auto' round trip max|err| {err:.3e} <= 1e-3")
-    level_vs_plain("explicit 'auto' pyramid", spy_calls(
-        F, LEVEL_WRAPPERS[:2], lambda: api.waverec2(api.wavedec2(x, WV, J, impl="auto"), WV,
-                                                    impl="auto")))
+    # an explicit 'auto' pyramid with no table (the built-in thresholds)
+    # re-dispatches each level: at 2144x4096 J=5 only level 2 (1072x2048)
+    # takes the fused level
+    with tune_table({}):
+        F.reset_counters()
+        ac = api.wavedec2(x, WV, J, impl="auto")
+        ar = api.waverec2(ac, WV, impl="auto")
+        torch.cuda.synchronize()
+        auto_launches = {k: s.launches for k, s in F.KERNELS.items() if s.launches}
+        print(f"explicit 'auto' J={J} launches: " + json.dumps(auto_launches), flush=True)
+        require(auto_launches == {"B1": 1, "B4": 1},
+                "explicit impl='auto' wavedec2/waverec2 with no table launched B1 and B4 "
+                "once each")
+        err = max_abs(leaves(ac), leaves(want))
+        require(err <= 5e-4, f"explicit 'auto' pyramid vs oracle max|diff| {err:.3e} <= 5e-4")
+        err = max_abs(ar, x)
+        require(err <= 1e-3, f"explicit 'auto' round trip max|err| {err:.3e} <= 1e-3")
+        level_vs_plain("explicit 'auto' pyramid", spy_calls(
+            F, LEVEL_WRAPPERS[:2], lambda: api.waverec2(api.wavedec2(x, WV, J, impl="auto"),
+                                                        WV, impl="auto")))
+
 
     # ---- times at the paths' shapes
     def timed(k, kern, plain, nbytes, ops, tensor_ops=0, tag=""):
@@ -1941,6 +2186,11 @@ def main() -> int:
                  lambda: api.waverec2(api.wavedec2(x, WV, 2, impl="streamed-mxu"), WV,
                                       impl="streamed-mxu"),
                  smi)
+
+    # ---- the measured 'auto' table: the tuner, then the packaged table
+    # driving the default pyramid and volume (after the paths' times, so its
+    # profiler sessions come after theirs)
+    autotune_phase(x, v, J, J3, want, want3, args.reps, smi)
 
     # ---- the riders: the plain-torch modules on the card, and denoise2
     # on the fused main path

@@ -13,20 +13,23 @@ Strategies:
                        explicit 'streamed-mxu' on a single level raises
                        ``ValueError`` (as in the reference), and as the
                        global default it runs the streamed level B7/B9
-  * ``auto``         — built-in thresholds (no tuned table for the GPU yet);
-                       never picks a streamed kernel, as the reference
-                       without a tuned table
+  * ``auto``         — the measured per-card table (:mod:`libdwt_torch.autotune`,
+                       tools/tune_torch.py), else built-in thresholds
 
 An explicit ``impl`` is honoured or raises; a per-call name outside
 these is taken as 'auto', as in the reference (``set_impl`` refuses it).
-In 2-D 'auto' picks 'fused' on a CUDA tensor with 1024 <= min(h, w) <
-2048, as the reference does for an untuned device; a pyramid whose top
-level stays separable under an explicit 'auto' re-dispatches each level
-(with impl=None it locks separable for every level).  In 3-D 'auto' picks
-'fused' on a CUDA tensor wherever the level's geometry allows it (even
-dims > 4), as the reference does on its accelerator with no table.
-'auto' picks 'fused' only for a dtype that has a kernel (float32,
-float64, int32).
+'auto' takes a kernel only on a CUDA tensor of a kernel's dtype (float32,
+float64, int32); on a CPU tensor it is 'separable' and reads no table.
+In 2-D it asks :func:`autotune.dispatch_choice` for the size bucket and
+direction (a streamed winner on a geometry the streamed kernels refuse
+runs 'fused'; a 'streamed-mxu' winner where the banded body cannot run
+runs 'streamed'); with no table entry it picks 'fused' for 1024 <=
+min(h, w) < 2048, as the reference does for an untuned device.  A pyramid
+whose top level stays separable under an explicit 'auto' re-dispatches
+each level (with impl=None it locks separable for every level).  In 3-D
+'auto' asks :func:`autotune.volume_choice` wherever the fused geometry
+allows (even dims > 4; a streamed winner the streamed gate refuses runs
+'fused'), else, or with no entry, takes 'fused' there.
 
 Devices: a torch tensor stays on its own device; anything else goes to
 ``device`` (default: the card; without CUDA that raises — pass
@@ -39,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from libdwt_torch.autotune import dispatch_choice, volume_choice
 from libdwt_torch.ops import UnsupportedGeometry
 from libdwt_torch.ops import fused as _fused
 from libdwt_torch.ops import fused3d as _fused3d
@@ -98,10 +102,11 @@ def _auto_fused_ok(on_cuda: bool, dtype) -> bool:
 
 
 def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
-               dtype, levels: int = 1) -> str:
+               dtype, levels: int = 1, direction: str = "fwd") -> str:
     """'separable' | 'fused' | 'streamed' | 'streamed-mxu'.  Explicit
-    requests are honoured or raise; 'auto' uses the built-in thresholds,
-    and so does a name outside ``_IMPLS``, as in the reference (only
+    requests are honoured or raise; 'auto' consults the measured table for
+    ``direction`` ('fwd' or 'inv'), then the built-in thresholds, and so
+    does a name outside ``_IMPLS``, as in the reference (only
     :func:`set_impl` checks the name)."""
     impl = impl or _default_impl
     if impl == "separable":
@@ -125,6 +130,15 @@ def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
         return impl
     if not (feasible and _auto_fused_ok(on_cuda, dtype)):
         return "separable"
+    choice = dispatch_choice(h, w, dtype, wavelet, direction)
+    if choice in ("streamed", "streamed-mxu") and not _streamed_ok(h, w, wavelet, levels):
+        choice = "fused"
+    if choice == "streamed-mxu" and not _streamed.mxu_supported(wavelet, dtype):
+        # the banded body is float32-only; a winner may reach another dtype
+        # through the size-bucket fallback
+        choice = "streamed"
+    if choice is not None:
+        return choice
     return "fused" if _AUTO_MIN_SIZE <= min(h, w) < _AUTO_FUSED_MAX else "separable"
 
 
@@ -166,7 +180,7 @@ def idwt2(ll, hl, lh, hh, wavelet="cdf97", impl: Optional[str] = None,
         return _sep.idwt2_level(ll, hl, lh, hh, wavelet, border=border)
     _no_mxu_single_level(impl)
     h, w = ll.shape[-2] + hh.shape[-2], ll.shape[-1] + hh.shape[-1]
-    choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype)
+    choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype, direction="inv")
     if choice != "separable":
         level_fn = (_fused.fused_idwt2_level if choice == "fused"
                     else _streamed.streamed_idwt2_level)
@@ -228,7 +242,7 @@ def waverec2(coeffs, wavelet="cdf97", impl: Optional[str] = None,
         h = coeffs[-1][0].shape[-2] + coeffs[-1][1].shape[-2]
         w = coeffs[-1][0].shape[-1] + coeffs[-1][1].shape[-1]
         choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype,
-                            levels=len(coeffs) - 1)
+                            levels=len(coeffs) - 1, direction="inv")
         if choice != "separable":
             if choice == "fused":
                 rec = _fused.fused_waverec2
@@ -268,12 +282,14 @@ def _resolve_impl3(impl: Optional[str]):
 
 
 def _pick_impl3(shape3, wavelet, impl: Optional[str], on_cuda: bool,
-                dtype) -> str:
+                dtype, direction: str = "fwd") -> str:
     """3-D strategy: 'separable' | 'fused' | 'streamed'.  'fused' needs
     even dims > 4 and a symmetric-step wavelet, 'streamed' the
     reference's gate :func:`ops.streamed3d.streamed3d_supported` (sized
-    with the dtype's itemsize), else ValueError; 'auto' takes 'fused' on a
-    CUDA tensor of a kernel's dtype wherever the geometry allows."""
+    with the dtype's itemsize), else ValueError; 'auto' on a CUDA tensor
+    of a kernel's dtype, wherever the fused geometry allows, takes the
+    measured table's choice for ``direction`` (a streamed winner the gate
+    refuses runs 'fused'), else 'fused'."""
     impl, _ = _resolve_impl3(impl)
     if impl == "separable":
         return impl
@@ -295,7 +311,13 @@ def _pick_impl3(shape3, wavelet, impl: Optional[str], on_cuda: bool,
                 "wavelet"
             )
         return impl
-    return "fused" if ok and _auto_fused_ok(on_cuda, dtype) else "separable"
+    if not (ok and _auto_fused_ok(on_cuda, dtype)):
+        return "separable"
+    choice = volume_choice(dtype, wavelet, direction)
+    if choice == "streamed" and not _streamed3d.streamed3d_supported(
+            shape3, wavelet, itemsize=dtype.itemsize):
+        choice = "fused"
+    return "fused" if choice is None else choice
 
 
 def wavedec3(x, wavelet="cdf97", level: Optional[int] = None,
@@ -358,7 +380,7 @@ def waverec3(coeffs, wavelet="cdf97", impl: Optional[str] = None, device=None):
     if explicit and rest:
         sample = next(iter(rest[-1].values()))
         _pick_impl3(tuple(2 * s for s in sample.shape[-3:]), wavelet, impl,
-                    sample.is_cuda, sample.dtype)
+                    sample.is_cuda, sample.dtype, "inv")
     for bands in rest:
         full = dict(bands)
         full["LLL"] = low
@@ -366,7 +388,7 @@ def waverec3(coeffs, wavelet="cdf97", impl: Optional[str] = None, device=None):
         if low.ndim == 3 and all(b.shape == low.shape for b in full.values()):
             try:
                 choice = _pick_impl3(tuple(2 * s for s in low.shape), wavelet,
-                                     impl, low.is_cuda, low.dtype)
+                                     impl, low.is_cuda, low.dtype, "inv")
             except ValueError:
                 choice = "separable"
         rec = None

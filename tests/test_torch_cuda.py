@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from libdwt_torch import api
+from libdwt_torch import api, autotune
 from libdwt_torch.ops import fused as tf
 from libdwt_torch.ops import fused3d as t3
 from libdwt_torch.ops import separable as sep
@@ -48,6 +48,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tune_table(tmp_path, monkeypatch):
+    """'auto' with an empty tune table: its built-in thresholds, whatever
+    the packaged table measured."""
+    path = tmp_path / "autotune.json"
+    path.write_text("{}")
+    monkeypatch.setenv("LIBDWT_TORCH_TUNE_FILE", str(path))
+    autotune.clear_cache()
+    yield
+    autotune.clear_cache()
 
 
 def _leaves(t):
@@ -646,7 +658,7 @@ def test_b14_b15_feeds(cuda_device):
 
 
 @pytest.mark.cuda
-def test_fused_volume_on_card_matches_oracle(cuda_device):
+def test_fused_volume_on_card_matches_oracle(cuda_device, no_tune_table):
     v = _vol((64, 128, 128), torch.float32, cuda_device, seed=7)
     tf.reset_counters()
     coeffs = api.wavedec3(v, "cdf97", 2, impl="fused")
@@ -666,7 +678,7 @@ def test_fused_volume_on_card_matches_oracle(cuda_device):
 
 
 @pytest.mark.cuda
-def test_single_levels_reach_the_kernels_through_the_api(cuda_device):
+def test_single_levels_reach_the_kernels_through_the_api(cuda_device, no_tune_table):
     x = _img(1025, 1031, torch.float32, cuda_device, seed=8)
     tf.reset_counters()
     got = api.wavedec2(x, "cdf97", 3, impl="fused")
@@ -681,7 +693,7 @@ def test_single_levels_reach_the_kernels_through_the_api(cuda_device):
 
 
 @pytest.mark.cuda
-def test_auto_keeps_float64_on_the_oracle(cuda_device):
+def test_auto_keeps_float64_on_the_oracle(cuda_device, no_tune_table):
     """'auto' on a float64 CUDA tensor takes the kernels (B1/B4, B14/B15),
     as for float32, bit for bit equal to their plain versions (the name
     dates from when 'auto' kept float64 on the separable oracle)."""
@@ -702,6 +714,47 @@ def test_auto_keeps_float64_on_the_oracle(cuda_device):
     assert torch.equal(got3[0], want3["LLL"])
     assert all(torch.equal(got3[1][k], want3[k]) for k in got3[1])
     assert float((rec3 - v).abs().max()) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_default_follows_the_packaged_table(cuda_device, tmp_path, monkeypatch):
+    """With no tune file, 'auto' (impl=None) on the frame and the volume
+    runs what the packaged table picks for this card: the launches and the
+    bits of the same call with that impl named."""
+    monkeypatch.delenv("LIBDWT_TORCH_TUNE_FILE", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    autotune.clear_cache()
+
+    def run(fn):
+        tf.reset_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: s.launches for k, s in tf.KERNELS.items() if s.launches}
+
+    x = _img(2144, 4096, torch.float32, cuda_device, seed=11)
+    v = _vol((64, 512, 512), torch.float32, cuda_device, seed=12)
+    f32 = torch.float32
+    cases = (
+        (lambda i=None: api.wavedec2(x, "cdf97", 5, impl=i),
+         lambda c, i=None: api.waverec2(c, "cdf97", impl=i),
+         api._pick_impl(2144, 4096, "cdf97", None, True, f32, levels=5),
+         api._pick_impl(2144, 4096, "cdf97", None, True, f32, levels=5, direction="inv")),
+        (lambda i=None: api.wavedec3(v, "cdf97", 2, impl=i),
+         lambda c, i=None: api.waverec3(c, "cdf97", impl=i),
+         api._pick_impl3((64, 512, 512), "cdf97", None, True, f32, "fwd"),
+         api._pick_impl3((64, 512, 512), "cdf97", None, True, f32, "inv")),
+    )
+    for dec, rec, fwd, inv in cases:
+        c, lc = run(dec)
+        cx, lcx = run(lambda: dec(fwd))
+        r, lr = run(lambda: rec(c))
+        rx, lrx = run(lambda: rec(c, inv))
+        assert (lc, lr) == (lcx, lrx)
+        flat = [b for lvl in c for b in (lvl.values() if isinstance(lvl, dict) else [lvl])]
+        flatx = [b for lvl in cx for b in (lvl.values() if isinstance(lvl, dict) else [lvl])]
+        _close(flat, flatx, True)
+        _close(r, rx, True)
+    autotune.clear_cache()
 
 
 STREAMED = [

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from libdwt_torch import api
+from libdwt_torch import api, autotune
 from libdwt_torch.ops import fused as tf
 from libdwt_torch.ops import fused3d as t3
 from libdwt_torch.ops import separable as sep
@@ -41,6 +41,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tune_table(tmp_path, monkeypatch):
+    """'auto' with an empty tune table: its built-in thresholds, whatever
+    the packaged table measured."""
+    path = tmp_path / "autotune.json"
+    path.write_text("{}")
+    monkeypatch.setenv("LIBDWT_TORCH_TUNE_FILE", str(path))
+    autotune.clear_cache()
+    yield
+    autotune.clear_cache()
 
 
 def _leaves(t):
@@ -298,7 +310,7 @@ def test_float64_3d_kernels_match_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-def test_explicit_auto_pyramid_redispatches_each_level(cuda_device):
+def test_explicit_auto_pyramid_redispatches_each_level(cuda_device, no_tune_table):
     x = torch.from_numpy(np.random.default_rng(8).random((2144, 4096), dtype=np.float32))
     x = x.to(cuda_device)
     tf.reset_counters()

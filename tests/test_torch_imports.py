@@ -22,7 +22,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for new in ("utils.fix", "ops.interleaved", "ops.conv", "ops.swt", "ops.nsls", "ops.eaw",
                 "ops.features", "utils.vecops", "ops.gabor", "utils.io", "utils.nativelib",
                 "utils.exr", "utils.cache", "image", "interop", "utils.perf", "selftest",
-                "__main__"):
+                "__main__", "autotune"):
         assert f"libdwt_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -78,3 +78,35 @@ def test_raw_input_runs_on_the_card_or_raises(module, name, args):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(*args(a))
     assert all(t.device.type == "cpu" for t in leaves(fn(*args(a), device="cpu")))
+
+
+AUTOTUNE_ENTRY_POINTS = [
+    ("autotune_dwt2", lambda: ((64, 64),), {"trials": 1}),
+    ("tune_dispatch", lambda: (), {"sizes": (128,), "levels": 2, "trials": 1, "save": False}),
+    ("tune_dispatch3", lambda: ((8, 16, 16),), {"trials": 1, "save": False,
+                                                 "probe_timeout_s": 0}),
+    ("_make_stacks", lambda: ((16, 16), np.float32, 1, 2), {}),
+]
+
+
+@pytest.mark.parametrize("name,args,kwargs", AUTOTUNE_ENTRY_POINTS,
+                         ids=[n for n, _, _ in AUTOTUNE_ENTRY_POINTS])
+def test_autotune_measures_on_the_card_or_raises(name, args, kwargs, tmp_path, monkeypatch):
+    """The tuner measures on the card: without CUDA it raises instead of
+    timing the CPU behind the caller's back; ``device='cpu'`` measures
+    there (and keys its rows "cpu")."""
+    from libdwt_torch import autotune
+
+    monkeypatch.setenv("LIBDWT_TORCH_TUNE_FILE", str(tmp_path / "autotune.json"))
+    autotune.clear_cache()
+    fn = getattr(autotune, name)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*args(), **kwargs)
+    out = fn(*args(), **kwargs, device="cpu")
+    if name == "_make_stacks":
+        assert all(t.device.type == "cpu" for t in out.values())
+    elif name != "autotune_dwt2":
+        assert out and all(e["impl"] for e in out.values())
+    assert not os.path.exists(tmp_path / "autotune.json")
+    autotune.clear_cache()
