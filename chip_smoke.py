@@ -6,8 +6,8 @@
 1. Builds every CUDA kernel of the port from ``libdwt_torch/csrc``.
 2. Drives nine paths through the public API, each with the launch
    counts set to 0 just before it and read just after, on data made from
-   a numpy seed (CDF 9/7, float32); the riders (6.) and the tools (7.)
-   are the tenth and eleventh:
+   a numpy seed (CDF 9/7, float32); the riders (6.), the tools (7.) and
+   the example programs (9.) are the tenth to the twelfth:
    - the 2-D pyramid: ``api.wavedec2`` / ``waverec2``, J=5,
      ``impl='fused'`` on a 2144x4096 frame (two-level kernels B2/B5,
      deep tails B3/B6: one cooperative launch each for levels 3-5);
@@ -94,7 +94,14 @@
    analysis filters, chained over B1/B7's one level, B2/B8's two, B3's
    deep three and B11's five; a stride-2 conv3d with the eight 9x9x9
    filters at both of B14/B16's levels; TF32 off, each held to the plain
-   version or the oracle); times and profiles the paths.
+   version or the oracle) and of the inverse kernels (the four bands
+   interleaved by ``pixel_shuffle``, reflect padding by 3 before and 4
+   after, a stride-2 conv2d to the four output phases with the 9x9
+   polyphase synthesis filters, ``pixel_shuffle`` back; chained over
+   B4/B9's one level, B5/B10's two, B6's deep three and B12's five, each
+   within 3e-5 of the plain version, the J=5 round trip within 1e-3; a
+   stride-2 conv3d to the eight phases at both of B15/B17's levels, 3e-5);
+   times and profiles the paths.
 6. The riders: the port's plain-torch modules on the card at the
    2144x4096 frame.  ``dwt2_fix``/``idwt2_fix`` in FIX32 (CDF 9/7) and
    FIX16 (CDF 5/3) equal the CPU's bit for bit; ``fdwt2_interleaved`` J=5
@@ -135,6 +142,15 @@
    oracle's gates (5e-4, round trip 1e-3); their times by events and
    CUPTI beside the explicit calls' and the same default calls' with an
    empty table (the built-in thresholds).
+9. The example programs (last): each of the 18 programs of
+   ``examples_torch/`` at its default arguments (files into a temporary
+   directory), run in this process on the card and held against the same
+   program with ``--device cpu`` (exit code 0, printed lines and files
+   within the CPU tests' tolerances, ``examples_torch/_compare.py``);
+   ``cores`` launches B1 once per fused wavelet, ``denoise`` the packaged
+   table's B3 and B6, ``accel_matrix``'s fused cells B3/B6 and streamed
+   cells B11/B12 (counts set to 0 before each program), the others no
+   kernel; a ``time example`` line each and the phase's wall time.
 Then it prints the card's name and power limit, a JSON line of kernels,
 and last the contract line.
 
@@ -972,6 +988,114 @@ def tools(x, seed: int, reps: int, smi: str, flops: float) -> None:
     print("python -m libdwt_torch --json: " + cli.stdout.strip(), flush=True)
     require(cli.returncode == 0 and json.loads(cli.stdout)["platform"] == "gpu",
             "tools: python -m libdwt_torch --json ran and names the gpu")
+
+
+#: the output paths of the programs whose defaults write under /tmp: files
+#: go to the run's own working directory instead (sizes stay the defaults)
+EXAMPLE_OUTPUTS = {"displ_vectors": ["--out", "displ_field.mat"],
+                   "mra": ["--out", "mra"],
+                   "wavelet_func2d": ["--out", "wavelet_func2d.pgm"]}
+#: the kernels each program launches on the card at its defaults: cores
+#: B1 once per fused wavelet; denoise the packaged table's choice at 256
+#: (fused both ways: J=4 is B3's deep tail, then B6); accel_matrix at 256,
+#: J=3 by (impl, dtype) and call: fused the deep tails B3/B6, streamed the
+#: one-launch pyramid B11/B12 (separable and the interleaved layout none)
+EXAMPLE_LAUNCHES = {"cores": {"B1": 3}, "denoise": {"B3": 1, "B6": 1}}
+ACCEL_LAUNCHES = {
+    **{("fused", dt): {"wavedec2": {"B3": 1}, "waverec2": {"B6": 1}}
+       for dt in ("float32", "int32")},
+    **{("streamed", dt): {"wavedec2": {"B11": 1}, "waverec2": {"B12": 1}}
+       for dt in ("float32", "int32")},
+}
+
+
+@contextlib.contextmanager
+def pyramid_calls(calls: list):
+    """Wrap ``api.wavedec2``/``api.waverec2`` for the block: each call on a
+    CUDA tensor appends (function, impl, dtype name, the launches it
+    made).  A program that imports them by name while the block runs gets
+    the wrappers."""
+    import torch
+
+    from libdwt_torch import api
+    from libdwt_torch.ops import fused as F
+
+    orig = {n: getattr(api, n) for n in ("wavedec2", "waverec2")}
+
+    def wrap(n, fn):
+        def call(*a, **kw):
+            before = {k: st.launches for k, st in F.KERNELS.items()}
+            out = fn(*a, **kw)
+            first = a[0] if n == "wavedec2" else a[0][0]
+            if isinstance(first, torch.Tensor) and first.is_cuda:
+                torch.cuda.synchronize()
+                calls.append((n, kw.get("impl"), str(first.dtype).replace("torch.", ""),
+                              {k: st.launches - before[k] for k, st in F.KERNELS.items()
+                               if st.launches != before[k]}))
+            return out
+        return call
+
+    for n, fn in orig.items():
+        setattr(api, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(api, n, fn)
+
+
+def examples_phase(smi: str) -> None:
+    """The 18 programs of ``examples_torch/`` (ROADMAP A.6a) at their
+    default arguments, run in this process on the card and held against the
+    same program with ``--device cpu`` (``examples_torch/_compare.py``: exit
+    codes 0, printed lines and files within the CPU tests' tolerances), each
+    timed; ``cores``, ``denoise`` and ``accel_matrix`` launched the kernels
+    of their paths (counts set to 0 just before each card run)."""
+    import torch
+
+    from examples_torch import _compare as C
+    from libdwt_torch.ops import fused as F
+
+    t0 = time.time()
+    with tune_table(None), tempfile.TemporaryDirectory() as tmp:
+        for name in C.PROGRAMS:
+            calls = []
+            with pyramid_calls(calls):
+                torch.cuda.synchronize()
+                F.reset_counters()  # the CPU run launches nothing
+                bad, want, got = C.run_pair(name, EXAMPLE_OUTPUTS.get(name, []), "cuda",
+                                            os.path.join(tmp, name))
+                torch.cuda.synchronize()
+            launches = {k: st.launches for k, st in F.KERNELS.items() if st.launches}
+            require(want.code == 0 and got.code == 0,
+                    f"example {name} exits 0 on the card and on the CPU "
+                    f"({got.code}, {want.code}){got.err[-2000:]}{want.err[-2000:]}")
+            require(not bad, f"example {name} on the card == --device cpu within the CPU "
+                    f"tests' tolerances ({len(got.out.splitlines())} lines, "
+                    f"{len(os.listdir(os.path.join(tmp, name, 'got')))} files)"
+                    + "".join("\n  " + b for b in bad))
+            print(f"time example {name}: {got.seconds:.4f} s (--device cpu "
+                  f"{want.seconds:.4f} s) [{smi}]", flush=True)
+            if name in EXAMPLE_LAUNCHES:
+                print(f"example {name} launches: " + json.dumps(launches), flush=True)
+                require(launches == EXAMPLE_LAUNCHES[name],
+                        f"example {name} launched {json.dumps(EXAMPLE_LAUNCHES[name])}")
+            elif name == "accel_matrix":
+                cells = {}
+                for fn, impl, dt, made in calls:
+                    cells.setdefault((impl, dt), {})[fn] = made
+                    print(f"example accel_matrix {impl} {dt} {fn} launches: "
+                          + json.dumps(made), flush=True)
+                require(all(cells.get(cell) == want_ for cell, want_ in ACCEL_LAUNCHES.items())
+                        and all(m == {} for (impl, _), c in cells.items()
+                                if impl == "separable" for m in c.values()),
+                        "example accel_matrix: each fused and streamed cell launched its "
+                        "kernels, the separable cells none")
+            else:
+                require(not launches, f"example {name} launched no kernel (the oracle "
+                        f"and the riders are plain torch)")
+    print(f"time examples phase: {time.time() - t0:.1f} s for {len(C.PROGRAMS)} programs "
+          f"on the card and on the CPU [{smi}]", flush=True)
 
 
 def main() -> int:
@@ -1878,14 +2002,21 @@ def main() -> int:
               f"(one cooperative launch, csrc/deep.cu); one B1/B4 launch per level: "
               f"device {fmt(device_ms(per_level))} [{smi}]", flush=True)
 
-    # ---- the library yardsticks of the forward kernels (never on the port's
-    # path): reflect padding by 4 (whole-point, as the kernels' mirror) and
-    # a stride-2 conv2d with the level's four 9x9 analysis filters, chained
+    # ---- the library yardsticks (never on the port's path).  The forward:
+    # reflect padding by 4 (whole-point, as the kernels' mirror) and a
+    # stride-2 conv2d with the level's four 9x9 analysis filters, chained
     # over the kernel's levels (B1/B7 one, B2/B8 two, B3 the deep three, B11
     # five); a stride-2 conv3d with the eight 9x9x9 filters for B14/B16.
-    # The filters are outer products of the 1-D pair, read off the oracle's
-    # response to unit impulses; TF32 off.  The inverse has none: its
-    # border rule on the bands is not a padding.
+    # The inverse: the whole-point symmetric extension of the signal is one
+    # of the interleaved coefficients too (L at even positions, H at odd),
+    # so a level is the four bands interleaved by pixel_shuffle (LL, HL,
+    # LH, HH at the phases (even, even), (even, odd), (odd, even), (odd,
+    # odd) in (y, x)), reflect-padded (3 before, 4 after), a stride-2 conv2d
+    # to the four output phases with the 9x9 polyphase synthesis filters,
+    # and pixel_shuffle back; chained over B4/B9's one level, B5/B10's two,
+    # B6's deep three and B12's five; conv3d to the eight phases for
+    # B15/B17.  The filters are outer products of 1-D pairs, read off the
+    # oracle's response to unit impulses; TF32 off.
     import torch.nn.functional as nnf
 
     def analysis_pair():
@@ -1900,7 +2031,22 @@ def main() -> int:
                         pair[k, p + d - 2 * i + 4] = band[i]
         return pair
 
+    def synthesis_pair():
+        """Row p: the inverse's output 2a + p = sum_j y[2a + j] s_p[j + 3],
+        j = -3..5, over the interleaved bands y (L even, H odd)."""
+        n, p = 16, 8
+        pair = torch.zeros(2, 9, dtype=torch.float64)  # even, odd output
+        for d in (0, 1):  # the impulse in L (y even) or in H (y odd)
+            bands = [torch.zeros(n, dtype=torch.float64) for _ in range(2)]
+            bands[d][p] = 1
+            out = sep.idwt1(*bands, WV)
+            for m in range(out.shape[0]):
+                if -3 <= 2 * p + d - 2 * (m // 2) <= 5:
+                    pair[m % 2, 2 * p + d - 2 * (m // 2) + 3] = out[m]
+        return pair
+
     lo_hi = analysis_pair()
+    syn = synthesis_pair()
     # bands in the order of the plain level: LL, HL, LH, HH as (y, x) filters
     conv_w = torch.stack([torch.outer(lo_hi[fy], lo_hi[fx])
                           for fy, fx in ((0, 0), (0, 1), (1, 0), (1, 1))])[:, None]
@@ -1924,6 +2070,35 @@ def main() -> int:
     def conv3_level(a):
         return nnf.conv3d(nnf.pad(a[None, None], (4,) * 6, mode="reflect"), conv3_w,
                           stride=2)[0]
+
+    # the inverse's output phases in pixel_shuffle's channel order, (y, x)
+    # in 2-D and (z, y, x) in 3-D; a 3-D band's name gives its phases
+    iconv_w = torch.stack([torch.outer(syn[py], syn[px]) for py in (0, 1)
+                           for px in (0, 1)])[:, None].to(dev, torch.float32)
+    phases3 = [(pz, py, px) for pz in (0, 1) for py in (0, 1) for px in (0, 1)]
+    iconv3_w = torch.stack([torch.einsum("i,j,k->ijk", *(syn[p] for p in ph))
+                            for ph in phases3])[:, None].to(dev, torch.float32)
+
+    def iconv_level(ll, hl, lh, hh):
+        y = nnf.pixel_shuffle(torch.stack([ll, hl, lh, hh])[None], 2)
+        return nnf.pixel_shuffle(nnf.conv2d(nnf.pad(y, (3, 4, 3, 4), mode="reflect"),
+                                            iconv_w, stride=2), 2)[0, 0]
+
+    def iconv_chain(c):
+        a = c[0]
+        for lvl in c[1:]:
+            a = iconv_level(a, *lvl)
+        return a
+
+    def shuffle3(t):  # (8, d, h, w), channel pz*4 + py*2 + px -> (2d, 2h, 2w)
+        d, h, w = t.shape[-3:]
+        return t.reshape(2, 2, 2, d, h, w).permute(3, 0, 4, 1, 5, 2).reshape(2 * d, 2 * h,
+                                                                              2 * w)
+
+    def iconv3_level(bands3):
+        y = shuffle3(torch.stack([bands3["".join("LH"[p] for p in ph)] for ph in phases3]))
+        return shuffle3(nnf.conv3d(nnf.pad(y[None, None], (3, 4) * 3, mode="reflect"),
+                                   iconv3_w, stride=2)[0])
 
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1949,19 +2124,43 @@ def main() -> int:
             err = max_abs(list(conv3_level(a)), leaves(F3.dwt3_level_plain(a, WV)))
             require(err <= 3e-5, f"pad + conv3d {tag} ({'x'.join(map(str, a.shape))}) vs "
                     f"B14's plain version max|diff| {err:.3e} <= 3e-5")
+        for a, plain, tag in ((bands, F.idwt2_level_plain(*bands, WV), "level 1 vs B4's"),
+                              (b5_in, F.fused_idwt2_2level_plain(*b5_in, WV),
+                               "levels 2-1 vs B5's"),
+                              (deep_in, F.fused_deep_waverec2_plain(deep_in, WV),
+                               "levels 5-3 vs B6's")):
+            got_ = iconv_level(*a) if a is bands else iconv_chain(list(a))
+            err = max_abs(got_, plain)
+            require(err <= 3e-5, f"pixel_shuffle + pad + conv2d {tag} plain version "
+                    f"max|diff| {err:.3e} <= 3e-5")
+        err = max_abs(iconv_chain(sc), x)  # the streamed J=5 pyramid: a round trip
+        require(err <= 1e-3, f"pixel_shuffle + pad + conv2d levels {J}-1 of the streamed "
+                f"pyramid round trip max|err| {err:.3e} <= 1e-3")
+        for bands3, tag in ((b14_l1, "level 1"), (b14_l2, "level 2")):
+            err = max_abs(iconv3_level(bands3), F3.idwt3_level_plain(bands3, WV))
+            require(err <= 3e-5, f"shuffle + pad + conv3d {tag} vs B15's plain version "
+                    f"max|diff| {err:.3e} <= 3e-5")
         library = {}
+        fwd, inv = "pad + conv", "pixel_shuffle + pad + conv"
         for k, what, fn in (
-                ("B1", "level 1", lambda: conv_level(x)),
-                ("B2", "levels 1-2", lambda: conv_chain(x, 2)),
-                ("B3", "levels 3-5", lambda: conv_chain(ll2, 3)),
-                ("B11", f"levels 1-{J}", lambda: conv_chain(x, J)),
-                ("B14", "3-D level 1", lambda: conv3_level(v)),
-                ("B14 level 2", "3-D level 2", lambda: conv3_level(ll3))):
+                ("B1", f"{fwd}, level 1", lambda: conv_level(x)),
+                ("B2", f"{fwd}, levels 1-2", lambda: conv_chain(x, 2)),
+                ("B3", f"{fwd}, levels 3-5", lambda: conv_chain(ll2, 3)),
+                ("B11", f"{fwd}, levels 1-{J}", lambda: conv_chain(x, J)),
+                ("B14", f"{fwd}, 3-D level 1", lambda: conv3_level(v)),
+                ("B14 level 2", f"{fwd}, 3-D level 2", lambda: conv3_level(ll3)),
+                ("B4", f"{inv}, inverse level 1", lambda: iconv_level(*bands)),
+                ("B5", f"{inv}, inverse levels 2-1", lambda: iconv_chain(list(b5_in))),
+                ("B6", f"{inv}, inverse levels 5-3", lambda: iconv_chain(deep_in)),
+                ("B12", f"{inv}, inverse levels {J}-1", lambda: iconv_chain(sc)),
+                ("B15", f"{inv}, 3-D inverse level 1", lambda: iconv3_level(b14_l1)),
+                ("B15 level 2", f"{inv}, 3-D inverse level 2", lambda: iconv3_level(b14_l2))):
             library[k] = time_ms(fn, args.reps)
-            print(f"time library {k} (pad + conv, {what}): {library[k]:.4f} ms (device "
+            print(f"time library {k} ({what}): {library[k]:.4f} ms (device "
                   f"{fmt(device_ms(fn))}) [{smi}]", flush=True)
-        # the same functions as B1, B2, B11 and B14 compute
-        library.update(B7=library["B1"], B8=library["B2"], B16=library["B14"])
+        # the same functions as B1, B2, B11, B14, B4, B5, B12 and B15 compute
+        library.update(B7=library["B1"], B8=library["B2"], B16=library["B14"],
+                       B9=library["B4"], B10=library["B5"], B17=library["B15"])
         library["B18"] = time_ms(lambda: xsh.index_select(0, b18_idx), args.reps)
         print(f"time library B18 (index_select of the frame's rows, {NS} x {hb}x{W} halo 4): "
               f"{library['B18']:.4f} ms (device "
@@ -1996,7 +2195,7 @@ def main() -> int:
         "bound_ms": mxu_t["B11"][2] + mxu_t["B12"][2],
         "bound_by": "bytes" if all(mxu_t[k][3] == "bytes" for k in ("B11", "B12"))
         else "operations",
-        "library_ms": None,
+        "library_ms": library["B11"] + library["B12"],
     })
     rows.sort(key=lambda r: int(r["name"].split()[0][1:]))
     fwd_ms = time_ms(lambda: api.wavedec2(x, WV, J, impl="fused"), args.reps)
@@ -2199,6 +2398,9 @@ def main() -> int:
     # ---- the tools: Image/Volume through files and the fused kernels,
     # selftest, interop, Gabor, perf and the CLI
     tools(x, args.seed, args.reps, smi, flops)
+
+    # ---- the example programs (examples_torch/) on the card vs the CPU
+    examples_phase(smi)
 
     print(smi)
     print(json.dumps({"kernels": rows}))

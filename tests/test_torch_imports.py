@@ -110,3 +110,55 @@ def test_autotune_measures_on_the_card_or_raises(name, args, kwargs, tmp_path, m
         assert out and all(e["impl"] for e in out.values())
     assert not os.path.exists(tmp_path / "autotune.json")
     autotune.clear_cache()
+
+
+EXAMPLES = os.path.join(ROOT, "examples_torch")
+sys.path.insert(0, ROOT)
+from examples_torch import _compare  # noqa: E402
+
+
+def test_example_programs_load_neither_jax_nor_the_reference():
+    """The 18 programs of ``examples_torch/``, imported and then run (small
+    arguments, ``--device cpu``) in a fresh interpreter, load neither JAX,
+    the JAX package nor anything under ``examples/``."""
+    names = sorted(f[:-3] for f in os.listdir(EXAMPLES)
+                   if f.endswith(".py") and not f.startswith("_"))
+    assert names == sorted(_compare.PROGRAMS) and len(names) == 18
+    for name in ("simple", "simple_variants", "start", "info", "cores", "subbands", "mra",
+                 "filter_coeffs", "function_iterating", "wavelet_func", "wavelet_func2d",
+                 "cdf97_test", "accel_matrix", "denoise", "nsls_demo", "eaw_demo", "hdr_eaw",
+                 "displ_vectors"):
+        assert name in names
+    code = (
+        "import os, runpy, sys, tempfile\n"
+        "from examples_torch import _compare as C\n"
+        "for name in C.PROGRAMS:\n"
+        "    runpy.run_path(C.path_of(name), run_name='imported')\n"
+        "for name in C.PROGRAMS:\n"
+        "    r = C.run(C.path_of(name), C.SMALL_ARGS[name] + ['--device', 'cpu'],\n"
+        "              tempfile.mkdtemp())\n"
+        "    assert r.code == 0 and r.out, (name, r.err)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'libdwt_tpu'))\n"
+        "ref = os.path.join(C.ROOT, 'examples') + os.sep\n"
+        "bad += sorted(m for m, mod in list(sys.modules.items())\n"
+        "              if (getattr(mod, '__file__', None) or '').startswith(ref))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(C.PROGRAMS))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok 18")
+
+
+@pytest.mark.parametrize("name", _compare.PROGRAMS)
+def test_example_program_runs_on_the_card_or_fails(name, tmp_path):
+    """Each program's ``--device`` defaults to the card: without CUDA and
+    without ``--device cpu`` it fails (no fallback to the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the programs run there")
+    r = _compare.run(_compare.path_of(name), _compare.SMALL_ARGS[name], tmp_path)
+    assert r.code == 1 and "no CUDA device is available" in r.err, r
+    assert not os.listdir(tmp_path)  # it failed before writing anything
