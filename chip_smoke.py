@@ -142,15 +142,23 @@
    oracle's gates (5e-4, round trip 1e-3); their times by events and
    CUPTI beside the explicit calls' and the same default calls' with an
    empty table (the built-in thresholds).
-9. The example programs (last): each of the 18 programs of
+9. The example programs (last): each of the 34 programs of
    ``examples_torch/`` at its default arguments (files into a temporary
    directory), run in this process on the card and held against the same
    program with ``--device cpu`` (exit code 0, printed lines and files
-   within the CPU tests' tolerances, ``examples_torch/_compare.py``);
-   ``cores`` launches B1 once per fused wavelet, ``denoise`` the packaged
-   table's B3 and B6, ``accel_matrix``'s fused cells B3/B6 and streamed
-   cells B11/B12 (counts set to 0 before each program), the others no
-   kernel; a ``time example`` line each and the phase's wall time.
+   within the CPU tests' tolerances, ``examples_torch/_compare.py``); the
+   perf programs (``perf_line``, ``perf_sweep``, ``perf_plot``) at their
+   defaults on the card alone (a row with positive, finite times for each
+   size, for ``perf_plot`` each size x direction x impl that
+   ``autotune._pyramid_candidates`` offers, and no failed candidate), then
+   against the CPU at their small arguments; ``cores`` launches B1 once
+   per fused wavelet, ``denoise`` the packaged table's B3 and B6,
+   ``accel_matrix``'s fused cells B3/B6 and streamed cells B11/B12,
+   ``similarity``'s and ``perf_sweep``'s 'auto' calls what the table's
+   choice named as ``impl`` launches, ``perf_plot``'s candidates their
+   impl's kernels on every frame (separable none), the others no kernel
+   (counts set to 0 before each program); a ``time example`` line each
+   and the phase's wall time.
 Then it prints the card's name and power limit, a JSON line of kernels,
 and last the contract line.
 
@@ -991,10 +999,21 @@ def tools(x, seed: int, reps: int, smi: str, flops: float) -> None:
 
 
 #: the output paths of the programs whose defaults write under /tmp: files
-#: go to the run's own working directory instead (sizes stay the defaults)
+#: go to the run's own working directory instead (sizes stay the defaults;
+#: load and spectra_blobs write to the working directory already)
 EXAMPLE_OUTPUTS = {"displ_vectors": ["--out", "displ_field.mat"],
                    "mra": ["--out", "mra"],
-                   "wavelet_func2d": ["--out", "wavelet_func2d.pgm"]}
+                   "wavelet_func2d": ["--out", "wavelet_func2d.pgm"],
+                   "interop_subbands": ["--out", "."],
+                   "io_roundtrip": ["--out", "dwtio"],
+                   "perf_line": ["--out", "perf_line.tsv"],
+                   "perf_plot": ["--out-dir", "perf-plot"],
+                   "perf_sweep": ["--out", "perf.tsv"],
+                   "spectra_dwt": ["--out-dir", "spectra-dwt"],
+                   "spectra_fe": ["--out", "spectra.svm"],
+                   "spectra_svm": ["--out", "spectra-svm"],
+                   "spectra_swt": ["--out", "fv_swt.svm"],
+                   "timefreq": ["--out", "tf"]}
 #: the kernels each program launches on the card at its defaults: cores
 #: B1 once per fused wavelet; denoise the packaged table's choice at 256
 #: (fused both ways: J=4 is B3's deep tail, then B6); accel_matrix at 256,
@@ -1007,14 +1026,38 @@ ACCEL_LAUNCHES = {
     **{("streamed", dt): {"wavedec2": {"B11": 1}, "waverec2": {"B12": 1}}
        for dt in ("float32", "int32")},
 }
+#: the perf programs: their times are measurements, not results.  They run
+#: at their defaults on the card alone, then card against CPU at the small
+#: arguments under the time rule
+PERF_EXAMPLES = ("perf_line", "perf_sweep", "perf_plot")
+#: the lines of their default runs that carry times: (pattern, the number
+#: of such lines the defaults print)
+PERF_ROWS = {
+    "perf_line": (r"^  n=\s*(\d+): +(\S+) ns/sample +(\S+) Msamples/s$", 5),
+    "perf_sweep": (r"^ *(\d+)\^2: +(\S+) ns/pixel +(\S+) Mpix/s$", 5),
+}
+PERF_PLOT_ROW = r"^(fwd|inv) +(\S+) +(\d+)x(\d+) +(\S+) ns/pixel \((slope|upper)\)$"
+
+
+def _frame_of(n: str, a):
+    """(the frame's (h, w), levels) of an api.wavedec2/waverec2 call."""
+    if n == "wavedec2":
+        from libdwt_torch.utils.subband import resolve_j
+
+        x = a[0]
+        level = a[2] if len(a) > 2 else None
+        return tuple(x.shape[-2:]), resolve_j(x.shape[-2], x.shape[-1], level)
+    c = a[0]
+    return ((c[-1][0].shape[-2] + c[-1][1].shape[-2],
+             c[-1][0].shape[-1] + c[-1][1].shape[-1]), len(c) - 1)
 
 
 @contextlib.contextmanager
 def pyramid_calls(calls: list):
     """Wrap ``api.wavedec2``/``api.waverec2`` for the block: each call on a
-    CUDA tensor appends (function, impl, dtype name, the launches it
-    made).  A program that imports them by name while the block runs gets
-    the wrappers."""
+    CUDA tensor appends (function, impl, dtype name, the launches it made,
+    the frame's (h, w), levels, wavelet).  A program that imports them by
+    name while the block runs gets the wrappers."""
     import torch
 
     from libdwt_torch import api
@@ -1029,9 +1072,11 @@ def pyramid_calls(calls: list):
             first = a[0] if n == "wavedec2" else a[0][0]
             if isinstance(first, torch.Tensor) and first.is_cuda:
                 torch.cuda.synchronize()
+                shape, level = _frame_of(n, a)
                 calls.append((n, kw.get("impl"), str(first.dtype).replace("torch.", ""),
                               {k: st.launches - before[k] for k, st in F.KERNELS.items()
-                               if st.launches != before[k]}))
+                               if st.launches != before[k]},
+                              shape, level, a[1] if len(a) > 1 else kw.get("wavelet", "cdf97")))
             return out
         return call
 
@@ -1044,13 +1089,166 @@ def pyramid_calls(calls: list):
             setattr(api, n, fn)
 
 
+@contextlib.contextmanager
+def candidate_calls(calls: list):
+    """Wrap ``autotune._pyramid_candidates`` for the block: each call of a
+    candidate's per-frame function on a CUDA tensor appends (direction,
+    impl, the frame's (h, w), the launches it made).  No wait is added:
+    the counts are kept on the host where the kernels are launched."""
+    from libdwt_torch import autotune as AT
+    from libdwt_torch.ops import fused as F
+
+    orig = AT._pyramid_candidates
+
+    def wrapped(wavelet, levels, direction="fwd", shape=None, **kw):
+        out = []
+        for impl, fn in orig(wavelet, levels, direction, shape=shape, **kw):
+            def call(a, fn=fn, impl=impl):
+                before = {k: st.launches for k, st in F.KERNELS.items()}
+                res = fn(a)
+                if a.is_cuda:
+                    calls.append((direction, impl, tuple(a.shape[-2:]),
+                                  {k: st.launches - before[k] for k, st in F.KERNELS.items()
+                                   if st.launches != before[k]}))
+                return res
+            out.append((impl, call))
+        return out
+
+    AT._pyramid_candidates = wrapped
+    try:
+        yield
+    finally:
+        AT._pyramid_candidates = orig
+
+
+def table_launches(n: str, shape, level: int, dtype: str, wavelet) -> tuple:
+    """(the impl 'auto' picks for an api.wavedec2/waverec2 call on the card,
+    the launches of the same call with that impl named): the inverse's
+    input is the separable pyramid of a random frame."""
+    import torch
+
+    from libdwt_torch import api
+    from libdwt_torch.ops import fused as F
+    from libdwt_torch.ops.separable import wavedec2 as sep_wavedec2
+
+    dt = getattr(torch, dtype)
+    choice = api._pick_impl(shape[0], shape[1], wavelet, None, True, dt, levels=level,
+                            direction="fwd" if n == "wavedec2" else "inv")
+    x = torch.rand(shape, device="cuda").to(dt)
+    c = sep_wavedec2(x, wavelet, level)
+    torch.cuda.synchronize()
+    F.reset_counters()
+    if n == "wavedec2":
+        api.wavedec2(x, wavelet, level, impl=choice)
+    else:
+        api.waverec2(c, wavelet, impl=choice)
+    torch.cuda.synchronize()
+    return choice, {k: st.launches for k, st in F.KERNELS.items() if st.launches}
+
+
+def check_table_calls(name: str, calls: list) -> None:
+    """Each 'auto' call of ``name`` launched what the table's choice named
+    explicitly launches; checked once per distinct call."""
+    groups = {}
+    for n, impl, dt, made, shape, level, wavelet in calls:
+        if impl is None:
+            groups.setdefault((n, shape, level, dt, str(wavelet)), []).append(made)
+    for (n, shape, level, dt, wavelet), mades in groups.items():
+        choice, want = table_launches(n, shape, level, dt, wavelet)
+        print(f"example {name} {n} {shape[0]}x{shape[1]} J={level} {dt}: table "
+              f"'{choice}' launches " + json.dumps(mades[0]) + f" ({len(mades)} calls)",
+              flush=True)
+        require(all(m == want for m in mades),
+                f"example {name} {n} {shape[0]}x{shape[1]} J={level}: each call launched "
+                f"what '{choice}' named explicitly launches ({json.dumps(want)})")
+    require(bool(groups), f"example {name} made its pyramid calls on the card")
+
+
+def perf_defaults(name: str, tmp: str, smi: str) -> None:
+    """A perf program at its defaults on the card alone: exit code 0, a row
+    with positive, finite times for each size (perf_plot: each size x
+    direction x impl that ``_pyramid_candidates`` offers), no failed
+    candidate, and the kernels of each row launched."""
+    import math
+    import re
+
+    import torch
+
+    from examples_torch import _compare as C
+    from libdwt_torch.ops import fused as F
+
+    calls, cands = [], []
+    with pyramid_calls(calls), candidate_calls(cands):
+        torch.cuda.synchronize()
+        F.reset_counters()
+        got = C.run(C.path_of(name), EXAMPLE_OUTPUTS[name], os.path.join(tmp, name, "card"))
+        torch.cuda.synchronize()
+    launches = {k: st.launches for k, st in F.KERNELS.items() if st.launches}
+    require(got.code == 0, f"example {name} at its defaults exits 0 on the card "
+            f"({got.code}){got.err[-3000:]}")
+    print(f"time example {name} (defaults, card alone): {got.seconds:.4f} s [{smi}]",
+          flush=True)
+    lines = got.out.splitlines()
+    if name in PERF_ROWS:
+        pattern, count = PERF_ROWS[name]
+        rows = [m.groups() for m in map(re.compile(pattern).match, lines) if m]
+        print(f"example {name} rows: " + json.dumps(rows), flush=True)
+        require(len(rows) == count and all(0 < float(v) < math.inf
+                                           for r in rows for v in r[1:]),
+                f"example {name}: {count} rows, each with positive, finite times")
+    if name == "perf_line":
+        require(not launches, "example perf_line launched no kernel (the fdwt1 oracle)")
+    elif name == "perf_sweep":
+        check_table_calls(name, calls)
+    elif name == "perf_plot":
+        from libdwt_torch.autotune import _pyramid_candidates
+
+        rows = {}
+        for m in map(re.compile(PERF_PLOT_ROW).match, lines):
+            if m:
+                d, impl, h, w, ns, kind = m.groups()
+                rows[(d, impl, int(h), int(w))] = (float(ns), kind)
+        want = {(d, impl, n, n) for n in (256, 512, 1024, 2048) for d in ("fwd", "inv")
+                for impl, _ in _pyramid_candidates("cdf97", 5, d, shape=(n, n),
+                                                   dtype=torch.float32)}
+        print("example perf_plot rows (ns/pixel, estimator): " + json.dumps(
+            {f"{d} {impl} {h}x{w}": v for (d, impl, h, w), v in sorted(rows.items())}),
+            flush=True)
+        require(set(rows) == want and all(0 < ns < math.inf for ns, _ in rows.values()),
+                f"example perf_plot: a row with a positive, finite time for each of the "
+                f"{len(want)} size x direction x impl that _pyramid_candidates offers")
+        require("failed" not in got.err, "example perf_plot: no candidate failed"
+                + got.err[-2000:])
+        per = {}
+        for d, impl, shape, made in cands:
+            per.setdefault((d, impl, shape), []).append(made)
+        for (d, impl, shape), mades in sorted(per.items()):
+            print(f"example perf_plot {d} {impl} {shape[0]}x{shape[1]} launches per frame: "
+                  f"{json.dumps(mades[0])} ({len(mades)} frames)", flush=True)
+            if impl == "separable":
+                ok = all(m == {} for m in mades)
+            else:
+                need, allowed = CANDIDATE_KERNELS[impl]
+                ok = (all(m == mades[0] for m in mades) and need & set(mades[0])
+                      and set(mades[0]) <= allowed)
+            require(bool(ok), f"example perf_plot {d} {impl} {shape[0]}x{shape[1]}: every "
+                    f"frame launched the same kernels of its impl (separable none)")
+        require({(d, impl, s[0], s[1]) for d, impl, s in per} == want,
+                "example perf_plot: every row's candidate ran on the card")
+
+
 def examples_phase(smi: str) -> None:
-    """The 18 programs of ``examples_torch/`` (ROADMAP A.6a) at their
-    default arguments, run in this process on the card and held against the
-    same program with ``--device cpu`` (``examples_torch/_compare.py``: exit
-    codes 0, printed lines and files within the CPU tests' tolerances), each
-    timed; ``cores``, ``denoise`` and ``accel_matrix`` launched the kernels
-    of their paths (counts set to 0 just before each card run)."""
+    """The 34 programs of ``examples_torch/`` (ROADMAP A.6a, A.6b) at their
+    default arguments, run in this process on the card and held against
+    the same program with ``--device cpu`` (``examples_torch/_compare.py``:
+    exit codes 0, printed lines and files within the CPU tests'
+    tolerances), each timed; the perf programs at their defaults on the
+    card alone (rows, positive finite times, no failed candidate), then
+    card against CPU at their small arguments.  ``cores``, ``denoise`` and
+    ``accel_matrix`` launched the kernels of their paths, ``similarity``'s
+    and ``perf_sweep``'s 'auto' calls the table's, ``perf_plot`` each
+    candidate's, the others none (counts set to 0 just before each card
+    run)."""
     import torch
 
     from examples_torch import _compare as C
@@ -1059,12 +1257,16 @@ def examples_phase(smi: str) -> None:
     t0 = time.time()
     with tune_table(None), tempfile.TemporaryDirectory() as tmp:
         for name in C.PROGRAMS:
+            if name in PERF_EXAMPLES:
+                perf_defaults(name, tmp, smi)
+                argv = C.SMALL_ARGS[name]
+            else:
+                argv = EXAMPLE_OUTPUTS.get(name, [])
             calls = []
             with pyramid_calls(calls):
                 torch.cuda.synchronize()
                 F.reset_counters()  # the CPU run launches nothing
-                bad, want, got = C.run_pair(name, EXAMPLE_OUTPUTS.get(name, []), "cuda",
-                                            os.path.join(tmp, name))
+                bad, want, got = C.run_pair(name, argv, "cuda", os.path.join(tmp, name))
                 torch.cuda.synchronize()
             launches = {k: st.launches for k, st in F.KERNELS.items() if st.launches}
             require(want.code == 0 and got.code == 0,
@@ -1072,17 +1274,19 @@ def examples_phase(smi: str) -> None:
                     f"({got.code}, {want.code}){got.err[-2000:]}{want.err[-2000:]}")
             require(not bad, f"example {name} on the card == --device cpu within the CPU "
                     f"tests' tolerances ({len(got.out.splitlines())} lines, "
-                    f"{len(os.listdir(os.path.join(tmp, name, 'got')))} files)"
+                    f"{len(os.listdir(os.path.join(tmp, name, 'got')))} files"
+                    + (", small arguments" if name in PERF_EXAMPLES else "") + ")"
                     + "".join("\n  " + b for b in bad))
             print(f"time example {name}: {got.seconds:.4f} s (--device cpu "
-                  f"{want.seconds:.4f} s) [{smi}]", flush=True)
+                  f"{want.seconds:.4f} s)" + (" at the small arguments" if name in PERF_EXAMPLES
+                                              else "") + f" [{smi}]", flush=True)
             if name in EXAMPLE_LAUNCHES:
                 print(f"example {name} launches: " + json.dumps(launches), flush=True)
                 require(launches == EXAMPLE_LAUNCHES[name],
                         f"example {name} launched {json.dumps(EXAMPLE_LAUNCHES[name])}")
             elif name == "accel_matrix":
                 cells = {}
-                for fn, impl, dt, made in calls:
+                for fn, impl, dt, made, *_ in calls:
                     cells.setdefault((impl, dt), {})[fn] = made
                     print(f"example accel_matrix {impl} {dt} {fn} launches: "
                           + json.dumps(made), flush=True)
@@ -1091,9 +1295,16 @@ def examples_phase(smi: str) -> None:
                                 if impl == "separable" for m in c.values()),
                         "example accel_matrix: each fused and streamed cell launched its "
                         "kernels, the separable cells none")
-            else:
-                require(not launches, f"example {name} launched no kernel (the oracle "
-                        f"and the riders are plain torch)")
+            elif name == "similarity":
+                for side, run in (("card", got), ("cpu", want)):
+                    print(f"example similarity table ({side}): "
+                          + json.dumps(run.out.splitlines()), flush=True)
+                print(f"example {name} launches: " + json.dumps(launches), flush=True)
+                check_table_calls(name, calls)
+                require(bool(launches), f"example {name}: the table's kernels ran")
+            else:  # the perf programs' small arguments are the separable pyramid
+                require(not launches, f"example {name} launched no kernel (the oracle, "
+                        f"the riders and the tools are plain torch)")
     print(f"time examples phase: {time.time() - t0:.1f} s for {len(C.PROGRAMS)} programs "
           f"on the card and on the CPU [{smi}]", flush=True)
 

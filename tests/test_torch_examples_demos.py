@@ -11,6 +11,7 @@ in this process, with the arguments of ``tests/test_examples.py``'s
 codes, the printed lines and every file written, within the tolerances
 ``examples_torch/_compare.py`` states for each program.
 """
+import ast
 import os
 import sys
 
@@ -37,8 +38,16 @@ EXTRA = [
 
 
 def test_every_program_is_tested():
-    assert sorted(NAMES + ("accel_matrix", "cores", "denoise", "info", "simple",
-                           "start")) == sorted(C.PROGRAMS)
+    """All 34 programs: these twelve, the six of ``test_torch_examples.py``,
+    the ten of ``test_torch_examples_analysis.py`` and the six of
+    ``test_torch_examples_tools.py``."""
+    tested = NAMES + ("accel_matrix", "cores", "denoise", "info", "simple", "start")
+    for other in ("test_torch_examples_analysis.py", "test_torch_examples_tools.py"):
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), other)) as f:
+            src = f.read()
+        start = src.index("NAMES = ") + len("NAMES = ")
+        tested += ast.literal_eval(src[start:src.index(")", start) + 1])
+    assert sorted(tested) == sorted(C.PROGRAMS) and len(C.PROGRAMS) == 34
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -118,16 +118,21 @@ from examples_torch import _compare  # noqa: E402
 
 
 def test_example_programs_load_neither_jax_nor_the_reference():
-    """The 18 programs of ``examples_torch/``, imported and then run (small
+    """The 34 programs of ``examples_torch/``, imported and then run (small
     arguments, ``--device cpu``) in a fresh interpreter, load neither JAX,
     the JAX package nor anything under ``examples/``."""
     names = sorted(f[:-3] for f in os.listdir(EXAMPLES)
                    if f.endswith(".py") and not f.startswith("_"))
-    assert names == sorted(_compare.PROGRAMS) and len(names) == 18
+    assert names == sorted(_compare.PROGRAMS) and len(names) == 34
+    assert names == sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "examples"))
+                           if f.endswith(".py"))
     for name in ("simple", "simple_variants", "start", "info", "cores", "subbands", "mra",
                  "filter_coeffs", "function_iterating", "wavelet_func", "wavelet_func2d",
                  "cdf97_test", "accel_matrix", "denoise", "nsls_demo", "eaw_demo", "hdr_eaw",
-                 "displ_vectors"):
+                 "displ_vectors", "spectra_fe", "spectra_swt", "spectra_dwt", "spectra_svm",
+                 "timefreq", "spectra_tf", "spectra_blobs", "io_roundtrip", "load",
+                 "interop_flags", "interop_subbands", "sharded_demo", "similarity",
+                 "perf_line", "perf_sweep", "perf_plot"):
         assert name in names
     code = (
         "import os, runpy, sys, tempfile\n"
@@ -150,7 +155,7 @@ def test_example_programs_load_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("ok 18")
+    assert out.stdout.startswith("ok 34")
 
 
 @pytest.mark.parametrize("name", _compare.PROGRAMS)
