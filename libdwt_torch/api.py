@@ -34,6 +34,13 @@ allows (even dims > 4; a streamed winner the streamed gate refuses runs
 Devices: a torch tensor stays on its own device; anything else goes to
 ``device`` (default: the card; without CUDA that raises — pass
 ``device='cpu'`` to compute on the CPU).
+
+Under a :func:`libdwt_torch.utils.trace.recording`, the 2-D entries record
+spans (``api.dwt2``, ``api.idwt2``, ``api.wavedec2``, ``api.waverec2``,
+``api.dispatch`` around the choice, ``api.unframe`` around a batch's
+stacks) and count each choice under ``dispatch``, keyed (entry,
+direction, impl, 'HxW', dtype, wavelet, levels).  The 3-D entries record
+nothing.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from libdwt_torch.ops import fused3d as _fused3d
 from libdwt_torch.ops import separable as _sep
 from libdwt_torch.ops import streamed as _streamed
 from libdwt_torch.ops import streamed3d as _streamed3d
+from libdwt_torch.utils import trace as _trace
 from libdwt_torch.utils.device import as_tensor
 from libdwt_torch.utils.log import get_logger
 from libdwt_torch.utils.subband import resolve_j
@@ -142,32 +150,55 @@ def _pick_impl(h: int, w: int, wavelet, impl: Optional[str], on_cuda: bool,
     return "fused" if _AUTO_MIN_SIZE <= min(h, w) < _AUTO_FUSED_MAX else "separable"
 
 
+def _dispatch(entry: str, h: int, w: int, wavelet, impl: Optional[str], x,
+              levels: int = 1, direction: str = "fwd") -> str:
+    """:func:`_pick_impl` for a 2-D entry's tensor ``x``, spanned as
+    ``api.dispatch`` and counted under ``dispatch``."""
+    with _trace.span("api.dispatch"):
+        choice = _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype,
+                            levels=levels, direction=direction)
+    if _trace.enabled():
+        _trace.count("dispatch", (entry, direction, choice, f"{h}x{w}",
+                                  str(x.dtype).replace("torch.", ""),
+                                  getattr(wavelet, "name", wavelet), levels))
+    return choice
+
+
 def _frames(x):
     return x.reshape((-1,) + tuple(x.shape[-2:]))
 
 
 def _unframe(per, batch):
-    """Stack per-frame results and restore the batch dimensions."""
+    """Stack the per-frame results (tensors, or tuples or lists of them, all
+    of one structure) leaf by leaf and restore the batch dimensions."""
+    with _trace.span("api.unframe"):
+        return _stack(per, tuple(batch))
+
+
+def _stack(per, batch):
+    first = per[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([p[k] for p in per], batch) for k in range(len(first)))
     s = torch.stack(per)
-    return s.reshape(tuple(batch) + tuple(s.shape[-2:]))
+    return s.reshape(batch + tuple(s.shape[-2:]))
 
 
 def dwt2(x, wavelet="cdf97", impl: Optional[str] = None, device=None):
     """Single-level 2-D forward transform -> (LL, HL, LH, HH).  With
     'fused' each frame of a batch (..., H, W) runs B1 in turn, with
     'streamed' B7 (a 'streamed-mxu' global default runs B7 too)."""
-    x = as_tensor(x, device)
-    _no_mxu_single_level(impl)
-    h, w = x.shape[-2], x.shape[-1]
-    choice = _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype)
-    if choice != "separable":
-        level_fn = (_fused.fused_dwt2_level if choice == "fused"
-                    else _streamed.streamed_dwt2_level)
-        if x.ndim == 2:
-            return level_fn(x, wavelet)
-        per = [level_fn(f, wavelet) for f in _frames(x)]
-        return tuple(_unframe([p[k] for p in per], x.shape[:-2]) for k in range(4))
-    return _sep.dwt2_level(x, wavelet)
+    with _trace.span("api.dwt2"):
+        x = as_tensor(x, device)
+        _no_mxu_single_level(impl)
+        h, w = x.shape[-2], x.shape[-1]
+        choice = _dispatch("dwt2", h, w, wavelet, impl, x)
+        if choice != "separable":
+            level_fn = (_fused.fused_dwt2_level if choice == "fused"
+                        else _streamed.streamed_dwt2_level)
+            if x.ndim == 2:
+                return level_fn(x, wavelet)
+            return _unframe([level_fn(f, wavelet) for f in _frames(x)], x.shape[:-2])
+        return _sep.dwt2_level(x, wavelet)
 
 
 def idwt2(ll, hl, lh, hh, wavelet="cdf97", impl: Optional[str] = None,
@@ -175,21 +206,22 @@ def idwt2(ll, hl, lh, hh, wavelet="cdf97", impl: Optional[str] = None,
     """Single-level 2-D inverse transform (B4 with 'fused', B9 with
     'streamed'); non-mirror ``border`` modes ('hole', 'zero') run on the
     separable path."""
-    ll, hl, lh, hh = (as_tensor(b, device) for b in (ll, hl, lh, hh))
-    if border != "mirror":
-        return _sep.idwt2_level(ll, hl, lh, hh, wavelet, border=border)
-    _no_mxu_single_level(impl)
-    h, w = ll.shape[-2] + hh.shape[-2], ll.shape[-1] + hh.shape[-1]
-    choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype, direction="inv")
-    if choice != "separable":
-        level_fn = (_fused.fused_idwt2_level if choice == "fused"
-                    else _streamed.streamed_idwt2_level)
-        if ll.ndim == 2:
-            return level_fn(ll, hl, lh, hh, wavelet)
-        fl = [_frames(b) for b in (ll, hl, lh, hh)]
-        per = [level_fn(*(b[i] for b in fl), wavelet) for i in range(fl[0].shape[0])]
-        return _unframe(per, ll.shape[:-2])
-    return _sep.idwt2_level(ll, hl, lh, hh, wavelet)
+    with _trace.span("api.idwt2"):
+        ll, hl, lh, hh = (as_tensor(b, device) for b in (ll, hl, lh, hh))
+        if border != "mirror":
+            return _sep.idwt2_level(ll, hl, lh, hh, wavelet, border=border)
+        _no_mxu_single_level(impl)
+        h, w = ll.shape[-2] + hh.shape[-2], ll.shape[-1] + hh.shape[-1]
+        choice = _dispatch("idwt2", h, w, wavelet, impl, ll, direction="inv")
+        if choice != "separable":
+            level_fn = (_fused.fused_idwt2_level if choice == "fused"
+                        else _streamed.streamed_idwt2_level)
+            if ll.ndim == 2:
+                return level_fn(ll, hl, lh, hh, wavelet)
+            fl = [_frames(b) for b in (ll, hl, lh, hh)]
+            per = [level_fn(*(b[i] for b in fl), wavelet) for i in range(fl[0].shape[0])]
+            return _unframe(per, ll.shape[:-2])
+        return _sep.idwt2_level(ll, hl, lh, hh, wavelet)
 
 
 def wavedec2(x, wavelet="cdf97", level: Optional[int] = None,
@@ -200,71 +232,67 @@ def wavedec2(x, wavelet="cdf97", level: Optional[int] = None,
     'streamed' :func:`ops.streamed.streamed_wavedec2` (with
     'streamed-mxu' its banded-matmul strip body, B13); a batch (..., H, W)
     is looped frame by frame."""
-    x = as_tensor(x, device)
-    h, w = x.shape[-2], x.shape[-1]
-    j = resolve_j(h, w, level)
-    choice = _pick_impl(h, w, wavelet, impl, x.is_cuda, x.dtype, levels=j)
-    if choice != "separable":
-        if choice == "fused":
-            dec = _fused.fused_wavedec2
-        else:
-            dec = functools.partial(_streamed.streamed_wavedec2,
-                                    body="mxu" if choice == "streamed-mxu" else "poly")
-        if x.ndim == 2:
-            return dec(x, wavelet, j)
-        per = [dec(f, wavelet, j) for f in _frames(x)]
-        batch = x.shape[:-2]
-        out = [_unframe([p[0] for p in per], batch)]
-        for lvl in range(1, len(per[0])):
-            out.append(tuple(_unframe([p[lvl][k] for p in per], batch)
-                             for k in range(3)))
-        return out
-    # 'separable' at the top level: with impl=None lock it for every level;
-    # an explicit impl ('auto', or a name outside _IMPLS) re-dispatches per
-    # level through dwt2, as the reference does
-    level_impl = impl if impl is not None else "separable"
-    coeffs = []
-    ll = x
-    for _ in range(j):
-        ll, hl, lh, hh = dwt2(ll, wavelet, impl=level_impl)
-        coeffs.append((hl, lh, hh))
-    return [ll] + coeffs[::-1]
+    with _trace.span("api.wavedec2"):
+        x = as_tensor(x, device)
+        h, w = x.shape[-2], x.shape[-1]
+        j = resolve_j(h, w, level)
+        choice = _dispatch("wavedec2", h, w, wavelet, impl, x, levels=j)
+        if choice != "separable":
+            if choice == "fused":
+                dec = _fused.fused_wavedec2
+            else:
+                dec = functools.partial(_streamed.streamed_wavedec2,
+                                        body="mxu" if choice == "streamed-mxu" else "poly")
+            if x.ndim == 2:
+                return dec(x, wavelet, j)
+            return _unframe([dec(f, wavelet, j) for f in _frames(x)], x.shape[:-2])
+        # 'separable' at the top level: with impl=None lock it for every level;
+        # an explicit impl ('auto', or a name outside _IMPLS) re-dispatches per
+        # level through dwt2, as the reference does
+        level_impl = impl if impl is not None else "separable"
+        coeffs = []
+        ll = x
+        for _ in range(j):
+            ll, hl, lh, hh = dwt2(ll, wavelet, impl=level_impl)
+            coeffs.append((hl, lh, hh))
+        return [ll] + coeffs[::-1]
 
 
 def waverec2(coeffs, wavelet="cdf97", impl: Optional[str] = None,
              border: str = "mirror", device=None):
     """Inverse of :func:`wavedec2`; non-mirror ``border`` modes run on
     the separable path."""
-    coeffs = [as_tensor(coeffs[0], device)] + [
-        tuple(as_tensor(b, device) for b in lvl) for lvl in coeffs[1:]]
-    ll = coeffs[0]
-    if len(coeffs) > 1 and border == "mirror":
-        h = coeffs[-1][0].shape[-2] + coeffs[-1][1].shape[-2]
-        w = coeffs[-1][0].shape[-1] + coeffs[-1][1].shape[-1]
-        choice = _pick_impl(h, w, wavelet, impl, ll.is_cuda, ll.dtype,
-                            levels=len(coeffs) - 1, direction="inv")
-        if choice != "separable":
-            if choice == "fused":
-                rec = _fused.fused_waverec2
-            else:
-                rec = functools.partial(
-                    _streamed.streamed_waverec2,
-                    body="mxu" if choice == "streamed-mxu" else "auto")
-            if ll.ndim == 2:
-                return rec(coeffs, wavelet)
-            batch = tuple(ll.shape[:-2])
-            flat = [_frames(coeffs[0])] + [tuple(_frames(b) for b in lvl)
-                                           for lvl in coeffs[1:]]
-            per = [rec(
-                [flat[0][i]] + [tuple(b[i] for b in lvl) for lvl in flat[1:]],
-                wavelet) for i in range(flat[0].shape[0])]
-            return _unframe(per, batch)
-        # 'separable' at the top level: locked for impl=None, else each
-        # level re-dispatches through idwt2 (see wavedec2)
-        impl = impl if impl is not None else "separable"
-    for hl, lh, hh in coeffs[1:]:
-        ll = idwt2(ll, hl, lh, hh, wavelet, impl=impl, border=border)
-    return ll
+    with _trace.span("api.waverec2"):
+        coeffs = [as_tensor(coeffs[0], device)] + [
+            tuple(as_tensor(b, device) for b in lvl) for lvl in coeffs[1:]]
+        ll = coeffs[0]
+        if len(coeffs) > 1 and border == "mirror":
+            h = coeffs[-1][0].shape[-2] + coeffs[-1][1].shape[-2]
+            w = coeffs[-1][0].shape[-1] + coeffs[-1][1].shape[-1]
+            choice = _dispatch("waverec2", h, w, wavelet, impl, ll,
+                               levels=len(coeffs) - 1, direction="inv")
+            if choice != "separable":
+                if choice == "fused":
+                    rec = _fused.fused_waverec2
+                else:
+                    rec = functools.partial(
+                        _streamed.streamed_waverec2,
+                        body="mxu" if choice == "streamed-mxu" else "auto")
+                if ll.ndim == 2:
+                    return rec(coeffs, wavelet)
+                batch = tuple(ll.shape[:-2])
+                flat = [_frames(coeffs[0])] + [tuple(_frames(b) for b in lvl)
+                                               for lvl in coeffs[1:]]
+                per = [rec(
+                    [flat[0][i]] + [tuple(b[i] for b in lvl) for lvl in flat[1:]],
+                    wavelet) for i in range(flat[0].shape[0])]
+                return _unframe(per, batch)
+            # 'separable' at the top level: locked for impl=None, else each
+            # level re-dispatches through idwt2 (see wavedec2)
+            impl = impl if impl is not None else "separable"
+        for hl, lh, hh in coeffs[1:]:
+            ll = idwt2(ll, hl, lh, hh, wavelet, impl=impl, border=border)
+        return ll
 
 
 def _log_fallback(fn: str, choice: str, err: Exception) -> None:

@@ -7,7 +7,9 @@ overrides the directory).  The file name carries a hash of the sources
 and flags, so an edit rebuilds; a file lock keeps two processes from
 racing.  All sources are compiled in parallel, one ``nvcc`` each.
 Libraries load through ``ctypes``; pointers and the stream are passed
-as ``c_void_p``.  Nothing here runs at import time.
+as ``c_void_p``.  Nothing here runs at import time.  Each build and each
+load is kept as a one-time event of :mod:`libdwt_torch.utils.trace`
+(``cuda.build`` with the sources it compiled, ``cuda.load``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from libdwt_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused2l.cu", "deep.cu", "level.cu", "fused3d.cu", "streamed.cu",
@@ -114,7 +119,10 @@ def _lib_path(src: str, digest: str) -> Path:
 def build_all() -> dict:
     """Compile every source not yet built (in parallel) and return
     {source: library path}.  Compiler output (including ``-Xptxas -v``
-    register and spill counts) goes to ``<lib>.log``."""
+    register and spill counts) goes to ``<lib>.log``.  Kept as the
+    one-time event ``cuda.build`` (seconds, ``compiled``: the sources
+    compiled, none where every library was built already)."""
+    t0 = time.perf_counter()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     digest = _digest()
@@ -145,6 +153,7 @@ def build_all() -> dict:
                     raise RuntimeError("\n".join(errors))
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+    trace.once("cuda.build", time.perf_counter() - t0, compiled=todo)
     return paths
 
 
@@ -241,6 +250,7 @@ def kernel_fn(name: str, suffix: str = ""):
     key = f"{name}_{suffix}" if suffix else name
     if key not in _fns:
         paths = build_all()
+        t0 = time.perf_counter()
         libs = {src: ctypes.CDLL(str(p)) for src, p in paths.items()}
         for base, argtypes in _SIGS.items():
             for suf in _suffixes(base):
@@ -249,6 +259,7 @@ def kernel_fn(name: str, suffix: str = ""):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _fns[sym] = fn
+        trace.once("cuda.load", time.perf_counter() - t0)
     return _fns[key]
 
 

@@ -34,6 +34,12 @@ Ported kernels (TPU kernel ids of ROADMAP section B):
   B6 fused_deep_waverec2   -> csrc/deep.cu dwt_deep_inv_*, the same
 The 3-D kernels B14/B15 are in :mod:`libdwt_torch.ops.fused3d` and count
 in the same ``KERNELS`` table.
+
+Under a :func:`libdwt_torch.utils.trace.recording`, each 2-D wrapper
+records a span ``kernel.<id>`` (checks, allocations, ``.contiguous()``),
+each launch a ``kernel.launch`` inside it (the entry point's lookup, the
+lifting parameters, the stream, the ctypes call), and the pyramid drivers
+``fused.wavedec2`` / ``fused.waverec2``.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from libdwt_torch.models.wavelets import Wavelet, get_wavelet
 from libdwt_torch.ops import _cuda
 from libdwt_torch.ops import separable as _sep
 from libdwt_torch.ops.lifting import _inv_scales, _is_int
+from libdwt_torch.utils import trace as _trace
 
 __all__ = [
     "fused_supported", "fused_dwt2_level", "fused_idwt2_level",
@@ -528,14 +535,16 @@ def _suffix(dtype) -> str:
 
 def _launch(kid: str, fn_name: str, dtype, wavelet, inverse, args, device, extra=()):
     """Launch ``fn_name`` with ``args``, the lifting parameters, ``extra``
-    (the banded body's matrices) and the current stream; count it."""
-    fn = _cuda.kernel_fn(fn_name, _suffix(dtype))
-    params = _lift_params(wavelet, dtype == torch.int32, inverse)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.byref(params), *extra, stream)
-    _cuda.check(err, KERNELS[kid].name)
-    KERNELS[kid].launches += 1
+    (the banded body's matrices) and the current stream; count it.
+    Spanned as ``kernel.launch``."""
+    with _trace.span("kernel.launch"):
+        fn = _cuda.kernel_fn(fn_name, _suffix(dtype))
+        params = _lift_params(wavelet, dtype == torch.int32, inverse)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*args, ctypes.byref(params), *extra, stream)
+        _cuda.check(err, KERNELS[kid].name)
+        KERNELS[kid].launches += 1
 
 
 def _check_inputs(name: str, tile: int, *ts) -> None:
@@ -606,29 +615,30 @@ def fused_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
     tile is 2-D, ``tile`` x ``tile`` samples of each band.  On the card
     the four bands are disjoint, 16-byte-aligned views of one
     allocation."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    if x.ndim != 2:
-        raise ValueError("fused_dwt2_level takes one 2-D image; loop batches")
-    ext = _check_boundary_rows(boundary_rows)
-    h, w = x.shape
-    if ext:
-        h -= 2 * HALO
-        if h % 2:
-            raise ValueError("extended mode needs an even row count")
-    if min(h, w) <= HALO:
-        raise ValueError("image too small for the fused kernel; use the oracle")
-    _check_strip_rows(strip_rows)
-    _check_inputs("fused_dwt2_level", tile, x)
-    KERNELS["B1"].calls += 1
-    if not x.is_cuda:
-        return dwt2_level_plain(x, wavelet, tile, ext)
-    x = x.contiguous()
-    cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
-    out = tuple(_carve([(cy, cx), (cy, fx), (fy, cx), (fy, fx)], x))
-    _launch("B1", "dwt_fwd1", x.dtype, wavelet, False,
-            _ptrs(x, *out) + [h, w, tile, int(ext)], x.device)
-    return out
+    with _trace.span("kernel.B1"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        if x.ndim != 2:
+            raise ValueError("fused_dwt2_level takes one 2-D image; loop batches")
+        ext = _check_boundary_rows(boundary_rows)
+        h, w = x.shape
+        if ext:
+            h -= 2 * HALO
+            if h % 2:
+                raise ValueError("extended mode needs an even row count")
+        if min(h, w) <= HALO:
+            raise ValueError("image too small for the fused kernel; use the oracle")
+        _check_strip_rows(strip_rows)
+        _check_inputs("fused_dwt2_level", tile, x)
+        KERNELS["B1"].calls += 1
+        if not x.is_cuda:
+            return dwt2_level_plain(x, wavelet, tile, ext)
+        x = x.contiguous()
+        cy, cx, fy, fx = -(-h // 2), -(-w // 2), h // 2, w // 2
+        out = tuple(_carve([(cy, cx), (cy, fx), (fy, cx), (fy, fx)], x))
+        _launch("B1", "dwt_fwd1", x.dtype, wavelet, False,
+                _ptrs(x, *out) + [h, w, tile, int(ext)], x.device)
+        return out
 
 
 def fused_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
@@ -639,31 +649,32 @@ def fused_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
     ``boundary_rows='extended'``: the caller supplies CH = 4 valid
     channel rows above and below every band, read with no row mirror;
     columns still mirror."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    ext = _check_boundary_rows(boundary_rows)
-    if any(b.ndim != 2 for b in (ll, hl, lh, hh)):
-        raise ValueError("fused_idwt2_level takes the four 2-D bands of one "
-                         "level; loop batches")
-    e = 2 * CH if ext else 0
-    cy, cx = ll.shape[0] - e, ll.shape[1]
-    fy, fx = hh.shape[0] - e, hh.shape[1]
-    h, w = cy + fy, cx + fx
-    if min(h, w) < 2 * (CH + 1):  # channel mirror needs CH+1 samples
-        raise ValueError("image too small for the fused kernel; use the oracle")
-    _check_strip_rows(strip_rows)
-    if (tuple(hl.shape) != (cy + e, fx) or tuple(lh.shape) != (fy + e, cx)
-            or cy - fy not in (0, 1) or cx - fx not in (0, 1)):
-        raise ValueError("band shapes do not form one level")
-    _check_inputs("fused_idwt2_level", tile, ll, hl, lh, hh)
-    KERNELS["B4"].calls += 1
-    if not ll.is_cuda:
-        return idwt2_level_plain(ll, hl, lh, hh, wavelet, tile, ext)
-    ll, hl, lh, hh = (b.contiguous() for b in (ll, hl, lh, hh))
-    out = _empty((h, w), ll)
-    _launch("B4", "dwt_inv1", ll.dtype, wavelet, True,
-            _ptrs(ll, hl, lh, hh, out) + [h, w, tile, int(ext)], ll.device)
-    return out
+    with _trace.span("kernel.B4"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        ext = _check_boundary_rows(boundary_rows)
+        if any(b.ndim != 2 for b in (ll, hl, lh, hh)):
+            raise ValueError("fused_idwt2_level takes the four 2-D bands of one "
+                             "level; loop batches")
+        e = 2 * CH if ext else 0
+        cy, cx = ll.shape[0] - e, ll.shape[1]
+        fy, fx = hh.shape[0] - e, hh.shape[1]
+        h, w = cy + fy, cx + fx
+        if min(h, w) < 2 * (CH + 1):  # channel mirror needs CH+1 samples
+            raise ValueError("image too small for the fused kernel; use the oracle")
+        _check_strip_rows(strip_rows)
+        if (tuple(hl.shape) != (cy + e, fx) or tuple(lh.shape) != (fy + e, cx)
+                or cy - fy not in (0, 1) or cx - fx not in (0, 1)):
+            raise ValueError("band shapes do not form one level")
+        _check_inputs("fused_idwt2_level", tile, ll, hl, lh, hh)
+        KERNELS["B4"].calls += 1
+        if not ll.is_cuda:
+            return idwt2_level_plain(ll, hl, lh, hh, wavelet, tile, ext)
+        ll, hl, lh, hh = (b.contiguous() for b in (ll, hl, lh, hh))
+        out = _empty((h, w), ll)
+        _launch("B4", "dwt_inv1", ll.dtype, wavelet, True,
+                _ptrs(ll, hl, lh, hh, out) + [h, w, tile, int(ext)], ll.device)
+        return out
 
 
 def fused_dwt2_2level(x, wavelet="cdf97", tile: int = TILE2):
@@ -672,56 +683,58 @@ def fused_dwt2_2level(x, wavelet="cdf97", tile: int = TILE2):
     Returns (LL2, (HL2, LH2, HH2), (HL1, LH1, HH1)).  Requires h % 4 ==
     0, w % 4 == 0 and a symmetric-step wavelet.  CUDA kernel for a CUDA
     tensor, plain version for a CPU tensor."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    if x.ndim != 2:
-        raise ValueError("fused_dwt2_2level takes one 2-D image")
-    h, w = x.shape
-    if h % 4 or w % 4:
-        raise ValueError("fused_dwt2_2level needs h, w divisible by 4")
-    if min(h, w) < 2 * HALO2:
-        raise ValueError("image too small for the 2-level fused kernel")
-    if tile % 4:
-        raise ValueError("tile must be a positive multiple of 4")
-    _check_inputs("fused_dwt2_2level", tile, x)
-    KERNELS["B2"].calls += 1
-    if not x.is_cuda:
-        return fused_dwt2_2level_plain(x, wavelet, tile)
-    x = x.contiguous()
-    q = [_empty((h // 4, w // 4), x) for _ in range(4)]
-    b = [_empty((h // 2, w // 2), x) for _ in range(3)]
-    _launch("B2", "dwt_fwd2", x.dtype, wavelet, False,
-            _ptrs(x, *q, *b) + [h, w, tile], x.device)
-    return q[0], (q[1], q[2], q[3]), (b[0], b[1], b[2])
+    with _trace.span("kernel.B2"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        if x.ndim != 2:
+            raise ValueError("fused_dwt2_2level takes one 2-D image")
+        h, w = x.shape
+        if h % 4 or w % 4:
+            raise ValueError("fused_dwt2_2level needs h, w divisible by 4")
+        if min(h, w) < 2 * HALO2:
+            raise ValueError("image too small for the 2-level fused kernel")
+        if tile % 4:
+            raise ValueError("tile must be a positive multiple of 4")
+        _check_inputs("fused_dwt2_2level", tile, x)
+        KERNELS["B2"].calls += 1
+        if not x.is_cuda:
+            return fused_dwt2_2level_plain(x, wavelet, tile)
+        x = x.contiguous()
+        q = [_empty((h // 4, w // 4), x) for _ in range(4)]
+        b = [_empty((h // 2, w // 2), x) for _ in range(3)]
+        _launch("B2", "dwt_fwd2", x.dtype, wavelet, False,
+                _ptrs(x, *q, *b) + [h, w, tile], x.device)
+        return q[0], (q[1], q[2], q[3]), (b[0], b[1], b[2])
 
 
 def fused_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", tile: int = TILE2):
     """TWO reconstruction levels in one pass (B5), the inverse of
     :func:`fused_dwt2_2level`."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    hl1, lh1, hh1 = bands1
-    h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
-    if h % 4 or w % 4:
-        raise ValueError("fused_idwt2_2level needs h, w divisible by 4")
-    if min(h, w) < 4 * (CFIX + 1):
-        raise ValueError("image too small for the 2-level fused inverse")
-    if tile % 4:
-        raise ValueError("tile must be a positive multiple of 4")
-    shapes2 = [(h // 4, w // 4)] * 4
-    shapes1 = [(h // 2, w // 2)] * 3
-    ins = [ll2, *bands2, *bands1]
-    if [tuple(a.shape) for a in ins] != shapes2 + shapes1:
-        raise ValueError("band shapes do not chain into a two-level pyramid")
-    _check_inputs("fused_idwt2_2level", tile, *ins)
-    KERNELS["B5"].calls += 1
-    if not ll2.is_cuda:
-        return fused_idwt2_2level_plain(ll2, bands2, bands1, wavelet, tile)
-    ins = [a.contiguous() for a in ins]
-    out = _empty((h, w), ll2)
-    _launch("B5", "dwt_inv2", ll2.dtype, wavelet, True,
-            _ptrs(*ins, out) + [h, w, tile], ll2.device)
-    return out
+    with _trace.span("kernel.B5"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        hl1, lh1, hh1 = bands1
+        h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
+        if h % 4 or w % 4:
+            raise ValueError("fused_idwt2_2level needs h, w divisible by 4")
+        if min(h, w) < 4 * (CFIX + 1):
+            raise ValueError("image too small for the 2-level fused inverse")
+        if tile % 4:
+            raise ValueError("tile must be a positive multiple of 4")
+        shapes2 = [(h // 4, w // 4)] * 4
+        shapes1 = [(h // 2, w // 2)] * 3
+        ins = [ll2, *bands2, *bands1]
+        if [tuple(a.shape) for a in ins] != shapes2 + shapes1:
+            raise ValueError("band shapes do not chain into a two-level pyramid")
+        _check_inputs("fused_idwt2_2level", tile, *ins)
+        KERNELS["B5"].calls += 1
+        if not ll2.is_cuda:
+            return fused_idwt2_2level_plain(ll2, bands2, bands1, wavelet, tile)
+        ins = [a.contiguous() for a in ins]
+        out = _empty((h, w), ll2)
+        _launch("B5", "dwt_inv2", ll2.dtype, wavelet, True,
+                _ptrs(*ins, out) + [h, w, tile], ll2.device)
+        return out
 
 
 def fused_deep_wavedec2(x, wavelet="cdf97", levels: int = 1, tile: int = TILE1):
@@ -730,28 +743,29 @@ def fused_deep_wavedec2(x, wavelet="cdf97", levels: int = 1, tile: int = TILE1):
     kernel halves it on levels with fewer tiles than the card has SMs:
     the plain version gives the same bits at any tile).  Returns the
     wavedec2 pytree; its arrays are views of one allocation."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    if x.ndim != 2:
-        raise ValueError("fused_deep_wavedec2 takes one 2-D image")
-    if min(x.shape) >> (levels - 1) <= 2 * HALO:
-        raise ValueError("too many levels for this size; reduce or use oracle")
-    _check_inputs("fused_deep_wavedec2", tile, x)
-    KERNELS["B3"].calls += 1
-    if not x.is_cuda:
-        return fused_deep_wavedec2_plain(x, wavelet, levels, tile)
-    _suffix(x.dtype)
-    x = x.contiguous()
-    shapes = []
-    h, w = x.shape
-    for _ in range(levels):
-        cy, cx, fy, fx = _cdiv(h, 2), _cdiv(w, 2), h // 2, w // 2
-        shapes += [(cy, fx), (fy, cx), (fy, fx), (cy, cx)]  # HL, LH, HH, LL
-        h, w = cy, cx
-    out = _carve(shapes, x)
-    _launch_deep("B3", "dwt_deep_fwd", x.dtype, wavelet, False, _ptrs(x, *out), levels,
-                 x.shape[0], x.shape[1], tile, x.device)
-    return [out[-1]] + [tuple(out[4 * k: 4 * k + 3]) for k in reversed(range(levels))]
+    with _trace.span("kernel.B3"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        if x.ndim != 2:
+            raise ValueError("fused_deep_wavedec2 takes one 2-D image")
+        if min(x.shape) >> (levels - 1) <= 2 * HALO:
+            raise ValueError("too many levels for this size; reduce or use oracle")
+        _check_inputs("fused_deep_wavedec2", tile, x)
+        KERNELS["B3"].calls += 1
+        if not x.is_cuda:
+            return fused_deep_wavedec2_plain(x, wavelet, levels, tile)
+        _suffix(x.dtype)
+        x = x.contiguous()
+        shapes = []
+        h, w = x.shape
+        for _ in range(levels):
+            cy, cx, fy, fx = _cdiv(h, 2), _cdiv(w, 2), h // 2, w // 2
+            shapes += [(cy, fx), (fy, cx), (fy, fx), (cy, cx)]  # HL, LH, HH, LL
+            h, w = cy, cx
+        out = _carve(shapes, x)
+        _launch_deep("B3", "dwt_deep_fwd", x.dtype, wavelet, False, _ptrs(x, *out), levels,
+                     x.shape[0], x.shape[1], tile, x.device)
+        return [out[-1]] + [tuple(out[4 * k: 4 * k + 3]) for k in reversed(range(levels))]
 
 
 def fused_deep_waverec2(coeffs, wavelet="cdf97", tile: int = TILE1):
@@ -759,39 +773,40 @@ def fused_deep_waverec2(coeffs, wavelet="cdf97", tile: int = TILE1):
     ``coeffs`` is a wavedec2 prefix [LLn, (hl_n, lh_n, hh_n), ..., (hl_1,
     lh_1, hh_1)]; returns the image at the finest provided level (a view
     of one allocation that also holds the coarser reconstructions)."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    ll = coeffs[0]
-    if ll.ndim != 2:
-        raise ValueError("fused_deep_waverec2 takes one 2-D pyramid")
-    if len(coeffs) > 1 and min(ll.shape) <= CH:
-        raise ValueError(
-            f"coarsest LL {tuple(ll.shape)} too small for the deep inverse's "
-            f"channel mirrors (needs > {CH} samples per axis)"
-        )
-    ch, cw = ll.shape
-    shapes = []
-    for (hl, lh, hh) in coeffs[1:]:
-        h, w = ch + lh.shape[-2], cw + hl.shape[-1]
-        if tuple(hl.shape) != (ch, w // 2) or tuple(lh.shape) != (h // 2, cw) \
-                or tuple(hh.shape) != (h // 2, w // 2):
-            raise ValueError("band shapes do not chain into a pyramid")
-        ch, cw = h, w
-        shapes.append((h, w))
-    if len(coeffs) == 1:
-        return ll
-    _check_inputs("fused_deep_waverec2", tile, *[ll] + [b for lvl in coeffs[1:] for b in lvl])
-    KERNELS["B6"].calls += 1
-    if not ll.is_cuda:
-        return fused_deep_waverec2_plain(coeffs, wavelet, tile)
-    _suffix(ll.dtype)
-    out = _carve(shapes, ll)
-    ins = [ll.contiguous()]
-    for bands, rec in zip(coeffs[1:], out):
-        ins += [b.contiguous() for b in bands] + [rec]
-    _launch_deep("B6", "dwt_deep_inv", ll.dtype, wavelet, True, _ptrs(*ins), len(shapes),
-                 ch, cw, tile, ll.device)
-    return out[-1]
+    with _trace.span("kernel.B6"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        ll = coeffs[0]
+        if ll.ndim != 2:
+            raise ValueError("fused_deep_waverec2 takes one 2-D pyramid")
+        if len(coeffs) > 1 and min(ll.shape) <= CH:
+            raise ValueError(
+                f"coarsest LL {tuple(ll.shape)} too small for the deep inverse's "
+                f"channel mirrors (needs > {CH} samples per axis)"
+            )
+        ch, cw = ll.shape
+        shapes = []
+        for (hl, lh, hh) in coeffs[1:]:
+            h, w = ch + lh.shape[-2], cw + hl.shape[-1]
+            if tuple(hl.shape) != (ch, w // 2) or tuple(lh.shape) != (h // 2, cw) \
+                    or tuple(hh.shape) != (h // 2, w // 2):
+                raise ValueError("band shapes do not chain into a pyramid")
+            ch, cw = h, w
+            shapes.append((h, w))
+        if len(coeffs) == 1:
+            return ll
+        _check_inputs("fused_deep_waverec2", tile, *[ll] + [b for lvl in coeffs[1:] for b in lvl])
+        KERNELS["B6"].calls += 1
+        if not ll.is_cuda:
+            return fused_deep_waverec2_plain(coeffs, wavelet, tile)
+        _suffix(ll.dtype)
+        out = _carve(shapes, ll)
+        ins = [ll.contiguous()]
+        for bands, rec in zip(coeffs[1:], out):
+            ins += [b.contiguous() for b in bands] + [rec]
+        _launch_deep("B6", "dwt_deep_inv", ll.dtype, wavelet, True, _ptrs(*ins), len(shapes),
+                     ch, cw, tile, ll.device)
+        return out[-1]
 
 
 # ------------------------------------------------------------ pyramid schedules
@@ -830,73 +845,75 @@ def fused_wavedec2_plan(h: int, w: int, level: int, itemsize: int,
 def fused_wavedec2(x, wavelet="cdf97", level: int = 1):
     """Multi-level MRA on the fused kernels (schedule:
     :func:`fused_wavedec2_plan`).  Same pytree as wavedec2."""
-    if x.ndim != 2:
-        raise ValueError("fused_wavedec2 takes one 2-D image; loop batches")
-    coeffs = []
-    ll = x
-    for step, n in fused_wavedec2_plan(x.shape[0], x.shape[1], level,
-                                       x.element_size(), wavelet):
-        if step == "2level":
-            ll, b2, b1 = fused_dwt2_2level(ll, wavelet)
-            coeffs += [b1, b2]
-        elif step == "level":
-            ll, hl, lh, hh = fused_dwt2_level(ll, wavelet)
-            coeffs.append((hl, lh, hh))
-        elif step == "deep":
-            deep = fused_deep_wavedec2(ll, wavelet, n)
-            ll = deep[0]
-            coeffs.extend(deep[:0:-1])  # fine-first into the accumulator
-        else:
-            ll, hl, lh, hh = _sep.dwt2_level(ll, wavelet)
-            coeffs.append((hl, lh, hh))
-    return [ll] + coeffs[::-1]
+    with _trace.span("fused.wavedec2"):
+        if x.ndim != 2:
+            raise ValueError("fused_wavedec2 takes one 2-D image; loop batches")
+        coeffs = []
+        ll = x
+        for step, n in fused_wavedec2_plan(x.shape[0], x.shape[1], level,
+                                           x.element_size(), wavelet):
+            if step == "2level":
+                ll, b2, b1 = fused_dwt2_2level(ll, wavelet)
+                coeffs += [b1, b2]
+            elif step == "level":
+                ll, hl, lh, hh = fused_dwt2_level(ll, wavelet)
+                coeffs.append((hl, lh, hh))
+            elif step == "deep":
+                deep = fused_deep_wavedec2(ll, wavelet, n)
+                ll = deep[0]
+                coeffs.extend(deep[:0:-1])  # fine-first into the accumulator
+            else:
+                ll, hl, lh, hh = _sep.dwt2_level(ll, wavelet)
+                coeffs.append((hl, lh, hh))
+        return [ll] + coeffs[::-1]
 
 
 def fused_waverec2(coeffs, wavelet="cdf97"):
     """Multi-level reconstruction: the deep inverse tail for every small
     coarse level, then the two-level inverse where geometry allows, the
     separable oracle otherwise (the reference's schedule)."""
-    ll = coeffs[0]
-    rest = list(coeffs[1:])
-    if ll.ndim == 2 and fused_supported(wavelet):
-        # the deep tail's channel mirrors need CH + 1 samples per axis;
-        # reconstruct smaller coarsest levels with the oracle first
-        while rest and min(ll.shape[-2], ll.shape[-1]) <= CH:
-            hl, lh, hh = rest[0]
-            h0, w0 = ll.shape[-2] + lh.shape[-2], ll.shape[-1] + hl.shape[-1]
-            if (tuple(hl.shape[-2:]) != (ll.shape[-2], w0 // 2)
-                    or tuple(lh.shape[-2:]) != (h0 // 2, ll.shape[-1])
-                    or tuple(hh.shape[-2:]) != (h0 // 2, w0 // 2)):
-                break
-            ll = _sep.idwt2_level(ll, hl, lh, hh, wavelet)
-            rest = rest[1:]
-        deep = 0
-        ch, cw = ll.shape[-2], ll.shape[-1]
-        for (hl, lh, hh) in rest:
-            h, w = ch + lh.shape[-2], cw + hl.shape[-1]
-            if (tuple(hl.shape) != (ch, w // 2) or tuple(lh.shape) != (h // 2, cw)
-                    or tuple(hh.shape) != (h // 2, w // 2)
-                    or (h + 8) * (w + 8) * ll.element_size() > _DEEP_VMEM_LIMIT):
-                break
-            deep += 1
-            ch, cw = h, w
-        if deep:
-            ll = fused_deep_waverec2([ll] + rest[:deep], wavelet)
-            rest = rest[deep:]
+    with _trace.span("fused.waverec2"):
+        ll = coeffs[0]
+        rest = list(coeffs[1:])
+        if ll.ndim == 2 and fused_supported(wavelet):
+            # the deep tail's channel mirrors need CH + 1 samples per axis;
+            # reconstruct smaller coarsest levels with the oracle first
+            while rest and min(ll.shape[-2], ll.shape[-1]) <= CH:
+                hl, lh, hh = rest[0]
+                h0, w0 = ll.shape[-2] + lh.shape[-2], ll.shape[-1] + hl.shape[-1]
+                if (tuple(hl.shape[-2:]) != (ll.shape[-2], w0 // 2)
+                        or tuple(lh.shape[-2:]) != (h0 // 2, ll.shape[-1])
+                        or tuple(hh.shape[-2:]) != (h0 // 2, w0 // 2)):
+                    break
+                ll = _sep.idwt2_level(ll, hl, lh, hh, wavelet)
+                rest = rest[1:]
+            deep = 0
+            ch, cw = ll.shape[-2], ll.shape[-1]
+            for (hl, lh, hh) in rest:
+                h, w = ch + lh.shape[-2], cw + hl.shape[-1]
+                if (tuple(hl.shape) != (ch, w // 2) or tuple(lh.shape) != (h // 2, cw)
+                        or tuple(hh.shape) != (h // 2, w // 2)
+                        or (h + 8) * (w + 8) * ll.element_size() > _DEEP_VMEM_LIMIT):
+                    break
+                deep += 1
+                ch, cw = h, w
+            if deep:
+                ll = fused_deep_waverec2([ll] + rest[:deep], wavelet)
+                rest = rest[deep:]
 
-    while rest:
-        h2 = rest[0][0].shape[-2] + rest[0][1].shape[-2]
-        w2 = rest[0][0].shape[-1] + rest[0][1].shape[-1]
-        if (len(rest) >= 2 and ll.ndim == 2 and fused_supported(wavelet)
-                and h2 % 2 == 0 and w2 % 2 == 0):
-            # peek one level further: the 2-level inverse consumes two
-            h1 = rest[1][0].shape[-2] + rest[1][1].shape[-2]
-            w1 = rest[1][0].shape[-1] + rest[1][1].shape[-1]
-            if (min(h1, w1) >= MIN_FUSED and h1 % 4 == 0 and w1 % 4 == 0
-                    and h1 == 2 * h2 and w1 == 2 * w2):
-                ll = fused_idwt2_2level(ll, rest[0], rest[1], wavelet)
-                rest = rest[2:]
-                continue
-        ll = _sep.idwt2_level(ll, *rest[0], wavelet)
-        rest = rest[1:]
-    return ll
+        while rest:
+            h2 = rest[0][0].shape[-2] + rest[0][1].shape[-2]
+            w2 = rest[0][0].shape[-1] + rest[0][1].shape[-1]
+            if (len(rest) >= 2 and ll.ndim == 2 and fused_supported(wavelet)
+                    and h2 % 2 == 0 and w2 % 2 == 0):
+                # peek one level further: the 2-level inverse consumes two
+                h1 = rest[1][0].shape[-2] + rest[1][1].shape[-2]
+                w1 = rest[1][0].shape[-1] + rest[1][1].shape[-1]
+                if (min(h1, w1) >= MIN_FUSED and h1 % 4 == 0 and w1 % 4 == 0
+                        and h1 == 2 * h2 and w1 == 2 * w2):
+                    ll = fused_idwt2_2level(ll, rest[0], rest[1], wavelet)
+                    rest = rest[2:]
+                    continue
+            ll = _sep.idwt2_level(ll, *rest[0], wavelet)
+            rest = rest[1:]
+        return ll

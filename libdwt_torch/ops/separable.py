@@ -6,7 +6,9 @@ top-left region of size ceil(n / 2**j), libdwt's ``dwt_cdf97_2f_s``
 order.  Two coefficient layouts:
   * packed — one tensor, L|H halves per level (fdwt*/idwt* functions);
   * pytree — list of subband tensors (wavedec*/waverec*).
-Works on any device, in float32, float64 and int32.
+Works on any device, in float32, float64 and int32.  Under a
+:func:`libdwt_torch.utils.trace.recording` the 2-D levels record spans
+``separable.dwt2_level`` / ``separable.idwt2_level``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from libdwt_torch.ops.lifting import lift_fwd, lift_inv
+from libdwt_torch.utils import trace as _trace
 from libdwt_torch.utils.subband import ceil_div_pow2, resolve_j
 
 __all__ = [
@@ -39,18 +42,20 @@ def idwt1(low, high, wavelet="cdf97", axis=-1, border="mirror"):
 def dwt2_level(x, wavelet="cdf97"):
     """Single-level 2-D transform over the last two axes -> (LL, HL, LH, HH).
     Row pass (along x) then column pass (along y)."""
-    l, h = lift_fwd(x, wavelet, axis=-1)
-    ll, lh = lift_fwd(l, wavelet, axis=-2)
-    hl, hh = lift_fwd(h, wavelet, axis=-2)
-    return ll, hl, lh, hh
+    with _trace.span("separable.dwt2_level"):
+        l, h = lift_fwd(x, wavelet, axis=-1)
+        ll, lh = lift_fwd(l, wavelet, axis=-2)
+        hl, hh = lift_fwd(h, wavelet, axis=-2)
+        return ll, hl, lh, hh
 
 
 def idwt2_level(ll, hl, lh, hh, wavelet="cdf97", border="mirror"):
     """Inverse of :func:`dwt2_level`; ``border`` gives the sparse-
     reconstruction variants ('hole', 'zero')."""
-    l = lift_inv(ll, lh, wavelet, axis=-2, border=border)
-    h = lift_inv(hl, hh, wavelet, axis=-2, border=border)
-    return lift_inv(l, h, wavelet, axis=-1, border=border)
+    with _trace.span("separable.idwt2_level"):
+        l = lift_inv(ll, lh, wavelet, axis=-2, border=border)
+        h = lift_inv(hl, hh, wavelet, axis=-2, border=border)
+        return lift_inv(l, h, wavelet, axis=-1, border=border)
 
 
 def dwt3_level(x, wavelet="cdf97"):

@@ -37,6 +37,11 @@ strips with the banded-matmul body of :mod:`libdwt_torch.ops.banded`; the
 deep levels of B11/B12 stay polyphase, as in the reference.  The
 inverse's ``'auto'`` resolves to ``'poly'`` at every size (see
 :func:`_resolve_inv_body`).
+
+Under a :func:`libdwt_torch.utils.trace.recording` the wrappers record
+spans ``kernel.<id>`` (B7-B12; an 'mxu' body's B13 runs inside its
+kernel's), each launch a ``kernel.launch``, and the pyramids
+``streamed.wavedec2`` / ``streamed.waverec2``.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ from libdwt_torch.ops.fused import (CFIX, CH, HALO, HALO2, KERNELS, TILE1,
                                     fused_deep_waverec2_plain, fused_supported,
                                     fused_wavedec2, fused_waverec2,
                                     idwt2_2level_tiles, idwt2_level_tiles)
+from libdwt_torch.utils import trace as _trace
 
 __all__ = [
     "streamed_supported", "streamed_deep_ok", "mxu_supported", "streamed_dwt2_level",
@@ -445,26 +451,27 @@ def streamed_dwt2_level(x, wavelet="cdf97", strip_rows: int = 0,
     validates it; the CUDA strip is ``ty`` x ``tx`` (multiples of 4; the
     kernel refuses a side over 248, whose window lines outgrow its block,
     and the wrapper raises ``RuntimeError``)."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    if x.ndim != 2:
-        raise ValueError("streamed_dwt2_level takes one 2-D image; loop batches")
-    ext = _check_boundary_rows(boundary_rows)
-    e = TOP if ext else 0
-    h, w = x.shape[0] - 2 * e, x.shape[1]
-    if h % 2 or w % 2:
-        raise ValueError("streamed kernel needs even dims; use the oracle")
-    _fwd1_geometry(h, strip_rows, ext)
-    _check_tile(ty, tx)
-    _check_inputs("streamed_dwt2_level", ty, x)
-    KERNELS["B7"].calls += 1
-    if not x.is_cuda:
-        return streamed_dwt2_level_plain(x, wavelet, ty, tx, e)
-    x = x.contiguous()
-    out = [_empty((h // 2, w // 2), x) for _ in range(4)]
-    _launch("B7", "dwt_sfwd1", x.dtype, wavelet, False,
-            _ptrs(x, *out) + [h, w, ty, tx, e], x.device)
-    return tuple(out)
+    with _trace.span("kernel.B7"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        if x.ndim != 2:
+            raise ValueError("streamed_dwt2_level takes one 2-D image; loop batches")
+        ext = _check_boundary_rows(boundary_rows)
+        e = TOP if ext else 0
+        h, w = x.shape[0] - 2 * e, x.shape[1]
+        if h % 2 or w % 2:
+            raise ValueError("streamed kernel needs even dims; use the oracle")
+        _fwd1_geometry(h, strip_rows, ext)
+        _check_tile(ty, tx)
+        _check_inputs("streamed_dwt2_level", ty, x)
+        KERNELS["B7"].calls += 1
+        if not x.is_cuda:
+            return streamed_dwt2_level_plain(x, wavelet, ty, tx, e)
+        x = x.contiguous()
+        out = [_empty((h // 2, w // 2), x) for _ in range(4)]
+        _launch("B7", "dwt_sfwd1", x.dtype, wavelet, False,
+                _ptrs(x, *out) + [h, w, ty, tx, e], x.device)
+        return tuple(out)
 
 
 def streamed_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
@@ -476,30 +483,31 @@ def streamed_idwt2_level(ll, hl, lh, hh, wavelet="cdf97", strip_rows: int = 0,
     ``boundary_rows='extended'``: every band carries TOP = 8 valid channel
     rows above and below, read with no row mirror.  The CUDA strip is
     ``ty`` x ``tx`` output samples, as in the forward."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    ext = _check_boundary_rows(boundary_rows)
-    e = TOP if ext else 0
-    if ll.ndim != 2:
-        raise ValueError("streamed_idwt2_level takes the four 2-D bands of one "
-                         "level; loop batches")
-    for name, band in (("hl", hl), ("lh", lh), ("hh", hh)):
-        if band.shape != ll.shape:
-            raise ValueError(
-                f"streamed inverse needs equal band shapes (even dims): "
-                f"ll={tuple(ll.shape)} vs {name}={tuple(band.shape)}; use the oracle")
-    cy, cx = ll.shape[0] - 2 * e, ll.shape[1]
-    _inv1_geometry(cy, strip_rows, ext)
-    _check_tile(ty, tx)
-    _check_inputs("streamed_idwt2_level", ty, ll, hl, lh, hh)
-    KERNELS["B9"].calls += 1
-    if not ll.is_cuda:
-        return streamed_idwt2_level_plain(ll, hl, lh, hh, wavelet, ty, tx, e)
-    ins = [b.contiguous() for b in (ll, hl, lh, hh)]
-    out = _empty((2 * cy, 2 * cx), ll)
-    _launch("B9", "dwt_sinv1", ll.dtype, wavelet, True,
-            _ptrs(*ins, out) + [2 * cy, 2 * cx, ty, tx, e], ll.device)
-    return out
+    with _trace.span("kernel.B9"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        ext = _check_boundary_rows(boundary_rows)
+        e = TOP if ext else 0
+        if ll.ndim != 2:
+            raise ValueError("streamed_idwt2_level takes the four 2-D bands of one "
+                             "level; loop batches")
+        for name, band in (("hl", hl), ("lh", lh), ("hh", hh)):
+            if band.shape != ll.shape:
+                raise ValueError(
+                    f"streamed inverse needs equal band shapes (even dims): "
+                    f"ll={tuple(ll.shape)} vs {name}={tuple(band.shape)}; use the oracle")
+        cy, cx = ll.shape[0] - 2 * e, ll.shape[1]
+        _inv1_geometry(cy, strip_rows, ext)
+        _check_tile(ty, tx)
+        _check_inputs("streamed_idwt2_level", ty, ll, hl, lh, hh)
+        KERNELS["B9"].calls += 1
+        if not ll.is_cuda:
+            return streamed_idwt2_level_plain(ll, hl, lh, hh, wavelet, ty, tx, e)
+        ins = [b.contiguous() for b in (ll, hl, lh, hh)]
+        out = _empty((2 * cy, 2 * cx), ll)
+        _launch("B9", "dwt_sinv1", ll.dtype, wavelet, True,
+                _ptrs(*ins, out) + [2 * cy, 2 * cx, ty, tx, e], ll.device)
+        return out
 
 
 def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "poly",
@@ -510,55 +518,57 @@ def streamed_dwt2_2level(x, wavelet="cdf97", strip_rows: int = 0, body: str = "p
     ``body='mxu'``: the strips lift with the banded-matmul body (B13;
     float32, bf16-split, about 1e-5 from the polyphase body).  The CUDA
     strip is ty x tx, or the body's default (:func:`strip_shape`)."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    if x.ndim != 2:
-        raise ValueError("streamed_dwt2_2level takes one 2-D image")
-    h, w = x.shape
-    if h % 4 or w % 4:
-        raise ValueError("needs h, w divisible by 4")
-    _check_body(body, wavelet, x.dtype)
-    _fwd2_geometry(h, strip_rows)
-    ty, tx = strip_shape(body, ty, tx)
-    _check_tile(ty, tx)
-    _check_inputs("streamed_dwt2_2level", ty, x)
-    _count(("B8",), body)
-    if not x.is_cuda:
-        return streamed_dwt2_2level_plain(x, wavelet, ty, tx, body)
-    x = x.contiguous()
-    q = [_empty((h // 4, w // 4), x) for _ in range(4)]
-    b = [_empty((h // 2, w // 2), x) for _ in range(3)]
-    _launch_body("B8", "dwt_sfwd2", x.dtype, wavelet, False,
-                 _ptrs(x, *q, *b) + [h, w, ty, tx], x.device, body, ty, tx)
-    return q[0], (q[1], q[2], q[3]), (b[0], b[1], b[2])
+    with _trace.span("kernel.B8"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        if x.ndim != 2:
+            raise ValueError("streamed_dwt2_2level takes one 2-D image")
+        h, w = x.shape
+        if h % 4 or w % 4:
+            raise ValueError("needs h, w divisible by 4")
+        _check_body(body, wavelet, x.dtype)
+        _fwd2_geometry(h, strip_rows)
+        ty, tx = strip_shape(body, ty, tx)
+        _check_tile(ty, tx)
+        _check_inputs("streamed_dwt2_2level", ty, x)
+        _count(("B8",), body)
+        if not x.is_cuda:
+            return streamed_dwt2_2level_plain(x, wavelet, ty, tx, body)
+        x = x.contiguous()
+        q = [_empty((h // 4, w // 4), x) for _ in range(4)]
+        b = [_empty((h // 2, w // 2), x) for _ in range(3)]
+        _launch_body("B8", "dwt_sfwd2", x.dtype, wavelet, False,
+                     _ptrs(x, *q, *b) + [h, w, ty, tx], x.device, body, ty, tx)
+        return q[0], (q[1], q[2], q[3]), (b[0], b[1], b[2])
 
 
 def streamed_idwt2_2level(ll2, bands2, bands1, wavelet="cdf97", strip_rows: int = 0,
                           body: str = "auto", ty: int = 0, tx: int = 0):
     """TWO reconstruction levels in one streamed pass (B10), the inverse of
     :func:`streamed_dwt2_2level`."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    hl1, lh1, hh1 = bands1
-    h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
-    if h % 4 or w % 4:
-        raise ValueError("needs h, w divisible by 4")
-    body = _resolve_inv_body(body, wavelet, ll2.dtype)
-    ins = [ll2, *bands2, *bands1]
-    if [tuple(a.shape) for a in ins] != [(h // 4, w // 4)] * 4 + [(h // 2, w // 2)] * 3:
-        raise ValueError("band shapes do not chain into a two-level pyramid")
-    _inv2_geometry(h, strip_rows, deep=False)
-    ty, tx = strip_shape(body, ty, tx)
-    _check_tile(ty, tx)
-    _check_inputs("streamed_idwt2_2level", ty, *ins)
-    _count(("B10",), body)
-    if not ll2.is_cuda:
-        return streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet, ty, tx, body)
-    ins = [a.contiguous() for a in ins]
-    out = _empty((h, w), ll2)
-    _launch_body("B10", "dwt_sinv2", ll2.dtype, wavelet, True,
-                 _ptrs(*ins, out) + [h, w, ty, tx], ll2.device, body, ty, tx)
-    return out
+    with _trace.span("kernel.B10"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        hl1, lh1, hh1 = bands1
+        h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
+        if h % 4 or w % 4:
+            raise ValueError("needs h, w divisible by 4")
+        body = _resolve_inv_body(body, wavelet, ll2.dtype)
+        ins = [ll2, *bands2, *bands1]
+        if [tuple(a.shape) for a in ins] != [(h // 4, w // 4)] * 4 + [(h // 2, w // 2)] * 3:
+            raise ValueError("band shapes do not chain into a two-level pyramid")
+        _inv2_geometry(h, strip_rows, deep=False)
+        ty, tx = strip_shape(body, ty, tx)
+        _check_tile(ty, tx)
+        _check_inputs("streamed_idwt2_2level", ty, *ins)
+        _count(("B10",), body)
+        if not ll2.is_cuda:
+            return streamed_idwt2_2level_plain(ll2, bands2, bands1, wavelet, ty, tx, body)
+        ins = [a.contiguous() for a in ins]
+        out = _empty((h, w), ll2)
+        _launch_body("B10", "dwt_sinv2", ll2.dtype, wavelet, True,
+                     _ptrs(*ins, out) + [h, w, ty, tx], ll2.device, body, ty, tx)
+        return out
 
 
 def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int = 0,
@@ -567,44 +577,45 @@ def streamed_wavedec2_deep(x, wavelet="cdf97", level: int = 3, strip_rows: int =
     the strips while LL2 goes to a scratch buffer (in L2), then the
     remaining ``level - 2`` levels run on it after grid-wide syncs.
     Returns the wavedec2 pytree; floats and integers alike."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    if x.ndim != 2:
-        raise ValueError("streamed_wavedec2_deep takes one 2-D image")
-    h, w = x.shape
-    if level < 3:
-        raise ValueError("use streamed_dwt2_2level for level <= 2")
-    if h % 4 or w % 4:
-        raise ValueError("needs h, w divisible by 4")
-    _check_body(body, wavelet, x.dtype)
-    _fwd2_geometry(h, strip_rows)
-    cy2, cx2 = h // 4, w // 4
-    if (cy2 + 8) * (cx2 + 8) * x.element_size() > _DEEP_VMEM_LIMIT:
-        raise ValueError("LL2 too large to hold the deep tail in VMEM")
-    n = level - 2
-    if min(cy2, cx2) >> (n - 1) <= 2 * HALO:
-        raise ValueError("too many levels for this size")
-    ty, tx = strip_shape(body, ty, tx)
-    _check_tile(ty, tx)
-    _check_inputs("streamed_wavedec2_deep", tile, x)
-    _count(("B11",), body)
-    if not x.is_cuda:
-        return streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx, tile, body)
-    x = x.contiguous()
-    ll2 = _empty((cy2, cx2), x)
-    b2 = [_empty((cy2, cx2), x) for _ in range(3)]
-    b1 = [_empty((h // 2, w // 2), x) for _ in range(3)]
-    deep, ptrs = [], _ptrs(ll2, *b2, *b1)
-    ch, cw = cy2, cx2
-    for ny_, nx_ in _deep_shapes(cy2, cx2, n):
-        lvl = (_empty((ny_, cw // 2), x), _empty((ch // 2, nx_), x),
-               _empty((ch // 2, cw // 2), x), _empty((ny_, nx_), x))
-        deep.append(lvl)
-        ptrs += _ptrs(*lvl)
-        ch, cw = ny_, nx_
-    _launch_coop("B11", "dwt_sdeep_fwd", x.dtype, wavelet, False, x.data_ptr(), ptrs,
-                 [n, h, w, ty, tx, tile], x.device, body, ty, tx)
-    return [deep[-1][3]] + [lvl[:3] for lvl in deep[::-1]] + [tuple(b2), tuple(b1)]
+    with _trace.span("kernel.B11"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        if x.ndim != 2:
+            raise ValueError("streamed_wavedec2_deep takes one 2-D image")
+        h, w = x.shape
+        if level < 3:
+            raise ValueError("use streamed_dwt2_2level for level <= 2")
+        if h % 4 or w % 4:
+            raise ValueError("needs h, w divisible by 4")
+        _check_body(body, wavelet, x.dtype)
+        _fwd2_geometry(h, strip_rows)
+        cy2, cx2 = h // 4, w // 4
+        if (cy2 + 8) * (cx2 + 8) * x.element_size() > _DEEP_VMEM_LIMIT:
+            raise ValueError("LL2 too large to hold the deep tail in VMEM")
+        n = level - 2
+        if min(cy2, cx2) >> (n - 1) <= 2 * HALO:
+            raise ValueError("too many levels for this size")
+        ty, tx = strip_shape(body, ty, tx)
+        _check_tile(ty, tx)
+        _check_inputs("streamed_wavedec2_deep", tile, x)
+        _count(("B11",), body)
+        if not x.is_cuda:
+            return streamed_wavedec2_deep_plain(x, wavelet, level, ty, tx, tile, body)
+        x = x.contiguous()
+        ll2 = _empty((cy2, cx2), x)
+        b2 = [_empty((cy2, cx2), x) for _ in range(3)]
+        b1 = [_empty((h // 2, w // 2), x) for _ in range(3)]
+        deep, ptrs = [], _ptrs(ll2, *b2, *b1)
+        ch, cw = cy2, cx2
+        for ny_, nx_ in _deep_shapes(cy2, cx2, n):
+            lvl = (_empty((ny_, cw // 2), x), _empty((ch // 2, nx_), x),
+                   _empty((ch // 2, cw // 2), x), _empty((ny_, nx_), x))
+            deep.append(lvl)
+            ptrs += _ptrs(*lvl)
+            ch, cw = ny_, nx_
+        _launch_coop("B11", "dwt_sdeep_fwd", x.dtype, wavelet, False, x.data_ptr(), ptrs,
+                     [n, h, w, ty, tx, tile], x.device, body, ty, tx)
+        return [deep[-1][3]] + [lvl[:3] for lvl in deep[::-1]] + [tuple(b2), tuple(b1)]
 
 
 def streamed_waverec2_deep(coeffs, wavelet="cdf97", strip_rows: int = 0,
@@ -613,63 +624,64 @@ def streamed_waverec2_deep(coeffs, wavelet="cdf97", strip_rows: int = 0,
     :func:`streamed_wavedec2_deep`: the deep levels rebuild LL2 into a
     scratch buffer, then after a grid-wide sync the level-2+1 strips
     stream out."""
-    wavelet = get_wavelet(wavelet)
-    _check_fused_supported(wavelet)
-    levels = len(coeffs) - 1
-    if levels < 3:
-        raise ValueError("use streamed_idwt2_2level for 2 levels")
-    hl1, lh1, hh1 = coeffs[-1]
-    hl2, lh2, hh2 = coeffs[-2]
-    h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
-    if h % 4 or w % 4:
-        raise ValueError("needs h, w divisible by 4")
-    cy1, cx1 = h // 2, w // 2
-    cy2, cx2 = h // 4, w // 4
-    for name, band, shp in (("hl2", hl2, (cy2, cx2)), ("lh2", lh2, (cy2, cx2)),
-                            ("hh2", hh2, (cy2, cx2)), ("hl1", hl1, (cy1, cx1)),
-                            ("lh1", lh1, (cy1, cx1)), ("hh1", hh1, (cy1, cx1))):
-        if tuple(band.shape) != shp:
-            raise ValueError(f"streamed deep inverse: band {name} has shape "
-                             f"{tuple(band.shape)}, expected {shp}")
-    if (cy2 + 8) * (cx2 + 8) * hl1.element_size() > _DEEP_VMEM_LIMIT:
-        raise ValueError("LL2 too large to hold the deep tail in VMEM")
-    n = levels - 2
-    sizes = [(cy2, cx2)] + _deep_shapes(cy2, cx2, n)
-    ll_shape = sizes[n]
-    if tuple(coeffs[0].shape) != ll_shape:
-        raise ValueError(f"streamed deep inverse: LL has shape "
-                         f"{tuple(coeffs[0].shape)}, expected {ll_shape}")
-    if min(ll_shape) <= CH:
-        raise ValueError(f"coarsest LL {ll_shape} too small for the deep tail's "
-                         f"channel mirrors (needs > {CH} samples per axis)")
-    for triple, (th, tw) in zip(coeffs[1:levels - 1], sizes[n - 1::-1]):
-        want = ((-(-th // 2), tw // 2), (th // 2, -(-tw // 2)), (th // 2, tw // 2))
-        got = tuple(tuple(b.shape) for b in triple)
-        if got != want:
-            raise ValueError(f"streamed deep inverse: coarse triple shapes {got} do "
-                             f"not match the {th}x{tw} level ({want})")
-    body = _resolve_inv_body(body, wavelet, hl1.dtype)
-    _inv2_geometry(h, strip_rows, deep=True)
-    ty, tx = strip_shape(body, ty, tx)
-    _check_tile(ty, tx)
-    flat = [coeffs[0]] + [b for lvl in coeffs[1:] for b in lvl]
-    _check_inputs("streamed_waverec2_deep", tile, *flat)
-    _count(("B12",), body)
-    if not hl1.is_cuda:
-        return streamed_waverec2_deep_plain(coeffs, wavelet, ty, tx, tile, body)
-    flat = [a.contiguous() for a in flat]
-    # the deep levels' reconstructions (the last is the LL2 scratch), held
-    # until the launch is enqueued: a buffer freed before it could be handed
-    # to the next allocation (the banded body's matrices) and overwritten
-    scratch = [_empty(sizes[n - 1 - k], hl1) for k in range(n)]
-    ptrs = _ptrs(flat[0])
-    for k in range(n):  # coarse first: the level's bands, then its output
-        ptrs += _ptrs(*flat[1 + 3 * k: 4 + 3 * k], scratch[k])
-    out = _empty((h, w), hl1)
-    _launch_coop("B12", "dwt_sdeep_inv", hl1.dtype, wavelet, True, out.data_ptr(),
-                 ptrs + _ptrs(*flat[-6:]), [n, h, w, ty, tx, tile], hl1.device, body,
-                 ty, tx)
-    return out
+    with _trace.span("kernel.B12"):
+        wavelet = get_wavelet(wavelet)
+        _check_fused_supported(wavelet)
+        levels = len(coeffs) - 1
+        if levels < 3:
+            raise ValueError("use streamed_idwt2_2level for 2 levels")
+        hl1, lh1, hh1 = coeffs[-1]
+        hl2, lh2, hh2 = coeffs[-2]
+        h, w = hl1.shape[-2] + lh1.shape[-2], hl1.shape[-1] + lh1.shape[-1]
+        if h % 4 or w % 4:
+            raise ValueError("needs h, w divisible by 4")
+        cy1, cx1 = h // 2, w // 2
+        cy2, cx2 = h // 4, w // 4
+        for name, band, shp in (("hl2", hl2, (cy2, cx2)), ("lh2", lh2, (cy2, cx2)),
+                                ("hh2", hh2, (cy2, cx2)), ("hl1", hl1, (cy1, cx1)),
+                                ("lh1", lh1, (cy1, cx1)), ("hh1", hh1, (cy1, cx1))):
+            if tuple(band.shape) != shp:
+                raise ValueError(f"streamed deep inverse: band {name} has shape "
+                                 f"{tuple(band.shape)}, expected {shp}")
+        if (cy2 + 8) * (cx2 + 8) * hl1.element_size() > _DEEP_VMEM_LIMIT:
+            raise ValueError("LL2 too large to hold the deep tail in VMEM")
+        n = levels - 2
+        sizes = [(cy2, cx2)] + _deep_shapes(cy2, cx2, n)
+        ll_shape = sizes[n]
+        if tuple(coeffs[0].shape) != ll_shape:
+            raise ValueError(f"streamed deep inverse: LL has shape "
+                             f"{tuple(coeffs[0].shape)}, expected {ll_shape}")
+        if min(ll_shape) <= CH:
+            raise ValueError(f"coarsest LL {ll_shape} too small for the deep tail's "
+                             f"channel mirrors (needs > {CH} samples per axis)")
+        for triple, (th, tw) in zip(coeffs[1:levels - 1], sizes[n - 1::-1]):
+            want = ((-(-th // 2), tw // 2), (th // 2, -(-tw // 2)), (th // 2, tw // 2))
+            got = tuple(tuple(b.shape) for b in triple)
+            if got != want:
+                raise ValueError(f"streamed deep inverse: coarse triple shapes {got} do "
+                                 f"not match the {th}x{tw} level ({want})")
+        body = _resolve_inv_body(body, wavelet, hl1.dtype)
+        _inv2_geometry(h, strip_rows, deep=True)
+        ty, tx = strip_shape(body, ty, tx)
+        _check_tile(ty, tx)
+        flat = [coeffs[0]] + [b for lvl in coeffs[1:] for b in lvl]
+        _check_inputs("streamed_waverec2_deep", tile, *flat)
+        _count(("B12",), body)
+        if not hl1.is_cuda:
+            return streamed_waverec2_deep_plain(coeffs, wavelet, ty, tx, tile, body)
+        flat = [a.contiguous() for a in flat]
+        # the deep levels' reconstructions (the last is the LL2 scratch), held
+        # until the launch is enqueued: a buffer freed before it could be handed
+        # to the next allocation (the banded body's matrices) and overwritten
+        scratch = [_empty(sizes[n - 1 - k], hl1) for k in range(n)]
+        ptrs = _ptrs(flat[0])
+        for k in range(n):  # coarse first: the level's bands, then its output
+            ptrs += _ptrs(*flat[1 + 3 * k: 4 + 3 * k], scratch[k])
+        out = _empty((h, w), hl1)
+        _launch_coop("B12", "dwt_sdeep_inv", hl1.dtype, wavelet, True, out.data_ptr(),
+                     ptrs + _ptrs(*flat[-6:]), [n, h, w, ty, tx, tile], hl1.device, body,
+                     ty, tx)
+        return out
 
 
 # ------------------------------------------------------------ pyramids
@@ -681,22 +693,23 @@ def streamed_wavedec2(x, wavelet="cdf97", level: int = 1, strip_rows: int = 0,
     :func:`streamed_deep_ok` allows, else streamed 2-level passes (B8)
     while the geometry allows, then the fused tail of
     :func:`ops.fused.fused_wavedec2`.  Same pytree as wavedec2."""
-    if x.ndim == 2 and level >= 3 and streamed_deep_ok(
-            tuple(x.shape), x.element_size(), wavelet, level, strip_rows):
-        return streamed_wavedec2_deep(x, wavelet, level, strip_rows=strip_rows, body=body)
-    coeffs = []
-    ll = x
-    remaining = level
-    while remaining >= 2 and ll.ndim == 2 and streamed_supported(
-            tuple(ll.shape), wavelet, strip_rows, levels=2):
-        ll, b2, b1 = streamed_dwt2_2level(ll, wavelet, strip_rows=strip_rows, body=body)
-        coeffs += [b1, b2]
-        remaining -= 2
-    if remaining:
-        rest = fused_wavedec2(ll, wavelet, remaining)
-        ll = rest[0]
-        coeffs.extend(rest[:0:-1])
-    return [ll] + coeffs[::-1]
+    with _trace.span("streamed.wavedec2"):
+        if x.ndim == 2 and level >= 3 and streamed_deep_ok(
+                tuple(x.shape), x.element_size(), wavelet, level, strip_rows):
+            return streamed_wavedec2_deep(x, wavelet, level, strip_rows=strip_rows, body=body)
+        coeffs = []
+        ll = x
+        remaining = level
+        while remaining >= 2 and ll.ndim == 2 and streamed_supported(
+                tuple(ll.shape), wavelet, strip_rows, levels=2):
+            ll, b2, b1 = streamed_dwt2_2level(ll, wavelet, strip_rows=strip_rows, body=body)
+            coeffs += [b1, b2]
+            remaining -= 2
+        if remaining:
+            rest = fused_wavedec2(ll, wavelet, remaining)
+            ll = rest[0]
+            coeffs.extend(rest[:0:-1])
+        return [ll] + coeffs[::-1]
 
 
 def streamed_waverec2(coeffs, wavelet="cdf97", strip_rows: int = 0, body: str = "auto"):
@@ -706,28 +719,29 @@ def streamed_waverec2(coeffs, wavelet="cdf97", strip_rows: int = 0, body: str = 
     fused tail for small or odd-geometry levels.  Only the wrapper's own
     ``ValueError`` (geometry, pytree shapes) sends the deep attempt to the
     level loop; a launch error propagates."""
-    if len(coeffs) >= 4 and coeffs[0].ndim == 2:
-        try:
-            return streamed_waverec2_deep(coeffs, wavelet, strip_rows=strip_rows,
-                                          body=body)
-        except ValueError:
-            pass
-    ll = coeffs[0]
-    rest = list(coeffs[1:])
-    while rest:
-        if len(rest) >= 2:
-            b2, b1 = rest[0], rest[1]
-            h = b1[0].shape[-2] + b1[1].shape[-2]
-            w = b1[0].shape[-1] + b1[1].shape[-1]
-            if (ll.ndim == 2
-                    and streamed_supported((h, w), wavelet, strip_rows, levels=2)
-                    and ll.shape == b2[0].shape
-                    and all(b.shape == b2[0].shape for b in b2)
-                    and all(tuple(b.shape) == (h // 2, w // 2) for b in b1)):
-                ll = streamed_idwt2_2level(ll, b2, b1, wavelet, strip_rows=strip_rows,
-                                           body=body)
-                rest = rest[2:]
-                continue
-        ll = fused_waverec2([ll, rest[0]], wavelet)
-        rest = rest[1:]
-    return ll
+    with _trace.span("streamed.waverec2"):
+        if len(coeffs) >= 4 and coeffs[0].ndim == 2:
+            try:
+                return streamed_waverec2_deep(coeffs, wavelet, strip_rows=strip_rows,
+                                              body=body)
+            except ValueError:
+                pass
+        ll = coeffs[0]
+        rest = list(coeffs[1:])
+        while rest:
+            if len(rest) >= 2:
+                b2, b1 = rest[0], rest[1]
+                h = b1[0].shape[-2] + b1[1].shape[-2]
+                w = b1[0].shape[-1] + b1[1].shape[-1]
+                if (ll.ndim == 2
+                        and streamed_supported((h, w), wavelet, strip_rows, levels=2)
+                        and ll.shape == b2[0].shape
+                        and all(b.shape == b2[0].shape for b in b2)
+                        and all(tuple(b.shape) == (h // 2, w // 2) for b in b1)):
+                    ll = streamed_idwt2_2level(ll, b2, b1, wavelet, strip_rows=strip_rows,
+                                               body=body)
+                    rest = rest[2:]
+                    continue
+            ll = fused_waverec2([ll, rest[0]], wavelet)
+            rest = rest[1:]
+        return ll

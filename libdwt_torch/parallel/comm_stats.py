@@ -12,33 +12,32 @@ shard's operand (the halo rows a shard sends), as the reference's jaxpr
 sees it inside ``shard_map``.  So counts and bytes equal the reference's
 for the same call, but the call is executed, not traced.  The kernel halo
 (``halo_impl='rdma'``, B18) issues no ``ppermute``, as in the reference.
-``jaxpr_collective_stats`` has no counterpart.
+``jaxpr_collective_stats`` has no counterpart.  The counts go through the
+port's recorder (:mod:`libdwt_torch.utils.trace`), as the innermost
+recorder's ``collective.<primitive>`` counters.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict
+
+from libdwt_torch.utils import trace
 
 __all__ = ["collective_stats", "record"]
 
-#: the recorders of the collective_stats calls running now (innermost last)
-_active: List[Dict[str, Dict[str, int]]] = []
+#: the counters of :mod:`libdwt_torch.utils.trace` that hold collectives
+_PREFIX = "collective."
 
 
 def record(prim: str, nbytes: int) -> None:
     """Count one issue of ``prim`` moving ``nbytes`` (one shard's operand)."""
-    if _active:
-        slot = _active[-1].setdefault(prim, {"count": 0, "bytes": 0})
-        slot["count"] += 1
-        slot["bytes"] += int(nbytes)
+    trace.count(_PREFIX + prim, "count")
+    trace.count(_PREFIX + prim, "bytes", int(nbytes))
 
 
 def collective_stats(fn: Callable, *args, **kwargs) -> Dict[str, Dict[str, int]]:
-    """Run ``fn(*args, **kwargs)`` and return {primitive: {"count": n,
-    "bytes": b}} for the collectives it issued."""
-    stats: Dict[str, Dict[str, int]] = {}
-    _active.append(stats)
-    try:
+    """Run ``fn(*args, **kwargs)`` under a recorder of its own and return
+    {primitive: {"count": n, "bytes": b}} for the collectives it issued."""
+    with trace.recording() as rec:
         fn(*args, **kwargs)
-    finally:
-        _active.pop()
-    return stats
+    return {name[len(_PREFIX):]: dict(slot) for name, slot in rec.counts.items()
+            if name.startswith(_PREFIX)}

@@ -1160,3 +1160,37 @@ def test_b13_refuses_int32_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         ts.streamed_waverec2_deep(c, "cdf53", body="mxu")
     assert tf.KERNELS["B13"].launches == 0
+
+
+@pytest.mark.cuda
+def test_b2_b3_records_start_after_their_launch_spans(cuda_device):
+    """The program's spans and the profiler's device records share one
+    clock (``time.time_ns()``): in a short profiled loop of the fused J=5
+    pyramid of a 3x2160x4096 frame, every B2/B3 record starts after the
+    start of the ``kernel.launch`` span that issued it, matched in order.
+    Prints the offsets (µs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libdwt_torch.utils import trace
+
+    x = _img(2160, 4096, torch.float32, cuda_device, seed=31).expand(3, -1, -1).contiguous()
+    api.wavedec2(x, "cdf97", 5, impl="fused")
+    torch.cuda.synchronize()
+    with trace.recording() as rec, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            api.wavedec2(x, "cdf97", 5, impl="fused")
+        torch.cuda.synchronize()
+    starts = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        if "fwd2_kernel" in e.name() or "deep_fwd_kernel" in e.name():
+            starts.append(e.start_ns() if hasattr(e, "start_ns") else 1000 * e.start_us())
+    launches = sorted(s for name, s, _, _ in rec.spans if name == "kernel.launch")
+    starts.sort()
+    assert len(starts) == len(launches) == 4 * 3 * 2
+    offsets = [(r - s) / 1e3 for r, s in zip(starts, launches)]
+    print(f"B2/B3 record start - kernel.launch span start (us): min {min(offsets):.1f}, "
+          f"median {sorted(offsets)[len(offsets) // 2]:.1f}, max {max(offsets):.1f}; "
+          f"all {[round(o, 1) for o in offsets]}")
+    assert min(offsets) >= 0
